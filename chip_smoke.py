@@ -12,30 +12,56 @@ failure:
    every hand-written kernel from the sources in the checkout, one
    ``nvcc`` per source, into ``build/repro_torch/``.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at the reference test sweep's shapes, with
+   the main paths' shapes and at the reference test sweep's shapes, with
    the tolerance stated per dtype. Times are medians of CUDA-event times
    over repeated launches with the L2 cache flushed in between;
    ``bound`` is the least time the card could take (bytes over 3.35 TB/s
    or operations over the peak rate of their type, the larger).
-3. Main path: TURNIP's offloaded prefill, traced at llama-7b's full
-   width (d_model 4096, 32 heads, d_ff 11008, vocab 32000) and cut to 8
-   layers at S=2048 in float16 as ``benchmarks/fig10_prefill.py`` cuts
-   it, planned under fig10's tightest HBM budget scaled to the depth so
-   that weights and activations are offloaded, and run by
-   ``TurnipRuntime`` on the ByteArena in HBM with pinned host memory:
-   one warm-up, then four dispatch policies and ``mode='fixed'``. Every
-   run's logits are held against the port's plain evaluation
-   (``eval_taskgraph``, no plan, plain kernels) and against each other.
+   The rmsnorm kernel at [2048, 4096] float16 and the reference sweep;
+   the flash-attention kernel at the serving prefill's shape (8 x 768,
+   32 heads of 128, causal, bfloat16), at the paper's prompt (1 x 2048),
+   on ``tests/test_kernels.py``'s sweep and on two ``q_offset > 0`` cases,
+   each in float32, bfloat16 and float16. The library time is one
+   PyTorch call computing the same function (``F.rms_norm``,
+   ``F.scaled_dot_product_attention``), a yardstick the port never calls.
+3. Prefill path (slice 1): TURNIP's offloaded prefill, traced at
+   llama-7b's full width (d_model 4096, 32 heads, d_ff 11008, vocab
+   32000) and cut to 8 layers at S=2048 in float16 as
+   ``benchmarks/fig10_prefill.py`` cuts it, planned under fig10's
+   tightest HBM budget scaled to the depth so that weights and
+   activations are offloaded, and run by ``TurnipRuntime`` on the
+   ByteArena in HBM with pinned host memory: one warm-up, then four
+   dispatch policies and ``mode='fixed'``. Every run's logits are held
+   against the port's plain evaluation (``eval_taskgraph``, no plan, plain
+   kernels) and against each other.
+4. Serving path (slice 2): llama-7b at full width and full depth (32
+   layers, bfloat16, random weights drawn on the card from a seeded
+   ``torch.Generator``) behind the continuous-batching ``Engine``: 12
+   requests with prompts of 64-768 tokens (numpy seed 0) and 32 new
+   tokens each, ``batch_buckets=(1, 4, 8)``, 64-token KV blocks mirrored
+   to pinned host memory on the d2h copy stream, preemption every 8
+   decode steps, so swapped requests reload over the h2d copy stream;
+   once per reload policy. Three requests are held against the port's
+   unbatched ``naive_generate`` on the card and the policies against each
+   other (first-token logits within 2e-2 x max|logit|; tokens equal up to
+   the first near tie, a step whose reference top-two logits differ by
+   less than that).
 
-``--profile`` adds one more run of the main path under ``torch.profiler``
-and prints the card's busy time (the union of its kernel and copy
-intervals) and the device time by kernel name.
+Every path is driven with the kernels' launch counts set to 0 just before
+it and read just after; each path fails unless each of its kernels was
+launched, as many times as its shape says. ``--profile`` adds one more run
+of each path (the prefill under policy ``fixed``, the serving path under
+``critical-path``) under ``torch.profiler`` and prints the card's busy
+time (the union of its kernel and copy intervals), its idle share of the
+run's wall time, and the device time by kernel name.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
-of the path; the last line is ``{"ok": true, "device": {...}}``.
+(``launches`` counted on the serving path); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -43,11 +69,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+F16_FLOPS = 989e12                 # H100 SXM bf16/f16 tensor cores, dense
 # kernel-vs-plain tolerance per dtype: |k - p| <= atol + rtol * |p|. The
 # two differ only in the f32 summation order and the final rounding to
 # the storage type, so the tolerance is about one unit in the last place.
@@ -58,6 +87,30 @@ KERNEL_TOL = {"float32": (2e-5, 2e-4), "float16": (2e-3, 2e-3),
 # order of the streaming sums (the paper's sanctioned nondeterminism) and
 # in the kernel's rounding, compounded over 8 layers
 LOGIT_RTOL = 2e-2
+
+# flash attention: (label, (B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset)).
+# The first is the serving prefill's largest shape (the record's), the
+# second the paper's prompt; then tests/test_kernels.py's sweep and two
+# chunks of queries against a longer KV.
+FLASH_MAIN = [("serving-prefill", (8, 768, 768, 32, 32, 128, True, 0)),
+              ("paper-prompt", (1, 2048, 2048, 32, 32, 128, True, 0))]
+FLASH_SWEEP = [("gqa", (2, 128, 128, 4, 2, 64, True, 0)),
+               ("padded-tail", (1, 200, 200, 4, 4, 128, True, 0)),
+               ("bidirectional", (2, 64, 256, 8, 2, 64, False, 0)),
+               ("mqa-short-kv", (1, 256, 64, 2, 1, 64, True, 0)),
+               ("q-offset-192", (1, 64, 256, 4, 2, 32, True, 192)),
+               ("q-offset-512", (2, 256, 768, 32, 32, 128, True, 512))]
+
+SERVE_REQUESTS = 12
+SERVE_PROMPT = (64, 768)           # prompt lengths, uniform, numpy seed 0
+SERVE_MAX_NEW = 32
+SERVE_POLICIES = ("fixed", "random", "critical-path")
+SERVE_CHECKED = 3                  # requests held against naive_generate
+# first-token logits and near ties, relative to the largest reference
+# logit: bf16 keeps ~3 significant digits, and cuBLAS picks other kernels
+# for other batch shapes, so a batched and an unbatched run differ in the
+# last bits of every product, compounded over 32 layers
+SERVE_RTOL = 2e-2
 
 MAIN_LAYERS = 8
 MAIN_SEQ = 2048
@@ -169,6 +222,246 @@ def kernel_phase(torch, device) -> dict:
     return main
 
 
+def flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+                   itemsize) -> tuple[float, str]:
+    """Least time for the attention: q, k, v read once and o written once;
+    4 operations per (query, visible key, channel) (two products), the
+    visible keys counted for these shapes (causal rows see
+    min(Skv, i + q_offset + 1))."""
+    if causal:
+        visible = sum(min(Skv, i + q_offset + 1) for i in range(Sq))
+    else:
+        visible = Sq * Skv
+    ops = 4 * B * Hq * visible * Dh
+    peak = F32_FLOPS if itemsize == 4 else F16_FLOPS
+    t_ops = ops / peak
+    t_bytes = (2 * B * Sq * Hq + 2 * B * Skv * Hkv) * Dh * itemsize \
+        / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(torch, device) -> dict:
+    """flash_attention against flash_attention_plain on the card at the
+    main shapes (bfloat16, timed) and over the sweep in three dtypes.
+    Returns the record of the serving prefill's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 in full f32
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+    cases = [(lbl, shp, torch.bfloat16, True) for lbl, shp in FLASH_MAIN]
+    for lbl, shp in FLASH_MAIN + FLASH_SWEEP:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            if (lbl, dt) not in {(c[0], c[2]) for c in cases}:
+                cases.append((lbl, shp, dt, False))
+    main = None
+    for lbl, (B, Sq, Skv, Hq, Hkv, Dh, causal, off), dt, timed in cases:
+        q = torch.randn(B, Sq, Hq, Dh, generator=gen, device=device).to(dt)
+        k = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=device).to(dt)
+        v = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=device).to(dt)
+        o = flash_attention(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        p = flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+        name = str(dt).removeprefix("torch.")
+        atol, rtol = KERNEL_TOL[name]
+        err = (o.float() - p.float()).abs()
+        max_err = err.max().item()
+        ok = bool((err <= atol + rtol * p.float().abs()).all())
+        shape = f"{B}x{Sq}x{Skv} h{Hq}/{Hkv} d{Dh} causal={causal} " \
+                f"q_offset={off}"
+        line = (f"kernel flash_attention {lbl} {shape} {name}: max_abs_err "
+                f"{max_err:.3g} (tol {atol:g} + {rtol:g}*|plain|) ok={ok}")
+        if timed:
+            k_ms = _median_ms(lambda: flash_attention(
+                q, k, v, causal=causal, q_offset=off, out=o), torch, flush)
+            p_ms = _median_ms(lambda: flash_attention_plain(
+                q, k, v, causal=causal, q_offset=off), torch, flush)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), torch, flush)
+            bound_ms, bound_by = flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh,
+                                                causal, off, q.element_size())
+            line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
+                     f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+            if main is None:
+                main = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=lib_ms)
+        print(line, flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention kernel disagrees with its "
+                                 f"plain version at {lbl} {name}")
+        del q, k, v, o, p, err
+    # views at an unaligned stride: q, k, v sliced out of one fused
+    # projection whose rows are 513 floats long, one float in
+    x = torch.randn(2, 96, 8 * 64 + 1, generator=gen, device=device)
+    heads = x[..., 1:].view(2, 96, 8, 64)
+    q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
+    p = flash_attention_plain(q, k, v)
+    err = (flash_attention(q, k, v) - p).abs()
+    atol, rtol = KERNEL_TOL["float32"]
+    ok = bool((err <= atol + rtol * p.abs()).all())
+    print(f"kernel flash_attention strided-view 2x96 h4/2 d64 float32: "
+          f"max_abs_err {err.max().item():.3g} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("flash_attention disagrees on a strided view")
+    del flush
+    return main
+
+
+def serving_traffic(vocab: int) -> list[list[int]]:
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def serve_config(policy: str):
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(max_len=1024, batch_buckets=(1, 4, 8), block_size=64,
+                       offload=True, hot_window=64, preempt_every=8,
+                       reload_policy=policy)
+
+
+def _margin(row: np.ndarray, vocab: int) -> tuple[float, float]:
+    """(top-1 minus top-2 logit, max |logit|) of one row."""
+    r = np.asarray(row[:vocab], np.float32)
+    top2 = np.partition(r, -2)[-2:]
+    return float(top2[1] - top2[0]), float(np.abs(r).max())
+
+
+def agree_to_first_tie(ref: list[int], got: list[int],
+                       margins: list[tuple[float, float]]) -> bool:
+    """``got`` must equal ``ref`` up to the first near tie of the reference
+    (a step whose top-two logits differ by less than SERVE_RTOL x max
+    |logit|). Returns whether the two agree in full; raises otherwise."""
+    ties = [j for j, (gap, mx) in enumerate(margins) if gap < SERVE_RTOL * mx]
+    first_tie = ties[0] if ties else len(ref)
+    diffs = [j for j, (a, b) in enumerate(zip(ref, got)) if a != b]
+    if len(ref) != len(got):
+        diffs.append(min(len(ref), len(got)))
+    if diffs and diffs[0] < first_tie:
+        raise AssertionError(f"tokens differ at step {diffs[0]} before the "
+                             f"first near tie (step {first_tie}): "
+                             f"{ref} vs {got}")
+    return not diffs
+
+
+def run_serving(torch, device, model, params, prompts, *,
+                max_new: int = SERVE_MAX_NEW, checked: int = SERVE_CHECKED,
+                profile: bool = False) -> dict:
+    """The serving path under each reload policy, held against the port's
+    naive_generate and across policies. Returns each kernel's launches
+    over the policy runs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.serve import Engine, naive_generate
+
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    cuda = device.type == "cuda"
+    t = time.perf_counter()
+    with Engine(model, params, serve_config("fixed")) as warm:  # warm-up:
+        warm.generate([prompts[0][:64]], max_new=2)   # cuBLAS handles, pins
+    del warm
+    _phase("serving warm-up", t)
+
+    t = time.perf_counter()
+    oracle, oracle_margins, oracle_first = [], [], []
+    for i in range(checked):
+        rows: list = []
+        oracle.append(naive_generate(
+            model, params, prompts[i], max_new=max_new, max_len=1024, rid=i,
+            on_emit=lambda pos, row, rows=rows: rows.append(row.copy())))
+        oracle_margins.append([_margin(r, vocab) for r in rows])
+        oracle_first.append(rows[0])
+    _phase("serving oracle (naive_generate)", t)
+
+    launches = {"flash_attention": 0, "rmsnorm": 0}
+    streams: dict[str, list[list[int]]] = {}
+    margins_of: dict[str, dict[int, list]] = {}
+    for policy in SERVE_POLICIES:
+        margins: dict[int, list] = {i: [] for i in range(len(prompts))}
+        first: dict[int, np.ndarray] = {}
+
+        def on_emit(req, row, margins=margins, first=first):
+            margins[req.rid].append(_margin(row, vocab))
+            if req.rid < checked and req.rid not in first:
+                first[req.rid] = row.copy()
+
+        eng = Engine(model, params, serve_config(policy))
+        eng.on_emit = on_emit
+        gc.collect()               # the last run's engine and its 4 GiB cache
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0        # the serving path starts here
+        rmsnorm.launches = 0
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=max_new)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fa, n_rms = flash_attention.launches, rmsnorm.launches
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        eng.close()
+        st = eng.stats
+        del eng
+        forwards = st.prefill_calls + st.decode_steps
+        first_err = max(
+            float(np.abs(first[i] - oracle_first[i]).max()
+                  / np.abs(oracle_first[i]).max()) for i in range(checked))
+        full = sum(agree_to_first_tie(oracle[i], out[i], oracle_margins[i])
+                   for i in range(checked))
+        print(f"serve policy={policy}: wall_s {wall:.3f} prefill_time_s "
+              f"{st.prefill_time:.3f} decode_time_s {st.decode_time:.3f} "
+              f"stall_time_s {st.stall_time:.3f} decode_tok_s "
+              f"{st.decode_tok_s:.2f} tokens {st.tokens} prefill_calls "
+              f"{st.prefill_calls} decode_steps {st.decode_steps} swaps "
+              f"{st.swaps} offload_bytes {st.offload_bytes} reload_bytes "
+              f"{st.reload_bytes} peak_allocated_bytes {peak} "
+              f"flash_attention_launches {n_fa} (= {cfg.n_layers} x "
+              f"{st.prefill_calls} prefill calls) rmsnorm_launches {n_rms} "
+              f"(= {2 * cfg.n_layers + 1} x {forwards} forwards) "
+              f"first_token_logits_max_err/max|logit| {first_err:.3g} (tol "
+              f"{SERVE_RTOL:g}) match_naive_in_full {full}/{checked}",
+              flush=True)
+        assert all(len(o) == max_new for o in out), "a request fell short"
+        assert all(0 <= tok < vocab for o in out for tok in o)
+        assert st.swaps > 0 and st.offload_bytes > 0 and st.reload_bytes > 0, \
+            "no swap went over the copy streams"
+        if cuda:                  # on the CPU the wrappers launch nothing
+            assert n_fa == cfg.n_layers * st.prefill_calls > 0, \
+                f"flash_attention launched {n_fa} times"
+            assert n_rms == (2 * cfg.n_layers + 1) * forwards, \
+                f"rmsnorm launched {n_rms} times"
+        assert first_err <= SERVE_RTOL, "first-token logits disagree"
+        launches["flash_attention"] += n_fa
+        launches["rmsnorm"] += n_rms
+        streams[policy] = out
+        margins_of[policy] = margins
+    ref_policy = SERVE_POLICIES[0]
+    for policy in SERVE_POLICIES[1:]:
+        full = sum(agree_to_first_tie(streams[ref_policy][i],
+                                      streams[policy][i],
+                                      margins_of[ref_policy][i])
+                   for i in range(len(prompts)))
+        print(f"serve policy={policy} vs {ref_policy}: match_in_full "
+              f"{full}/{len(prompts)}", flush=True)
+    if profile:
+        def served() -> float:
+            gc.collect()
+            with Engine(model, params, serve_config("critical-path")) as eng:
+                t0 = time.perf_counter()
+                eng.generate(prompts, max_new=max_new)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+        profile_run(torch, "serve policy=critical-path", served)
+    return launches
+
+
 def build_main_path(*, arch=None, seq_len=MAIN_SEQ, n_layers=MAIN_LAYERS,
                     head_group=8, q_block=512, mlp_slices=2,
                     dtype="float16", budgets_gib=(3.0, 1.5)):
@@ -206,13 +499,14 @@ def build_main_path(*, arch=None, seq_len=MAIN_SEQ, n_layers=MAIN_LAYERS,
     raise RuntimeError("no budget makes the plan offload")
 
 
-def profile_run(torch, run) -> None:
+def profile_run(torch, label: str, run) -> None:
     """One run under torch.profiler: the card's busy time and idle share
-    over the run, and device time by kernel name."""
+    over the run's wall time (``run`` returns it in seconds), and device
+    time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rr = run()
+        wall_s = run()
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for e in prof.events():
@@ -223,8 +517,8 @@ def profile_run(torch, run) -> None:
         tot, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + (b - a) / 1e3, n + 1)
     if not spans:
-        print("profile: no device events recorded (device busy time not "
-              "measured)", flush=True)
+        print(f"profile {label}: no device events recorded (device busy "
+              "time not measured)", flush=True)
         return
     spans.sort()
     busy_us, cur_a, cur_b = 0.0, None, None
@@ -237,14 +531,14 @@ def profile_run(torch, run) -> None:
             cur_b = max(cur_b, b)
     busy_us += cur_b - cur_a
     window_ms = (max(b for _, b in spans) - spans[0][0]) / 1e3
-    print(f"profile: makespan_ms {rr.makespan * 1e3:.2f} device_window_ms "
+    print(f"profile {label}: wall_ms {wall_s * 1e3:.2f} device_window_ms "
           f"{window_ms:.2f} device_busy_ms {busy_us / 1e3:.2f} "
-          f"device_idle_share_of_makespan "
-          f"{1 - busy_us / 1e3 / (rr.makespan * 1e3):.3f} "
+          f"device_idle_share_of_wall {1 - busy_us / 1e3 / (wall_s * 1e3):.3f} "
           f"device_events {len(spans)}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:
-        print(f"profile: {ms:9.3f} ms {n:5d}x {name[:100]}", flush=True)
+        print(f"profile {label}: {ms:9.3f} ms {n:5d}x {name[:100]}",
+              flush=True)
 
 
 def run_main_path(torch, device, tr, res, cap, inputs, *, n_rms: int,
@@ -311,8 +605,25 @@ def run_main_path(torch, device, tr, res, cap, inputs, *, n_rms: int,
         assert err_runs <= LOGIT_RTOL * scale, "logits disagree across runs"
     launches = {"rmsnorm": rmsnorm.launches}
     if profile:
-        profile_run(torch, lambda: runtime("fixed", "nondet").run(inputs))
+        profile_run(torch, "prefill policy=fixed",
+                    lambda: runtime("fixed", "nondet").run(inputs).makespan)
     return launches
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def build_serving(torch, device, arch=None):
+    """llama-7b (or ``arch``) with random weights drawn on ``device`` from
+    a seeded generator."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    model = build_model(arch if arch is not None else get_arch("llama-7b"),
+                        device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    return model, params
 
 
 def main(argv: list[str]) -> int:
@@ -341,7 +652,8 @@ def main(argv: list[str]) -> int:
 
     t = time.perf_counter()
     rms = kernel_phase(torch, device)
-    print("kernels: rmsnorm", flush=True)
+    fa = flash_phase(torch, device)
+    print("kernels: rmsnorm flash_attention", flush=True)
     _phase("kernels", t)
 
     t = time.perf_counter()
@@ -361,17 +673,38 @@ def main(argv: list[str]) -> int:
     launches = run_main_path(torch, device, tr, res, cap, inputs,
                              n_rms=2 * MAIN_LAYERS + 1,
                              profile="--profile" in argv)
-    _phase("main path", t)
+    _phase("prefill path", t)
     if launches["rmsnorm"] == 0:
-        raise AssertionError("the main path launched no rmsnorm kernel")
+        raise AssertionError("the prefill path launched no rmsnorm kernel")
+    del inputs, tr, res
 
-    record = dict(name="rmsnorm", route="cuda",
-                  source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-                  replaces="src/repro/kernels/rmsnorm/kernel.py:13",
-                  launches=launches["rmsnorm"], **rms)
+    t = time.perf_counter()
+    model, params = build_serving(torch, device)
+    prompts = serving_traffic(model.cfg.vocab_size)
+    print(f"serving path: llama-7b, {model.cfg.n_layers} layers, bfloat16, "
+          f"{sum(t.numel() for t in _leaves(params))} parameters "
+          f"({sum(t.numel() * t.element_size() for t in _leaves(params))} B)"
+          f"; {len(prompts)} requests, prompt tokens "
+          f"{[len(p) for p in prompts]}, max_new {SERVE_MAX_NEW}", flush=True)
+    _phase("serving model", t)
+    t = time.perf_counter()
+    served = run_serving(torch, device, model, params, prompts,
+                         profile="--profile" in argv)
+    _phase("serving path", t)
+
+    records = [
+        dict(name="rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/kernel.py:13",
+             launches=served["rmsnorm"], **rms),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:23",
+             launches=served["flash_attention"], **fa)]
     _phase("total", t_all)
     print(card, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,8 @@ pinned memory is asynchronous), plain on the CPU.
 
 bfloat16 arrays from JAX are numpy arrays of an ``ml_dtypes`` type. They
 are recognised by their dtype's *name* and moved through a ``uint16``
-view, so this module never imports ``ml_dtypes``. The same conversions
+view, so this module never imports ``ml_dtypes``. :func:`params_from_reference`
+carries a model's parameter pytree across the same way. The same conversions
 serve the disk tier, which writes raw bytes through numpy.
 """
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["inputs_from_reference", "host_tensor", "numpy_bytes",
-           "tensor_from_bytes"]
+__all__ = ["inputs_from_reference", "params_from_reference", "host_tensor",
+           "numpy_bytes", "tensor_from_bytes"]
 
 
 def _from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -57,6 +58,18 @@ def inputs_from_reference(inputs: dict[int, np.ndarray], *,
     CPU."""
     pin = resolve_device(device).type == "cuda"
     return {tid: host_tensor(a, pin=pin) for tid, a in inputs.items()}
+
+
+def params_from_reference(params: dict, *,
+                          device: str | torch.device | None = None) -> dict:
+    """The reference's ``LM.init`` pytree, its leaves as numpy arrays
+    (``jax.tree.map(np.asarray, params)``; bfloat16 through its ``uint16``
+    view), as the port's parameter dict on ``device`` (default CUDA): the
+    same keys, the same nesting, the same values."""
+    dev = resolve_device(device)
+    return {k: (params_from_reference(v, device=dev) if isinstance(v, dict)
+                else _from_numpy(np.asarray(v)).to(dev))
+            for k, v in params.items()}
 
 
 def numpy_bytes(t: torch.Tensor) -> tuple[str, np.ndarray]:

@@ -159,11 +159,16 @@ class HostStore:
             for v in vals:
                 assert v.is_pinned(), "CUDA host store holds a pageable tensor"
 
-    def put_offload(self, key, value) -> None:
+    def put_offload(self, key, value, *, copy: bool = True) -> None:
         """Store a host copy of an offloaded tensor (or flat dict of
         tensors — a serving KV block) under ``key``; counts d2h traffic +
-        occupancy."""
-        value = self._host_copy(value)
+        occupancy. ``copy=False`` hands over a host copy the caller already
+        made with :meth:`_host_copy` and completed (the serving engine's
+        d2h stream does the copy itself, off the engine lock)."""
+        if copy:
+            value = self._host_copy(value)
+        else:
+            self._check_pinned(value)
         n = _nbytes(value)
         with self._lock:
             prev = self.offloaded.get(key)

@@ -27,6 +27,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 # kernel name -> its source, relative to the kernels package
 SOURCES: dict[str, str] = {
     "rmsnorm": "rmsnorm/csrc/rmsnorm.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, reduced
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import (BuildConfig, MemgraphOOM, TaskGraph, TensorSpec,
                               build_memgraph, lockcheck)
@@ -17,7 +18,12 @@ from repro_torch.core import ops as port_ops
 from repro_torch.core.bridge import inputs_from_reference
 from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
 from repro_torch.core.trace import TraceConfig, trace_prefill
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
+from repro_torch.models import build_model
+from repro_torch.serve import (Engine, PagedKVCache, RELOAD_POLICY_NAMES,
+                               ServeConfig, naive_generate)
 
 from helpers import int_inputs, random_taskgraph
 
@@ -157,3 +163,150 @@ def test_slow_kernels_keep_safe_overwrite_order(cuda, monkeypatch, seed):
                                ).run(host)
             for tid, w in want.items():
                 assert torch.equal(rr.outputs[tid].cpu(), w)
+
+
+# (B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset): tests/test_kernels.py's
+# sweep, two chunks of queries against a longer KV, and llama-7b's heads
+FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 4, 4, 128, True, 0),
+               (2, 64, 256, 8, 2, 64, False, 0), (1, 256, 64, 2, 1, 64, True, 0),
+               (1, 64, 256, 4, 2, 32, True, 192),
+               (2, 100, 300, 8, 8, 128, True, 200),
+               (2, 96, 96, 32, 32, 128, True, 0)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
+    """One launch per call; the kernel's f32 online softmax against the
+    materialised f32 scores of the plain version (TF32 off, so the plain
+    f32 products are full f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Sq, Skv, Hq, Hkv, Dh, causal, off = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(B, S, H, Dh, generator=gen, device=cuda).to(dtype)
+               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    rtol, atol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(
+        o.float(), flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=off).float(),
+        rtol=rtol, atol=atol)
+
+
+def test_flash_kernel_reads_strided_views_and_writes_out(cuda):
+    """q, k, v sliced out of one fused projection whose rows are 513
+    floats long, one float in (unaligned strides), and ``out`` a view into
+    a wider buffer: no copies, same result."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 80, 8 * 64 + 1, generator=gen, device=cuda)
+    heads = x[..., 1:].view(2, 80, 8, 64)
+    q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
+    buf = torch.zeros(2, 80, 5, 64, device=cuda)
+    out = buf[:, :, 1:]
+    assert flash_attention(q, k, v, out=out) is out
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v),
+                               rtol=2e-4, atol=2e-5)
+    assert float(buf[:, :, 0].abs().max()) == 0.0
+
+
+def test_flash_wrapper_refuses_what_it_cannot_launch(cuda):
+    q = torch.randn(1, 16, 4, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q)                 # k on another device
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48], q[..., :48], q[..., :48])  # head size
+
+
+def _serving_model(cuda, arch="llama-7b"):
+    """A reduced float32 model on the card and its twin on the CPU, with
+    the same parameters."""
+    cfg = reduced(get_arch(arch))
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(cuda)
+                for k, v in tree.items()}
+    return cpu_model, params, build_model(cfg, device=cuda), to(params)
+
+
+PROMPTS = [list(range(1, 25)), list(range(30, 48)), [7, 8, 9, 10, 11]]
+
+
+@pytest.mark.parametrize("policy", RELOAD_POLICY_NAMES)
+def test_engine_on_card_matches_cpu_oracle(cuda, policy):
+    """Offload and preemption over the real copy streams: the greedy
+    tokens equal the port's naive_generate run on the CPU with the same
+    parameters (float32, TF32 off), and every kernel launch is counted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model, params, model, gparams = _serving_model(cuda)
+    want = [naive_generate(cpu_model, params, p, max_new=8, max_len=64,
+                           rid=i) for i, p in enumerate(PROMPTS)]
+    cfg = ServeConfig(max_len=64, batch_buckets=(1, 2), block_size=8,
+                      offload=True, hot_window=0, preempt_every=3,
+                      reload_policy=policy)
+    fa0, rms0 = flash_attention.launches, rmsnorm.launches
+    with Engine(model, gparams, cfg) as eng:
+        assert eng.generate(PROMPTS, max_new=8) == want
+        st = eng.stats
+        assert st.swaps >= 1 and st.offload_bytes > 0 and st.reload_bytes > 0
+        assert eng.host.resident_bytes == 0
+    L = model.cfg.n_layers
+    assert flash_attention.launches - fa0 == L * st.prefill_calls
+    assert rmsnorm.launches - rms0 == (2 * L + 1) * (st.prefill_calls
+                                                     + st.decode_steps)
+
+
+def test_d2h_copies_wait_for_the_compute_stream(cuda, monkeypatch):
+    """ROADMAP C3. Every cache write is held back by a ~10 ms spin kernel
+    on the compute stream, so a d2h copy that started when the engine
+    lock was released, instead of after the compute stream's write
+    event, would read stale bytes. Each mirrored block must equal the
+    device bytes of its extent, in pinned host memory, and the tokens
+    must stay the oracle's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model, params, model, gparams = _serving_model(cuda)
+    want = [naive_generate(cpu_model, params, p, max_new=8, max_len=64,
+                           rid=i) for i, p in enumerate(PROMPTS)]
+
+    def spin():
+        torch.cuda._sleep(20_000_000)
+
+    real_scatter = PagedKVCache.scatter_prefill
+
+    def slow_scatter(self, slots, kv):
+        spin()
+        real_scatter(self, slots, kv)
+    monkeypatch.setattr(PagedKVCache, "scatter_prefill", slow_scatter)
+    real_step = model.decode_step
+
+    def slow_step(*a, **kw):
+        spin()
+        return real_step(*a, **kw)
+    model.decode_step = slow_step
+
+    cfg = ServeConfig(max_len=64, batch_buckets=(1,), block_size=8,
+                      offload=True, hot_window=0, preempt_every=3)
+    with Engine(model, gparams, cfg) as eng:
+        checked = []
+        real_put = eng.host.put_offload
+
+        def put(key, value, *, copy=True):      # engine lock held
+            assert not copy
+            rid, blk = key
+            assert all(t.is_pinned() for t in value.values())
+            torch.cuda.synchronize()
+            dev = eng.kv.read_block(eng.reqs[rid].slot, blk)
+            for name, t in value.items():
+                assert torch.equal(t, dev[name].cpu()), (key, name)
+            checked.append(key)
+            real_put(key, value, copy=copy)
+        eng.host.put_offload = put
+        assert eng.generate(PROMPTS, max_new=8) == want
+        assert eng.stats.swaps >= 1 and len(checked) >= 3

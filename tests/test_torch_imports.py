@@ -40,6 +40,8 @@ def test_port_sources_exist():
     files = _port_files()
     assert len(files) >= 20
     assert (ROOT / "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -58,7 +60,8 @@ def test_package_imports_without_jax():
         "import repro_torch.core, repro_torch.core.runtime, "
         "repro_torch.core.trace, repro_torch.core.bridge, "
         "repro_torch.configs, repro_torch.kernels.build, "
-        "repro_torch.kernels.rmsnorm.ops\n"
+        "repro_torch.kernels.rmsnorm.ops, repro_torch.models, "
+        "repro_torch.serve, repro_torch.kernels.flash_attention.ops\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
