@@ -21,9 +21,18 @@ failure:
    the flash-attention kernel at the serving prefill's shape (8 x 768,
    32 heads of 128, causal, bfloat16), at the paper's prompt (1 x 2048),
    on ``tests/test_kernels.py``'s sweep and on two ``q_offset > 0`` cases,
-   each in float32, bfloat16 and float16. The library time is one
-   PyTorch call computing the same function (``F.rms_norm``,
-   ``F.scaled_dot_product_attention``), a yardstick the port never calls.
+   each in float32, bfloat16 and float16. The grouped-matmul kernel
+   (``moe_gmm``) at moonshot-16b's expert shapes (D 2048, F 1408, 64
+   experts): the balanced serving-prefill shape (64 groups of 576 rows),
+   the same 8 x 768 tokens routed top-6 by a random moonshot router
+   (ragged groups, the record's shape), a bucket-8 decode step (48 routed
+   rows, most experts empty), groups of count 0 beside one that takes every
+   row, and ``tests/test_kernels.py``'s ``TestMoEGMM`` sweep through the
+   dense-grouped ``moe_gmm``, each in float32, bfloat16 and float16. The
+   library time is one PyTorch call computing the same function
+   (``F.rms_norm``, ``F.scaled_dot_product_attention``; for ``moe_gmm``
+   ``torch.bmm`` on the balanced shape, which does the routed shape's
+   operations), a yardstick the port never calls.
 3. Prefill path (slice 1): TURNIP's offloaded prefill, traced at
    llama-7b's full width (d_model 4096, 32 heads, d_ff 11008, vocab
    32000) and cut to 8 layers at S=2048 in float16 as
@@ -46,6 +55,26 @@ failure:
    other (first-token logits within 2e-2 x max|logit|; tokens equal up to
    the first near tie, a step whose reference top-two logits differ by
    less than that).
+5. MoE serving path (slice 3): the llama model is freed first. Then
+   moonshot-v1-16b-a3b at full width and full depth (48 layers, d_model
+   2048, 64 experts of 1408, top-6, vocab 163,840, bfloat16; random
+   weights drawn on the card from a seeded ``torch.Generator``, the expert
+   leaves directly in bfloat16) behind the same ``Engine``, traffic and
+   configuration as phase 4, under each reload policy. Every MoE layer
+   runs dropless through the grouped-matmul kernel, three launches per
+   layer per forward. The rule, fixed before the path first ran on the
+   card: three requests are held against the port's unbatched
+   ``naive_generate``, which also records, for each generated token, the
+   smallest relative gap (p_k - p_k+1) / p_k between the k-th and
+   (k+1)-th routing probability of the row that produced it (the last
+   prompt token for the first token, the decoded token after that) over
+   the 48 layers. A *routing near tie* is a gap under ROUTE_RTOL = 1e-3:
+   there a token can go to another expert in a batched run, and its
+   output then moves by a gate's worth, not by an ulp. First-token logits
+   within 2e-2 x max|logit| unless the first token is a routing near tie;
+   tokens equal up to the first near tie of either kind (phase 4's logit
+   ties, or routing). The three policies run the same batch shapes, so
+   their 12 streams must agree in full, with no allowance.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each path fails unless each of its kernels was
@@ -56,13 +85,15 @@ time (the union of its kernel and copy intervals), its idle share of the
 run's wall time, and the device time by kernel name.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
-(``launches`` counted on the serving path); the last line is
-``{"ok": true, "device": {...}}``.
+(``launches`` counted on the MoE serving path, which runs all three); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -82,6 +113,22 @@ F16_FLOPS = 989e12                 # H100 SXM bf16/f16 tensor cores, dense
 # the storage type, so the tolerance is about one unit in the last place.
 KERNEL_TOL = {"float32": (2e-5, 2e-4), "float16": (2e-3, 2e-3),
               "bfloat16": (3e-2, 3e-2)}
+# the grouped matmul's float32 products reduce over D = 2048: the kernel
+# and cuBLAS add the D products in other orders, and each order's rounding
+# grows with the partial sums (~sqrt(D) for unit inputs) over D terms, so
+# the absolute part of its float32 tolerance is 1e-6 x D (2.0e-3 at 2048,
+# ~1e-4 at the sweep's widths); the 16-bit types keep KERNEL_TOL, set by
+# their final rounding
+GMM_F32_ATOL_PER_D = 1e-6
+
+
+def gmm_tol(name: str, d: int) -> tuple[float, float]:
+    atol, rtol = KERNEL_TOL[name]
+    if name == "float32":
+        atol = max(atol, GMM_F32_ATOL_PER_D * d)
+    return atol, rtol
+
+
 # logits tolerance, relative to the largest reference logit: float16 keeps
 # ~3 decimal digits, and the runs differ from the plain evaluation in the
 # order of the streaming sums (the paper's sanctioned nondeterminism) and
@@ -111,6 +158,13 @@ SERVE_CHECKED = 3                  # requests held against naive_generate
 # for other batch shapes, so a batched and an unbatched run differ in the
 # last bits of every product, compounded over 32 layers
 SERVE_RTOL = 2e-2
+# a routing near tie: the reference's k-th and (k+1)-th routing
+# probabilities within this fraction of the k-th (see phase 5)
+ROUTE_RTOL = 1e-3
+MOE_ARCH = "moonshot-v1-16b-a3b"
+GMM_PREFILL_TOKENS = 8 * 768       # the serving prefill's largest call
+GMM_DECODE_TOKENS = 8              # a bucket-8 decode step
+GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 64, 64), (8, 16, 48, 32)]
 
 MAIN_LAYERS = 8
 MAIN_SEQ = 2048
@@ -312,6 +366,127 @@ def flash_phase(torch, device) -> dict:
     return main
 
 
+def gmm_bound_ms(rows: int, d: int, f: int, hit: int,
+                 itemsize: int) -> tuple[float, str]:
+    """Least time for a grouped matmul: the rows of x read once, the output
+    written once, the weights of the ``hit`` experts that received a row
+    read once; 2 operations per (row, d, f)."""
+    t_bytes = (rows * d + rows * f + hit * d * f) * itemsize / HBM_BYTES_PER_S
+    t_ops = 2 * rows * d * f / (F32_FLOPS if itemsize == 4 else F16_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gmm_phase(torch, device) -> dict:
+    """moe_gmm against its plain versions on the card at moonshot-16b's
+    expert shapes and on the reference sweep, in three dtypes; the three
+    main shapes timed in bfloat16. Returns the record of the routed
+    serving-prefill shape."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.moe_gmm.ops import (
+        grouped_matmul, grouped_matmul_plain, moe_gmm, moe_gmm_plain)
+    from repro_torch.models.layers import moe_route
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 in full f32
+    cfg = get_arch(MOE_ARCH)
+    D, Fe, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+    router = torch.randn(D, E, generator=gen, device=device) / math.sqrt(D)
+
+    def routed(n_tokens):
+        """x rows and groups from top-k routing of random tokens."""
+        x = torch.randn(n_tokens, D, generator=gen, device=device)
+        probs = torch.softmax(x @ router, dim=-1)
+        _, _, perm, offsets, counts = moe_route(probs, k)
+        return x[perm // k], offsets.int(), counts.int()
+
+    cases = []          # (label, x [R, D] f32, offsets, counts or None)
+    C = GMM_PREFILL_TOKENS * k // E
+    cases.append(("prefill-balanced", torch.randn(
+        E * C, D, generator=gen, device=device), None, None))
+    cases.append(("prefill-routed", *routed(GMM_PREFILL_TOKENS)))
+    cases.append(("decode-routed", *routed(GMM_DECODE_TOKENS)))
+    zero = torch.zeros(E, dtype=torch.int32, device=device)
+    full = zero.clone()
+    full[E // 2] = 300                  # one group takes every row
+    cases.append(("count-0-groups", torch.randn(
+        300, D, generator=gen, device=device), zero.clone(), full))
+    w32 = torch.randn(E, D, Fe, generator=gen, device=device)
+    main = None
+    for label, x32, offsets, counts in cases:
+        for dt in (torch.bfloat16, torch.float32, torch.float16):
+            x, w = x32.to(dt), w32.to(dt)
+            name = str(dt).removeprefix("torch.")
+            if counts is None:              # the dense-grouped interface
+                x3 = x.view(E, C, D)
+                y = moe_gmm(x3, w)
+                torch.cuda.synchronize()
+                p = moe_gmm_plain(x3, w)
+                hit = E
+            else:
+                y = grouped_matmul(x, w, offsets, counts)
+                torch.cuda.synchronize()
+                p = grouped_matmul_plain(x, w, offsets, counts)
+                hit = int((counts > 0).sum())
+            atol, rtol = gmm_tol(name, D)
+            err = (y.float() - p.float()).abs()
+            max_err = err.max().item()
+            ok = bool((err <= atol + rtol * p.float().abs()).all())
+            rows = x.shape[0]
+            line = (f"kernel moe_gmm {label} rows={rows} D={D} F={Fe} "
+                    f"experts_hit={hit}/{E} {name}: max_abs_err {max_err:.3g} "
+                    f"(tol {atol:g} + {rtol:g}*|plain|) ok={ok}")
+            if dt == torch.bfloat16 and label != "count-0-groups":
+                if counts is None:
+                    k_ms = _median_ms(lambda: moe_gmm(x3, w), torch, flush)
+                    p_ms = _median_ms(lambda: moe_gmm_plain(x3, w), torch,
+                                      flush)
+                    lib_ms = _median_ms(lambda: torch.bmm(x3, w), torch,
+                                        flush)
+                    bmm_ms = lib_ms
+                else:
+                    k_ms = _median_ms(lambda: grouped_matmul(
+                        x, w, offsets, counts, out=y), torch, flush)
+                    p_ms = _median_ms(lambda: grouped_matmul_plain(
+                        x, w, offsets, counts), torch, flush)
+                    lib_ms = None
+                bound_ms, bound_by = gmm_bound_ms(rows, D, Fe, hit,
+                                                  x.element_size())
+                line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                         f"library_ms {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
+                         f"bound_ms {bound_ms:.4f} ({bound_by})")
+                if label == "prefill-routed":
+                    # torch.bmm on the balanced shape: the same operations
+                    main = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=bmm_ms)
+            print(line, flush=True)
+            if not ok:
+                raise AssertionError(f"moe_gmm kernel disagrees with its "
+                                     f"plain version at {label} {name}")
+            del x, w, y, p, err
+    for E2, C2, D2, F2 in GMM_SWEEP:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = torch.randn(E2, C2, D2, generator=gen, device=device).to(dt)
+            w = torch.randn(E2, D2, F2, generator=gen, device=device).to(dt)
+            name = str(dt).removeprefix("torch.")
+            y = moe_gmm(x, w)
+            torch.cuda.synchronize()
+            p = moe_gmm_plain(x, w)
+            atol, rtol = gmm_tol(name, D2)
+            err = (y.float() - p.float()).abs()
+            ok = bool((err <= atol + rtol * p.float().abs()).all())
+            print(f"kernel moe_gmm sweep E={E2} C={C2} D={D2} F={F2} {name}: "
+                  f"max_abs_err {err.max().item():.3g} ok={ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"moe_gmm kernel disagrees with its "
+                                     f"plain version at {(E2, C2, D2, F2)} "
+                                     f"{name}")
+    del flush, w32, cases
+    return main
+
+
 def serving_traffic(vocab: int) -> list[list[int]]:
     rng = np.random.default_rng(0)
     lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
@@ -333,12 +508,14 @@ def _margin(row: np.ndarray, vocab: int) -> tuple[float, float]:
 
 
 def agree_to_first_tie(ref: list[int], got: list[int],
-                       margins: list[tuple[float, float]]) -> bool:
-    """``got`` must equal ``ref`` up to the first near tie of the reference
-    (a step whose top-two logits differ by less than SERVE_RTOL x max
-    |logit|). Returns whether the two agree in full; raises otherwise."""
+                       margins: list[tuple[float, float]],
+                       route_ties: list[int] = ()) -> bool:
+    """``got`` must equal ``ref`` up to the first near tie of the reference:
+    a step whose top-two logits differ by less than SERVE_RTOL x max
+    |logit|, or a step in ``route_ties`` (a routing near tie). Returns
+    whether the two agree in full; raises otherwise."""
     ties = [j for j, (gap, mx) in enumerate(margins) if gap < SERVE_RTOL * mx]
-    first_tie = ties[0] if ties else len(ref)
+    first_tie = min(ties + list(route_ties) + [len(ref)])
     diffs = [j for j, (a, b) in enumerate(zip(ref, got)) if a != b]
     if len(ref) != len(got):
         diffs.append(min(len(ref), len(got)))
@@ -349,19 +526,59 @@ def agree_to_first_tie(ref: list[int], got: list[int],
     return not diffs
 
 
+class RouteGaps:
+    """While active, every MoE block call records the smallest relative gap
+    (p_k - p_k+1) / p_k between the k-th and (k+1)-th routing probability
+    of its last token row: in an unbatched run, the row whose logits give
+    the next token. ``per_forward`` groups the calls by forward (one call
+    per layer) and keeps the smallest gap of each."""
+
+    def __init__(self, torch, n_layers: int):
+        from repro_torch.models import layers
+        self.torch, self.layers, self.n_layers = torch, layers, n_layers
+        self.gaps: list[float] = []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.layers.moe_block
+        self._orig = orig
+
+        def observed(p, x, *, n_experts, top_k, capacity_factor=1.25):
+            probs = torch.softmax(x[:, -1].float() @ p["router"], dim=-1)
+            top = probs.topk(top_k + 1, dim=-1).values
+            gap = (top[:, top_k - 1] - top[:, top_k]) / top[:, top_k - 1]
+            self.gaps.append(float(gap.min()))
+            return orig(p, x, n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor)
+        self.layers.moe_block = observed
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_block = self._orig
+
+    def per_forward(self) -> list[float]:
+        L = self.n_layers
+        return [min(self.gaps[i:i + L]) for i in range(0, len(self.gaps), L)]
+
+
 def run_serving(torch, device, model, params, prompts, *,
                 max_new: int = SERVE_MAX_NEW, checked: int = SERVE_CHECKED,
                 profile: bool = False) -> dict:
     """The serving path under each reload policy, held against the port's
-    naive_generate and across policies. Returns each kernel's launches
-    over the policy runs."""
+    naive_generate and across policies (for the MoE family by phase 5's
+    rule). Returns each kernel's launches over the policy runs."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.serve import Engine, naive_generate
 
     cfg = model.cfg
+    L = cfg.n_layers
     vocab = cfg.vocab_size
     cuda = device.type == "cuda"
+    moe = cfg.family == "moe"
+    kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm}
+    if moe:
+        kernels["moe_gmm"] = moe_gmm
     t = time.perf_counter()
     with Engine(model, params, serve_config("fixed")) as warm:  # warm-up:
         warm.generate([prompts[0][:64]], max_new=2)   # cuBLAS handles, pins
@@ -369,17 +586,31 @@ def run_serving(torch, device, model, params, prompts, *,
     _phase("serving warm-up", t)
 
     t = time.perf_counter()
-    oracle, oracle_margins, oracle_first = [], [], []
+    oracle, oracle_margins, oracle_first, route_ties = [], [], [], []
     for i in range(checked):
         rows: list = []
-        oracle.append(naive_generate(
-            model, params, prompts[i], max_new=max_new, max_len=1024, rid=i,
-            on_emit=lambda pos, row, rows=rows: rows.append(row.copy())))
+        gaps = RouteGaps(torch, L) if moe else contextlib.nullcontext()
+        with gaps:
+            oracle.append(naive_generate(
+                model, params, prompts[i], max_new=max_new, max_len=1024,
+                rid=i,
+                on_emit=lambda pos, row, rows=rows: rows.append(row.copy())))
         oracle_margins.append([_margin(r, vocab) for r in rows])
         oracle_first.append(rows[0])
+        if moe:
+            per_step = gaps.per_forward()
+            assert len(per_step) == len(rows), (len(per_step), len(rows))
+            route_ties.append([j for j, g in enumerate(per_step)
+                               if g < ROUTE_RTOL])
+            print(f"serve oracle request {i}: routing near ties at steps "
+                  f"{route_ties[i]} ({len(route_ties[i])} of {len(rows)}; "
+                  f"smallest gap {min(per_step):.3g}, tol {ROUTE_RTOL:g})",
+                  flush=True)
+        else:
+            route_ties.append([])
     _phase("serving oracle (naive_generate)", t)
 
-    launches = {"flash_attention": 0, "rmsnorm": 0}
+    launches = dict.fromkeys(kernels, 0)
     streams: dict[str, list[list[int]]] = {}
     margins_of: dict[str, dict[int, list]] = {}
     for policy in SERVE_POLICIES:
@@ -393,63 +624,74 @@ def run_serving(torch, device, model, params, prompts, *,
 
         eng = Engine(model, params, serve_config(policy))
         eng.on_emit = on_emit
-        gc.collect()               # the last run's engine and its 4 GiB cache
+        gc.collect()               # the last run's engine and its cache
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0        # the serving path starts here
-        rmsnorm.launches = 0
+        for fn in kernels.values():         # the serving path starts here
+            fn.launches = 0
         t0 = time.perf_counter()
         out = eng.generate(prompts, max_new=max_new)
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_fa, n_rms = flash_attention.launches, rmsnorm.launches
+        n = {name: fn.launches for name, fn in kernels.items()}
         peak = torch.cuda.max_memory_allocated() if cuda else None
         eng.close()
         st = eng.stats
         del eng
         forwards = st.prefill_calls + st.decode_steps
-        first_err = max(
-            float(np.abs(first[i] - oracle_first[i]).max()
-                  / np.abs(oracle_first[i]).max()) for i in range(checked))
-        full = sum(agree_to_first_tie(oracle[i], out[i], oracle_margins[i])
+        want = {"flash_attention": L * st.prefill_calls,
+                "rmsnorm": (2 * L + 1) * forwards, "moe_gmm": 3 * L * forwards}
+        first_err = [float(np.abs(first[i] - oracle_first[i]).max()
+                           / np.abs(oracle_first[i]).max())
+                     for i in range(checked)]
+        full = sum(agree_to_first_tie(oracle[i], out[i], oracle_margins[i],
+                                      route_ties[i])
                    for i in range(checked))
-        print(f"serve policy={policy}: wall_s {wall:.3f} prefill_time_s "
-              f"{st.prefill_time:.3f} decode_time_s {st.decode_time:.3f} "
-              f"stall_time_s {st.stall_time:.3f} decode_tok_s "
-              f"{st.decode_tok_s:.2f} tokens {st.tokens} prefill_calls "
-              f"{st.prefill_calls} decode_steps {st.decode_steps} swaps "
-              f"{st.swaps} offload_bytes {st.offload_bytes} reload_bytes "
-              f"{st.reload_bytes} peak_allocated_bytes {peak} "
-              f"flash_attention_launches {n_fa} (= {cfg.n_layers} x "
-              f"{st.prefill_calls} prefill calls) rmsnorm_launches {n_rms} "
-              f"(= {2 * cfg.n_layers + 1} x {forwards} forwards) "
-              f"first_token_logits_max_err/max|logit| {first_err:.3g} (tol "
-              f"{SERVE_RTOL:g}) match_naive_in_full {full}/{checked}",
-              flush=True)
+        counts = " ".join(f"{name}_launches {n[name]} (= {want[name]})"
+                          for name in kernels)
+        print(f"serve {cfg.name} policy={policy}: wall_s {wall:.3f} "
+              f"prefill_time_s {st.prefill_time:.3f} decode_time_s "
+              f"{st.decode_time:.3f} stall_time_s {st.stall_time:.3f} "
+              f"decode_tok_s {st.decode_tok_s:.2f} tokens {st.tokens} "
+              f"prefill_calls {st.prefill_calls} decode_steps "
+              f"{st.decode_steps} swaps {st.swaps} offload_bytes "
+              f"{st.offload_bytes} reload_bytes {st.reload_bytes} "
+              f"peak_allocated_bytes {peak} {counts} "
+              f"first_token_logits_max_err/max|logit| "
+              f"{[f'{e:.3g}' for e in first_err]} (tol {SERVE_RTOL:g}) "
+              f"match_naive_in_full {full}/{checked}", flush=True)
         assert all(len(o) == max_new for o in out), "a request fell short"
         assert all(0 <= tok < vocab for o in out for tok in o)
         assert st.swaps > 0 and st.offload_bytes > 0 and st.reload_bytes > 0, \
             "no swap went over the copy streams"
         if cuda:                  # on the CPU the wrappers launch nothing
-            assert n_fa == cfg.n_layers * st.prefill_calls > 0, \
-                f"flash_attention launched {n_fa} times"
-            assert n_rms == (2 * cfg.n_layers + 1) * forwards, \
-                f"rmsnorm launched {n_rms} times"
-        assert first_err <= SERVE_RTOL, "first-token logits disagree"
-        launches["flash_attention"] += n_fa
-        launches["rmsnorm"] += n_rms
+            for name in kernels:
+                assert n[name] == want[name] > 0, \
+                    f"{name} launched {n[name]} times, expected {want[name]}"
+        for i in range(checked):
+            if 0 not in route_ties[i]:
+                assert first_err[i] <= SERVE_RTOL, \
+                    f"first-token logits of request {i} disagree"
+        for name in kernels:
+            launches[name] += n[name]
         streams[policy] = out
         margins_of[policy] = margins
     ref_policy = SERVE_POLICIES[0]
     for policy in SERVE_POLICIES[1:]:
-        full = sum(agree_to_first_tie(streams[ref_policy][i],
-                                      streams[policy][i],
-                                      margins_of[ref_policy][i])
-                   for i in range(len(prompts)))
-        print(f"serve policy={policy} vs {ref_policy}: match_in_full "
-              f"{full}/{len(prompts)}", flush=True)
+        if moe:       # the same batch shapes: no allowance
+            full = sum(streams[ref_policy][i] == streams[policy][i]
+                       for i in range(len(prompts)))
+            assert full == len(prompts), \
+                f"policy {policy} disagrees with {ref_policy}"
+        else:
+            full = sum(agree_to_first_tie(streams[ref_policy][i],
+                                          streams[policy][i],
+                                          margins_of[ref_policy][i])
+                       for i in range(len(prompts)))
+        print(f"serve {cfg.name} policy={policy} vs {ref_policy}: "
+              f"match_in_full {full}/{len(prompts)}", flush=True)
     if profile:
         def served() -> float:
             gc.collect()
@@ -458,7 +700,7 @@ def run_serving(torch, device, model, params, prompts, *,
                 eng.generate(prompts, max_new=max_new)
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0
-        profile_run(torch, "serve policy=critical-path", served)
+        profile_run(torch, f"serve {cfg.name} policy=critical-path", served)
     return launches
 
 
@@ -631,6 +873,7 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_arch
     from repro_torch.core.bridge import inputs_from_reference
     from repro_torch.kernels import build
 
@@ -653,7 +896,8 @@ def main(argv: list[str]) -> int:
     t = time.perf_counter()
     rms = kernel_phase(torch, device)
     fa = flash_phase(torch, device)
-    print("kernels: rmsnorm flash_attention", flush=True)
+    gmm = gmm_phase(torch, device)
+    print("kernels: rmsnorm flash_attention moe_gmm", flush=True)
     _phase("kernels", t)
 
     t = time.perf_counter()
@@ -688,9 +932,30 @@ def main(argv: list[str]) -> int:
           f"{[len(p) for p in prompts]}, max_new {SERVE_MAX_NEW}", flush=True)
     _phase("serving model", t)
     t = time.perf_counter()
-    served = run_serving(torch, device, model, params, prompts,
-                         profile="--profile" in argv)
+    run_serving(torch, device, model, params, prompts,
+                profile="--profile" in argv)
     _phase("serving path", t)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = build_serving(torch, device, arch=get_arch(MOE_ARCH))
+    cfg = model.cfg
+    print(f"MoE serving path: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts of {cfg.d_ff}, top-"
+          f"{cfg.top_k}, bfloat16 (router float32), "
+          f"{sum(t.numel() for t in _leaves(params))} parameters "
+          f"({sum(t.numel() * t.element_size() for t in _leaves(params))} B)"
+          f"; peak_allocated_bytes after the draw "
+          f"{torch.cuda.max_memory_allocated()}", flush=True)
+    _phase("MoE serving model", t)
+    t = time.perf_counter()
+    served = run_serving(torch, device, model, params,
+                         serving_traffic(cfg.vocab_size),
+                         profile="--profile" in argv)
+    _phase("MoE serving path", t)
 
     records = [
         dict(name="rmsnorm", route="cuda",
@@ -701,7 +966,11 @@ def main(argv: list[str]) -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:23",
-             launches=served["flash_attention"], **fa)]
+             launches=served["flash_attention"], **fa),
+        dict(name="moe_gmm", route="cuda",
+             source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+             replaces="src/repro/kernels/moe_gmm/kernel.py:19",
+             launches=served["moe_gmm"], **gmm)]
     _phase("total", t_all)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

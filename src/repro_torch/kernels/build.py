@@ -28,6 +28,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES: dict[str, str] = {
     "rmsnorm": "rmsnorm/csrc/rmsnorm.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,4 +1,4 @@
-"""Decoder LM, dense family: the port of ``repro/models/lm.py``.
+"""Decoder LM, dense and MoE families: the port of ``repro/models/lm.py``.
 
 Parameters are a dict of tensors with the reference's pytree keys; the
 per-layer leaves under ``params["layers"]`` are stacked ``[L, ...]`` and a
@@ -13,17 +13,22 @@ Differences from the reference, on purpose:
   reference's functional update would copy the whole cache (4 GiB for
   llama-7b at batch 8 and 1024 tokens) on every step. The returned cache is
   the same dict of tensors that was passed in.
-* The norms and the prefill attention go to the port's Hopper kernels on
-  CUDA (``layers.rmsnorm``, ``layers.blockwise_attention``): per forward,
-  ``2L + 1`` rmsnorm launches and, in ``prefill`` and ``apply``, ``L``
-  flash-attention launches.
+* The norms, the prefill attention and the MoE experts go to the port's
+  Hopper kernels on CUDA (``layers.rmsnorm``, ``layers.blockwise_attention``,
+  ``layers.moe_block``): per forward, ``2L + 1`` rmsnorm launches, ``3L``
+  grouped-matmul launches for the MoE family and, in ``prefill`` and
+  ``apply``, ``L`` flash-attention launches.
+* The MoE block routes only the (token, k) pairs it keeps, through ragged
+  grouped matmuls (``layers.moe_block``), where the reference fills
+  ``[E, C, D]`` dispatch buffers; ``prefill`` and ``decode_step`` run it
+  dropless, as the reference does, with no host sync.
 * ``init`` draws from an explicit ``torch.Generator``; the bits differ from
   the reference's ``jax.random``. Carry the reference's parameters across
   with :func:`repro_torch.core.bridge.params_from_reference` to compute the
   same function.
 
-``remat``, ``loss`` and the MoE, RWKV and Zamba2 families wait for later
-slices.
+``remat`` and ``loss`` wait for the training slice, the RWKV and Zamba2
+families for the recurrent slice.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from . import layers as L
 __all__ = ["LM"]
 
 _KV_DTYPES = ("bf16", "int8")
+_FAMILIES = ("dense", "moe")
 
 
 def _norm(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -79,16 +85,20 @@ def layer_params(layers: dict, i: int) -> dict:
 
 
 class LM:
-    """Decoder-only LM, dense family, on ``device`` (default CUDA)."""
+    """Decoder-only LM, dense and MoE families, on ``device`` (default
+    CUDA). ``moe_capacity_factor`` bounds each expert's queue in ``apply``
+    (None: dropless); ``prefill`` and ``decode_step`` are always dropless."""
 
-    def __init__(self, cfg: ArchConfig, *, kv_cache_dtype: str = "bf16",
-                 device=None) -> None:
-        if cfg.family != "dense":
-            raise ValueError(f"the port's LM runs the dense family; "
+    def __init__(self, cfg: ArchConfig, *,
+                 moe_capacity_factor: float | None = 1.25,
+                 kv_cache_dtype: str = "bf16", device=None) -> None:
+        if cfg.family not in _FAMILIES:
+            raise ValueError(f"the port's LM runs the {_FAMILIES} families; "
                              f"{cfg.family!r} waits for a later slice")
         if kv_cache_dtype not in _KV_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {_KV_DTYPES}")
         self.cfg = cfg
+        self.moe_capacity_factor = moe_capacity_factor
         self.kv_cache_dtype = kv_cache_dtype
         self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
@@ -112,17 +122,29 @@ class LM:
                                                 device=dev)}
         lp.update(_with_prefix("ln1", _norm_init(cfg, D, dt, Ln, dev)))
         lp.update(_with_prefix("ln2", _norm_init(cfg, D, dt, Ln, dev)))
-        lp["mlp"] = L.mlp_init(gen, D, cfg.d_ff, cfg.mlp, dt,
-                               bias=(cfg.mlp == "gelu"), leading=Ln,
-                               device=dev)
+        if cfg.family == "moe":
+            lp["moe"] = L.moe_init(gen, D, cfg.d_ff, cfg.n_experts, dt,
+                                   leading=Ln, device=dev)
+        else:
+            lp["mlp"] = L.mlp_init(gen, D, cfg.d_ff, cfg.mlp, dt,
+                                   bias=(cfg.mlp == "gelu"), leading=Ln,
+                                   device=dev)
         params["layers"] = lp
         return params
 
     # ------------------------------------------------------------ blocks
-    def _mlp(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.mlp == "swiglu":
-            return L.swiglu_mlp(p["mlp"], x)
-        return L.gelu_mlp(p["mlp"], x)
+    def _ffn(self, p: dict, x: torch.Tensor,
+             capacity_factor: float | None = None):
+        """(the MLP's or the MoE block's output, the MoE aux loss or
+        None)."""
+        cfg = self.cfg
+        if "moe" in p:
+            return L.moe_block(p["moe"], x, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k,
+                               capacity_factor=capacity_factor)
+        if cfg.mlp == "swiglu":
+            return L.swiglu_mlp(p["mlp"], x), None
+        return L.gelu_mlp(p["mlp"], x), None
 
     def _attn_mlp_block(self, p: dict, h: torch.Tensor,
                         positions: torch.Tensor) -> torch.Tensor:
@@ -132,15 +154,21 @@ class LM:
             p["attn"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             d_head=cfg.d_head, positions=positions,
             rope_theta=cfg.rope_theta)
-        return h + self._mlp(p, _norm(cfg, p, "ln2", h))
+        y, aux = self._ffn(p, _norm(cfg, p, "ln2", h),
+                           self.moe_capacity_factor)
+        if aux is not None:
+            self._aux = self._aux + aux
+        return h + y
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device)[None].expand(B, S)
 
     # ------------------------------------------------------------- apply
     def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Full forward: tokens [B, S] → logits [B, S, padded_vocab]."""
+        """Full forward: tokens [B, S] → logits [B, S, padded_vocab]. Also
+        sets ``self._aux``, the MoE aux loss summed over the layers."""
         B, S = tokens.shape
+        self._aux = torch.zeros((), dtype=torch.float32, device=self.device)
         h = params["embed"][tokens]
         positions = self._positions(B, S)
         for i in range(self.cfg.n_layers):
@@ -197,7 +225,7 @@ class LM:
             vs[i].copy_(v)
             o = L.blockwise_attention(q, k, v, causal=True)
             h = h + o.reshape(B, S, cfg.n_heads * Dh) @ pa["wo"]
-            h = h + self._mlp(lp, _norm(cfg, lp, "ln2", h))
+            h = h + self._ffn(lp, _norm(cfg, lp, "ln2", h))[0]
         h = _norm(cfg, params, "ln_f", h)
         rows = torch.arange(B, device=h.device)
         last = h[rows, (lengths.to(h.device) - 1).clamp_min(0)]   # [B, D]
@@ -243,7 +271,7 @@ class LM:
         else:
             o = L.decode_attention(q, put("k", k), put("v", v), lens + 1)
         h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ pa["wo"]
-        return h + self._mlp(p, _norm(cfg, p, "ln2", h))
+        return h + self._ffn(p, _norm(cfg, p, "ln2", h))[0]
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,
                     cache_len, active: torch.Tensor | None = None

@@ -20,6 +20,9 @@ from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
 from repro_torch.core.trace import TraceConfig, trace_prefill
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
+from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,
+                                             grouped_matmul_plain, moe_gmm,
+                                             moe_gmm_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
 from repro_torch.models import build_model
 from repro_torch.serve import (Engine, PagedKVCache, RELOAD_POLICY_NAMES,
@@ -223,6 +226,113 @@ def test_flash_wrapper_refuses_what_it_cannot_launch(cuda):
         flash_attention(q[..., :48], q[..., :48], q[..., :48])  # head size
 
 
+def gmm_tol(dtype, d: int) -> tuple[float, float]:
+    """KERNEL_TOL, with the float32 absolute part grown to 1e-6 x D: the
+    kernel and cuBLAS add a row's D products in other orders, and each
+    order's rounding grows with the partial sums over D terms."""
+    rtol, atol = KERNEL_TOL[dtype]
+    if dtype == torch.float32:
+        atol = max(atol, 1e-6 * d)
+    return rtol, atol
+
+
+# grouped matmul: (label, R, D, F, [(offset, count) per group]); rows in
+# no group must keep what ``out`` held
+GMM_CASES = [
+    ("empty-and-full", 40, 64, 48, [(0, 0), (0, 40), (40, 0)]),
+    ("unaligned-widths", 37, 33, 130, [(0, 5), (5, 1), (6, 31)]),
+    ("rows-outside-groups", 300, 96, 136, [(3, 100), (120, 0), (120, 7),
+                                           (140, 150)]),
+    ("decode-like", 48, 2048, 1408, [(0, 2)] + [(2 + i, 1) for i in range(30)]
+     + [(32, 16)] + [(48, 0)] * 32),
+    ("tile-edges", 513, 256, 200, [(0, 64), (64, 65), (129, 127), (256, 257)]),
+]
+
+
+@pytest.mark.parametrize("case", GMM_CASES, ids=[c[0] for c in GMM_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_moe_gmm_kernel_matches_plain_on_card(cuda, case, dtype):
+    """One launch per call; the kernel against the plain loop over groups
+    (TF32 off), and rows in no group untouched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, R, D, F, groups = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(R, D, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(len(groups), D, F, generator=gen, device=cuda).to(dtype)
+    offsets = torch.tensor([o for o, _ in groups], dtype=torch.int32,
+                           device=cuda)
+    counts = torch.tensor([c for _, c in groups], dtype=torch.int32,
+                          device=cuda)
+    out = torch.full((R, F), 7.0, dtype=dtype, device=cuda)
+    before = moe_gmm.launches
+    assert grouped_matmul(x, w, offsets, counts, out=out) is out
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1
+    want = grouped_matmul_plain(x, w, offsets, counts,
+                                out=torch.full_like(out, 7.0))
+    rtol, atol = gmm_tol(dtype, D)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_moe_gmm_kernel_reads_views_and_the_dense_interface(cuda, dtype):
+    """x rows at an odd stride and offset (the kernel's element-load path),
+    a layer's view w[i] of stacked weights, and the reference's
+    dense-grouped ``moe_gmm`` on the sweep of tests/test_kernels.py."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rtol, atol = gmm_tol(dtype, 96)
+    big = torch.randn(70, 97, generator=gen, device=cuda).to(dtype)
+    x = big[:, 1:]                                   # [70, 96], stride 97
+    stacked = torch.randn(3, 4, 96, 72, generator=gen, device=cuda).to(dtype)
+    offsets = torch.tensor([0, 10, 10, 40], dtype=torch.int32, device=cuda)
+    counts = torch.tensor([10, 0, 30, 30], dtype=torch.int32, device=cuda)
+    got = grouped_matmul(x, stacked[2], offsets, counts)
+    torch.cuda.synchronize()
+    want = grouped_matmul_plain(x, stacked[2], offsets, counts)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    for E, C, D, F in [(4, 100, 96, 130), (2, 64, 64, 64), (8, 16, 48, 32)]:
+        xe = torch.randn(E, C, D, generator=gen, device=cuda).to(dtype)
+        we = torch.randn(E, D, F, generator=gen, device=cuda).to(dtype)
+        torch.testing.assert_close(moe_gmm(xe, we).float(),
+                                   moe_gmm_plain(xe, we).float(), rtol=rtol,
+                                   atol=atol)
+
+
+def test_moe_block_is_batch_invariant_on_card(cuda):
+    """A token's MoE output does not depend on the other rows of its batch:
+    one moonshot-width layer (2048 -> 64 experts of 1408, top-6, bf16)
+    over 663 tokens alone and as the first rows of 6144, bit for bit. The
+    grouped matmul computes each row on its own; the router logits are
+    rounded from an f64 product, since cuBLAS's f32 product sums a row in
+    an order that depends on the number of rows."""
+    from repro_torch.models.layers import moe_block, moe_init
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p = moe_init(gen, 2048, 1408, 64, torch.bfloat16, device=cuda)
+    x = torch.randn(1, 6144, 2048, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    kw = dict(n_experts=64, top_k=6, capacity_factor=None)
+    alone, _ = moe_block(p, x[:, :663], **kw)
+    batched, _ = moe_block(p, x, **kw)
+    assert torch.equal(alone, batched[:, :663])
+
+
+def test_moe_gmm_wrapper_refuses_what_it_cannot_launch(cuda):
+    x = torch.randn(8, 16, device=cuda)
+    w = torch.randn(2, 16, 4, device=cuda)
+    off = torch.tensor([0, 4], dtype=torch.int32, device=cuda)
+    cnt = torch.tensor([4, 4], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        grouped_matmul(x, w, off.cpu(), cnt)           # offsets on the host
+    with pytest.raises(ValueError):
+        grouped_matmul(x, w.cpu(), off, cnt)           # w on another device
+    with pytest.raises(TypeError):
+        grouped_matmul(x.double(), w.double(), off, cnt)
+
+
 def _serving_model(cuda, arch="llama-7b"):
     """A reduced float32 model on the card and its twin on the CPU, with
     the same parameters."""
@@ -310,3 +420,30 @@ def test_d2h_copies_wait_for_the_compute_stream(cuda, monkeypatch):
         eng.host.put_offload = put
         assert eng.generate(PROMPTS, max_new=8) == want
         assert eng.stats.swaps >= 1 and len(checked) >= 3
+
+
+@pytest.mark.parametrize("policy", RELOAD_POLICY_NAMES)
+def test_moe_engine_on_card_matches_cpu_oracle(cuda, policy):
+    """Reduced granite-moe-1b, float32: offload and preemption over the
+    real copy streams; the greedy tokens equal the port's naive_generate
+    on the CPU with the same parameters, and every forward launches the
+    grouped-matmul kernel three times per layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model, params, model, gparams = _serving_model(
+        cuda, "granite-moe-1b-a400m")
+    want = [naive_generate(cpu_model, params, p, max_new=8, max_len=64,
+                           rid=i) for i, p in enumerate(PROMPTS)]
+    cfg = ServeConfig(max_len=64, batch_buckets=(1, 2), block_size=8,
+                      offload=True, hot_window=0, preempt_every=3,
+                      reload_policy=policy)
+    fa0, rms0, gmm0 = (flash_attention.launches, rmsnorm.launches,
+                       moe_gmm.launches)
+    with Engine(model, gparams, cfg) as eng:
+        assert eng.generate(PROMPTS, max_new=8) == want
+        st = eng.stats
+        assert st.swaps >= 1 and st.offload_bytes > 0 and st.reload_bytes > 0
+    L = model.cfg.n_layers
+    forwards = st.prefill_calls + st.decode_steps
+    assert flash_attention.launches - fa0 == L * st.prefill_calls
+    assert rmsnorm.launches - rms0 == (2 * L + 1) * forwards
+    assert moe_gmm.launches - gmm0 == 3 * L * forwards

@@ -42,6 +42,7 @@ def test_port_sources_exist():
     assert (ROOT / "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -61,7 +62,8 @@ def test_package_imports_without_jax():
         "repro_torch.core.trace, repro_torch.core.bridge, "
         "repro_torch.configs, repro_torch.kernels.build, "
         "repro_torch.kernels.rmsnorm.ops, repro_torch.models, "
-        "repro_torch.serve, repro_torch.kernels.flash_attention.ops\n"
+        "repro_torch.serve, repro_torch.kernels.flash_attention.ops, "
+        "repro_torch.kernels.moe_gmm.ops\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
