@@ -13,7 +13,9 @@ failure:
    ``nvcc`` per source, into ``build/repro_torch/``.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at the reference test sweep's shapes, with
-   the tolerance stated per dtype. Times are medians of CUDA-event times
+   the tolerance stated per dtype (for attention outputs in 16 bits, two
+   units in the last place plus a share of each row's rms:
+   ``attention_limit``). Times are medians of CUDA-event times
    over repeated launches with the L2 cache flushed in between;
    ``bound`` is the least time the card could take (bytes over 3.35 TB/s
    or operations over the peak rate of their type, the larger).
@@ -32,7 +34,18 @@ failure:
    library time is one PyTorch call computing the same function
    (``F.rms_norm``, ``F.scaled_dot_product_attention``; for ``moe_gmm``
    ``torch.bmm`` on the balanced shape, which does the routed shape's
-   operations), a yardstick the port never calls.
+   operations), a yardstick the port never calls. The flash kernel also at
+   zamba2-7b's shared-block shape (2 x 8192, 32 heads of 112, causal,
+   bfloat16; its plain version over groups of 4 heads), timed beside
+   ``F.scaled_dot_product_attention``. The recurrent scans at their main
+   path's shapes in float32 and on ``tests/test_kernels.py``'s sweeps in
+   float32 and bfloat16: ``ssd_scan`` at zamba2-7b's (2 x 8192, 112 heads
+   of 64, state 64, chunk 128) with the test's input ranges, and once more
+   on zamba2-7b's ranges, held with its plain version against a float64
+   evaluation (``ssd_model_range`` says why); ``wkv6`` at rwkv6-7b's
+   (2 x 8192, 64 heads of 64, chunk 32; log decays -exp(-6 + 2 N(0, 1))
+   clipped at -20). No single PyTorch call computes either scan, so their
+   library time is none.
 3. Prefill path (slice 1): TURNIP's offloaded prefill, traced at
    llama-7b's full width (d_model 4096, 32 heads, d_ff 11008, vocab
    32000) and cut to 8 layers at S=2048 in float16 as
@@ -75,22 +88,43 @@ failure:
    tokens equal up to the first near tie of either kind (phase 4's logit
    ties, or routing). The three policies run the same batch shapes, so
    their 12 streams must agree in full, with no allowance.
+6. Recurrent path (slice 4): the MoE model is freed first. Then
+   rwkv6-7b (32 layers, d_model 4096, 64 heads of 64, d_ff 14336, vocab
+   65,536) and zamba2-7b (81 Mamba2 layers in 13 groups of 6 and a tail
+   of 3, d_model 3584, 112 SSM heads of 64, state 64; one shared
+   attention+MLP block called before each group, 32 heads of 112) in
+   turn, each at full width and depth in bfloat16 with random weights
+   drawn on the card from a seeded ``torch.Generator`` (rwkv6-7b's
+   zero-initialised leaves redrawn, see ``build_recurrent``). ``apply`` on
+   2 x 8192 tokens (numpy seed 0): one warm-up, then 3 timed runs; the
+   median, tokens/s, the peak allocated bytes and each kernel's launches,
+   asserted per forward (rwkv6-7b: 32 wkv6 and 32 rmsnorm; zamba2-7b: 81
+   ssd_scan, 108 rmsnorm and 13 flash attention), and the bfloat16 noise
+   floor (``apply`` on one token at two batch shapes). Then the
+   reference's own check at full size, decode against apply, on the same
+   model drawn in float32 (``decode_check``'s rule, and why float32): 150
+   one-token ``decode_step``s of 2 rows against ``apply`` at every
+   position.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each path fails unless each of its kernels was
 launched, as many times as its shape says. ``--profile`` adds one more run
-of each path (the prefill under policy ``fixed``, the serving path under
-``critical-path``) under ``torch.profiler`` and prints the card's busy
-time (the union of its kernel and copy intervals), its idle share of the
-run's wall time, and the device time by kernel name.
+of each path (the prefill under policy ``fixed``, the serving paths under
+``critical-path``, one ``apply`` of each recurrent model) under
+``torch.profiler`` and prints the card's busy time (the union of its
+kernel and copy intervals), its idle share of the run's wall time, and the
+device time by kernel name.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
-(``launches`` counted on the MoE serving path, which runs all three); the
-last line is ``{"ok": true, "device": {...}}``.
+(``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
+serving path, which runs all three; of ssd_scan on zamba2-7b's and of
+wkv6 on rwkv6-7b's timed ``apply`` runs); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -171,6 +205,30 @@ MAIN_SEQ = 2048
 POLICY_RUNS = [("random", "nondet"), ("fixed", "nondet"),
                ("critical-path", "nondet"), ("transfer-first", "nondet"),
                ("fixed", "fixed")]
+
+# the recurrent scans: tests/test_kernels.py's tolerances in float32, and
+# KERNEL_TOL's in bfloat16 (one rounding of an f32 sum)
+SCAN_TOL = {"ssd_scan": {"float32": (5e-4, 5e-4), "bfloat16": (3e-2, 3e-2)},
+            "wkv6": {"float32": (1e-3, 1e-3), "bfloat16": (3e-2, 3e-2)}}
+# main-path shapes: zamba2-7b's Mamba layers (B, S, H, P, N, chunk) and
+# rwkv6-7b's time mix (B, S, H, P, chunk) at the recurrent path's 2 x 8192
+SSD_MAIN = (2, 8192, 112, 64, 64, 128)
+WKV_MAIN = (2, 8192, 64, 64, 32)
+# tests/test_kernels.py's TestSSDScan and TestWKV6 sweeps (S padding
+# included)
+SSD_SWEEP = [(2, 100, 3, 32, 16, 32), (1, 64, 2, 64, 64, 16),
+             (2, 33, 1, 16, 8, 64)]
+WKV_SWEEP = [(2, 100, 3, 32, 25), (1, 31, 2, 64, 8), (2, 64, 1, 16, 64)]
+# zamba2-7b's shared attention block at the recurrent path's shape:
+# (B, S, heads, head size 3584 / 32), causal, bfloat16
+FLASH_112 = (2, 8192, 32, 112)
+FLASH_112_PLAIN_GROUP = 4      # heads per plain call ([B,4,S,S] f32 scores)
+
+RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-7b")
+RECURRENT_TOKENS = (2, 8192)   # apply's batch, numpy seed 0
+RECURRENT_TIMED = 3            # timed apply runs after one warm-up
+DECODE_CHECK = (2, 150)        # rows x tokens: 150 is no multiple of 128/32
+DECODE_MAX_LEN = 160
 
 
 def _phase(name: str, t0: float) -> None:
@@ -320,14 +378,15 @@ def flash_phase(torch, device) -> dict:
         torch.cuda.synchronize()
         p = flash_attention_plain(q, k, v, causal=causal, q_offset=off)
         name = str(dt).removeprefix("torch.")
-        atol, rtol = KERNEL_TOL[name]
         err = (o.float() - p.float()).abs()
         max_err = err.max().item()
-        ok = bool((err <= atol + rtol * p.float().abs()).all())
+        ratio = (err / attention_limit(p, name)).max().item()
+        ok = ratio <= 1.0
         shape = f"{B}x{Sq}x{Skv} h{Hq}/{Hkv} d{Dh} causal={causal} " \
                 f"q_offset={off}"
         line = (f"kernel flash_attention {lbl} {shape} {name}: max_abs_err "
-                f"{max_err:.3g} (tol {atol:g} + {rtol:g}*|plain|) ok={ok}")
+                f"{max_err:.3g} max err/limit {ratio:.3g} (attention_limit) "
+                f"ok={ok}")
         if timed:
             k_ms = _median_ms(lambda: flash_attention(
                 q, k, v, causal=causal, q_offset=off, out=o), torch, flush)
@@ -485,6 +544,236 @@ def gmm_phase(torch, device) -> dict:
                                      f"{name}")
     del flush, w32, cases
     return main
+
+
+def ssd_bound_ms(B, S, H, P, N, chunk, itemsize) -> tuple[float, str]:
+    """Least time for the SSD scan: x, dt, B, C read once and y written
+    once; per chunk of n rows, per b, the lower triangle's C.B products
+    (n(n+1)/2 x N multiply-adds: B and C are shared by the heads, so C.B is
+    needed once for all of them), and per (b, h) its weights (an
+    exponential and two products each), its weighted sum of x (x P), the
+    incoming-state term and the state update (n x P x N multiply-adds
+    each): two operations a multiply-add, one an exponential or a
+    product."""
+    ops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        tri = n * (n + 1) // 2
+        ops += B * 2 * tri * N \
+            + B * H * (2 * tri * P + 3 * tri + 2 * 2 * n * P * N)
+    t_ops = ops / F32_FLOPS
+    t_bytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize \
+        / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def wkv6_bound_ms(B, S, H, P, chunk, itemsize) -> tuple[float, str]:
+    """Least time for WKV6: r, k, v, lw read once and y written once; per
+    chunk of n rows, per (b, h), the strict lower triangle's A terms
+    (n(n-1)/2 x P, each two products, a sum and an exponential), A v
+    (n(n-1)/2 x P multiply-adds), the bonus (5 n P), the incoming-state
+    term and the state update (n x P x P multiply-adds each, and 2 n P for
+    their decay factors)."""
+    ops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        tri = n * (n - 1) // 2
+        ops += 4 * tri * P + 2 * tri * P + 5 * n * P \
+            + 2 * 2 * n * P * P + 2 * 2 * n * P
+    ops *= B * H
+    t_ops = ops / F32_FLOPS
+    t_bytes = 5 * B * S * H * P * itemsize / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_limit(want, name: str):
+    """Elementwise limit on |kernel - plain| for an attention output
+    [..., Dh]. float32: KERNEL_TOL. 16-bit: two units in the last place of
+    |plain| (2^-6 relative in bfloat16, 2^-9 in float16: the two differ
+    in the f32 summation order, then each rounds once), plus 2^-8 of the
+    row's rms for outputs near zero. A row's outputs shrink as it sees more
+    keys (~sqrt(e / keys) for unit inputs at these head sizes: 0.018 at key
+    8192), so a limit fixed in absolute terms would pass a wrong late row;
+    this one scales with each row."""
+    want = want.float()
+    if name == "float32":
+        atol, rtol = KERNEL_TOL[name]
+        return atol + rtol * want.abs()
+    ulp = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}[name]
+    rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+    return 2 * ulp * want.abs() + 2.0 ** -8 * rms
+
+
+def _check_close(label: str, got, want, tol) -> float:
+    """Max |got - want|; raises unless |got - want| <= atol + rtol|want|
+    everywhere."""
+    atol, rtol = tol
+    err = (got.float() - want.float()).abs()
+    max_err = err.max().item()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    print(f"kernel {label}: max_abs_err {max_err:.3g} (tol {atol:g} + "
+          f"{rtol:g}*|plain|) ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version at "
+                             f"{label}")
+    return max_err
+
+
+def scan_phase(torch, device) -> dict:
+    """ssd_scan and wkv6 against their plain versions on the card: at the
+    main path's shapes (float32, timed, inputs from the models' ranges) and
+    on the reference sweeps in float32 and bfloat16. Returns each kernel's
+    record at its main shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rwkv6.ops import wkv6, wkv6_plain
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def ssd_inputs(B, S, H, P, N, dt, model_range=False):
+        x, Bm, Cm = randn(B, S, H, P), randn(B, S, N), randn(B, S, N)
+        if model_range:  # zamba2-7b's: softplus'd dt, A = -linspace(1, 16)
+            d = F.softplus(randn(B, S, H))
+            A = -torch.linspace(1.0, 16.0, H, device=device)
+        else:            # tests/test_kernels.py's, whose tolerance this is
+            d, A = randn(B, S, H).abs(), -randn(H).abs()
+        return x.to(dt), d.to(dt), A, Bm.to(dt), Cm.to(dt)
+
+    def wkv_inputs(B, S, H, P, dt, model_range=False):
+        r, k, v = randn(B, S, H, P), randn(B, S, H, P), randn(B, S, H, P)
+        # the model's log decay: -exp(w_base -6 + its LoRA's term)
+        lw = -torch.exp(randn(B, S, H, P) * (2.0 if model_range else 1.0)
+                        - (6.0 if model_range else 0.0))
+        return (r.to(dt), k.to(dt), v.to(dt), lw.clamp(-20, 0).to(dt),
+                randn(H, P))
+
+    records = {}
+    for name, fn, plain, make, main_shape, sweep, bound in (
+            ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_inputs, SSD_MAIN,
+             SSD_SWEEP, ssd_bound_ms),
+            ("wkv6", wkv6, wkv6_plain, wkv_inputs, WKV_MAIN, WKV_SWEEP,
+             wkv6_bound_ms)):
+        cases = [(main_shape, torch.float32, True)] + [
+            (shp, dt, False) for shp in sweep
+            for dt in (torch.float32, torch.bfloat16)]
+        for shape, dt, main in cases:
+            *dims, chunk = shape
+            # the main shape of wkv6 takes the model's decay range; that of
+            # ssd_scan the test's ranges (see ssd_model_range)
+            args = make(*dims, dt, main and name == "wkv6")
+            y = fn(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            p = plain(*args, chunk=chunk)
+            dname = str(dt).removeprefix("torch.")
+            label = (f"{name} {'main' if main else 'sweep'} "
+                     f"{'x'.join(map(str, shape))} {dname}")
+            max_err = _check_close(label, y, p, SCAN_TOL[name][dname])
+            if main:
+                k_ms = _median_ms(lambda: fn(*args, chunk=chunk), torch,
+                                  flush)
+                p_ms = _median_ms(lambda: plain(*args, chunk=chunk), torch,
+                                  flush, reps=5)
+                bound_ms, bound_by = bound(*shape, args[0].element_size())
+                print(f"kernel {label}: kernel_ms {k_ms:.4f} plain_ms "
+                      f"{p_ms:.4f} library_ms None bound_ms {bound_ms:.4f} "
+                      f"({bound_by})", flush=True)
+                records[name] = dict(max_abs_err=max_err, ms=k_ms,
+                                     plain_ms=p_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=None)
+            del args, y, p
+    ssd_model_range(torch, ssd_inputs(*SSD_MAIN[:5], torch.float32, True),
+                    SSD_MAIN[5])
+    del flush
+    return records
+
+
+def ssd_model_range(torch, args, chunk: int) -> None:
+    """ssd_scan on zamba2-7b's input ranges (A down to -16, softplus'd
+    dt), where seg = cumsum(dt * A) reaches ~-10^3 within a chunk and the
+    f32 rounding of seg alone moves exp(seg_t - seg_s) by ~1e-4 relative:
+    there any two f32 evaluations that sum in other orders differ by more
+    than the float32 tolerance above, which tests/test_kernels.py set on
+    |A|, dt ~ |N(0, 1)|. So the kernel and the plain version are each held
+    against a float64 evaluation of the model's own recurrence
+    (models/ssm.py::_ssd_chunked), and the kernel's error may be at most
+    twice the plain version's."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.models.ssm import _ssd_chunked
+
+    y = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    p = ssd_scan_plain(*args, chunk=chunk)
+    B, _, H, P = args[0].shape
+    h0 = torch.zeros(B, H, P, args[3].shape[-1], dtype=torch.float64,
+                     device=args[0].device)
+    exact, _ = _ssd_chunked(*(t.double() for t in args), chunk=chunk, h0=h0)
+    err_k = (y.double() - exact).abs().max().item()
+    err_p = (p.double() - exact).abs().max().item()
+    vs_plain = (y - p).abs().max().item()
+    ok = err_k <= 2 * err_p
+    print(f"kernel ssd_scan model-range {'x'.join(map(str, SSD_MAIN))} "
+          f"float32: max_abs_err vs float64 {err_k:.3g}, plain's {err_p:.3g} "
+          f"(kernel <= 2 x plain), kernel vs plain {vs_plain:.3g}, "
+          f"max|y| {exact.abs().max().item():.4g} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("ssd_scan is less accurate than its plain "
+                             "version on zamba2-7b's input ranges")
+
+
+def flash_112_phase(torch, device) -> None:
+    """The flash kernel at zamba2-7b's shared-block shape (head size 112),
+    bfloat16, against its plain version (run over groups of
+    FLASH_112_PLAIN_GROUP heads: the whole [B, H, S, S] f32 score tensor
+    would take 17 GB), timed beside F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    B, S, H, Dh = FLASH_112
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+    q, k, v = (torch.randn(B, S, H, Dh, generator=gen, device=device
+                           ).to(torch.bfloat16) for _ in range(3))
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    G = FLASH_112_PLAIN_GROUP
+
+    def plain():
+        return torch.cat([flash_attention_plain(
+            q[:, :, h:h + G], k[:, :, h:h + G], v[:, :, h:h + G])
+            for h in range(0, H, G)], dim=2)
+    p = plain()
+    err = (o.float() - p.float()).abs()
+    ratio = (err / attention_limit(p, "bfloat16")).max().item()
+    # the last 1024 rows alone: their outputs are the smallest
+    late = (err[:, -1024:].square().mean(-1).sqrt()
+            / p[:, -1024:].float().square().mean(-1).sqrt()).max().item()
+    ok = ratio <= 1.0
+    print(f"kernel flash_attention zamba-shared {B}x{S} h{H} d{Dh} causal "
+          f"bfloat16: max_abs_err {err.max().item():.3g} max err/limit "
+          f"{ratio:.3g} (attention_limit) rows {S - 1024}-{S - 1} rms "
+          f"err/rms {late:.3g} ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("flash_attention disagrees with its plain "
+                             "version at zamba2-7b's shared-block shape")
+    del p, err
+    k_ms = _median_ms(lambda: flash_attention(q, k, v, causal=True, out=o),
+                      torch, flush, reps=5)
+    p_ms = _median_ms(plain, torch, flush, reps=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), torch, flush)
+    bound_ms, bound_by = flash_bound_ms(B, S, S, H, H, Dh, True, 0, 2)
+    print(f"kernel flash_attention zamba-shared {B}x{S} h{H} d{Dh} causal "
+          f"bfloat16: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
+          f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+    del q, k, v, o, flush
 
 
 def serving_traffic(vocab: int) -> list[list[int]]:
@@ -868,6 +1157,187 @@ def build_serving(torch, device, arch=None):
     return model, params
 
 
+def build_recurrent(torch, device, arch):
+    """``arch`` (rwkv6-7b or zamba2-7b) at full width and depth, bfloat16,
+    random weights drawn on the card from ``torch.Generator(seed 0)``. For
+    rwkv6-7b the leaves the reference initialises to zero (the static
+    mixes, the mix and decay LoRAs' B factors, the channel-mix
+    coefficients; ``bonus_u``) are redrawn from a second seeded generator
+    as 0.1 x N(0, 1) (``bonus_u`` 0.5 x N(0, 1)): left at zero, the token
+    shifts, the data-dependent decay and the bonus term would never be
+    exercised."""
+    model, params = build_serving(torch, device, arch=arch)
+    if model.cfg.family == "rwkv":
+        gen = torch.Generator(device=device).manual_seed(1)
+        lp = params["layers"]
+        for name in ("mix_rkvwg", "mix_lora_B", "w_lora_B", "bonus_u",
+                     "cmix_k", "cmix_r"):
+            scale = 0.5 if name == "bonus_u" else 0.1
+            lp[name].copy_(torch.randn(lp[name].shape, generator=gen,
+                                       device=device) * scale)
+    return model, params
+
+
+def recurrent_launches_per_forward(cfg) -> dict[str, int]:
+    """Kernel launches of one ``apply``: per rwkv layer one wkv6 and one
+    rmsnorm (``ln_x``; its other norms are layernorms); per zamba Mamba
+    layer one ssd_scan and one rmsnorm, per shared-block call one flash
+    attention and two rmsnorm, and the final norm."""
+    if cfg.family == "rwkv":
+        return {"wkv6": cfg.n_layers, "rmsnorm": cfg.n_layers}
+    calls = cfg.n_layers // cfg.zamba_group
+    return {"ssd_scan": cfg.n_layers, "flash_attention": calls,
+            "rmsnorm": cfg.n_layers + 2 * calls + 1}
+
+
+def run_recurrent(torch, device, model, params, *,
+                  profile: bool = False) -> dict:
+    """The recurrent path's throughput: ``apply`` on RECURRENT_TOKENS (one
+    warm-up, then RECURRENT_TIMED timed runs, each kernel's launches
+    asserted per forward). Then the model's bfloat16 noise floor, printed:
+    the logits of the first DECODE_CHECK[1] tokens' first position from
+    ``apply`` on all of them against ``apply`` on that one token, the same
+    code at another batch shape (cuBLAS picks other kernels, which round
+    the last bit otherwise). Returns the launches of the timed runs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    cfg = model.cfg
+    cuda = device.type == "cuda"
+    per_fwd = recurrent_launches_per_forward(cfg)
+    kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+               "ssd_scan": ssd_scan, "wkv6": wkv6}
+    kernels = {name: kernels[name] for name in per_fwd}
+    B, S = RECURRENT_TOKENS
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(
+        device)
+
+    def forward():
+        out = model.apply(params, toks)
+        if cuda:
+            torch.cuda.synchronize()
+        return out
+
+    t = time.perf_counter()
+    for fn in kernels.values():
+        fn.launches = 0
+    logits = forward()                      # warm-up: cuBLAS handles
+    n = {name: fn.launches for name, fn in kernels.items()}
+    assert tuple(logits.shape) == (B, S, cfg.padded_vocab), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    del logits
+    _phase(f"{cfg.name} warm-up apply", t)
+    if cuda:
+        for name in kernels:
+            assert n[name] == per_fwd[name], \
+                f"{name} launched {n[name]} times, expected {per_fwd[name]}"
+        torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for fn in kernels.values():             # the recurrent path starts here
+        fn.launches = 0
+    for _ in range(RECURRENT_TIMED):
+        t0 = time.perf_counter()
+        forward()
+        walls.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    med = statistics.median(walls)
+    counts = " ".join(f"{name}_launches {launches[name]} "
+                      f"(= {RECURRENT_TIMED} x {per_fwd[name]})"
+                      for name in kernels)
+    print(f"recurrent {cfg.name} apply {B}x{S}: median_ms {med * 1e3:.2f} "
+          f"walls_ms {[round(w * 1e3, 2) for w in walls]} tokens_per_s "
+          f"{B * S / med:.1f} peak_allocated_bytes {peak} {counts}",
+          flush=True)
+    if cuda:
+        for name in kernels:
+            want = RECURRENT_TIMED * per_fwd[name]
+            assert launches[name] == want, \
+                f"{name} launched {launches[name]} times, expected {want}"
+
+    Bd, Sd = DECODE_CHECK
+    dtoks = decode_tokens(torch, device, cfg.vocab_size)
+    V = cfg.vocab_size
+    many = model.apply(params, dtoks)[:, 0, :V].float()
+    one = model.apply(params, dtoks[:, :1])[:, 0, :V].float()
+    floor = float(((many - one).abs().amax(-1)
+                   / many.abs().amax(-1)).max())
+    print(f"recurrent {cfg.name} {cfg.dtype} noise floor: position-0 "
+          f"logits of apply on {Bd}x{Sd} vs on {Bd}x1, max_err/max|logit| "
+          f"{floor:.4g}", flush=True)
+    if profile:
+        def once() -> float:
+            t0 = time.perf_counter()
+            forward()
+            return time.perf_counter() - t0
+        profile_run(torch, f"recurrent {cfg.name} apply {B}x{S}", once)
+    return launches
+
+
+def decode_tokens(torch, device, vocab: int):
+    """DECODE_CHECK tokens, numpy seed 1."""
+    rng = np.random.default_rng(1)
+    return torch.from_numpy(rng.integers(0, vocab, DECODE_CHECK)).to(device)
+
+
+def decode_check(torch, device, arch) -> None:
+    """Decode against apply, the reference's own check (``tests/
+    test_models_smoke.py::test_decode_matches_prefill``), at full width
+    and depth, on ``arch`` drawn in float32 (``build_recurrent``'s seeds).
+    The rule was fixed before the path first ran on the card: ``apply``'s
+    logits on DECODE_CHECK tokens against those of one ``decode_step`` a
+    token from ``init_cache`` (the one-token recurrences, no scan kernel),
+    at every position; each position's logits agree within LOGIT_RTOL x
+    that position's max |logit| of ``apply``; the argmax over the
+    vocabulary is equal unless ``apply``'s top two logits there lie within
+    that distance (a near tie).
+
+    Why float32. The rule was first run on the bfloat16 model and failed
+    at position 0, where decode and apply see the same inputs: these
+    random-weight models grow a last-bit difference tens of times over
+    their depth, and ``run_recurrent``'s noise-floor line shows two
+    bfloat16 ``apply`` calls on the same token, at two batch shapes,
+    disagreeing by more than the rule allows. In float32 (TF32 off) the
+    rounding is 2^16 times finer, so the rule holds the scan kernels in
+    ``apply`` against the recurrences in decode and not against the
+    rounding."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(arch, dtype="float32")
+    t = time.perf_counter()
+    model, params = build_recurrent(torch, device, cfg32)
+    cfg = model.cfg
+    Bd, Sd = DECODE_CHECK
+    dtoks = decode_tokens(torch, device, cfg.vocab_size)
+    V = cfg.vocab_size
+    full = model.apply(params, dtoks)[..., :V].float()
+    cache = model.init_cache(Bd, DECODE_MAX_LEN)
+    worst, ties, mismatched = 0.0, 0, []
+    for i in range(Sd):
+        step, cache = model.decode_step(params, cache, dtoks[:, i:i + 1], i)
+        got = step[:, :V].float()
+        want = full[:, i]
+        scale = want.abs().amax(dim=-1)                    # [Bd]
+        err = (got - want).abs().amax(dim=-1)
+        worst = max(worst, float((err / scale).max()))
+        assert bool((err <= LOGIT_RTOL * scale).all()), \
+            f"decode logits at position {i} differ by {err.tolist()} " \
+            f"(tol {LOGIT_RTOL:g} x {scale.tolist()})"
+        top2 = want.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) < LOGIT_RTOL * scale
+        ties += int(tie.sum())
+        if bool(((got.argmax(-1) != want.argmax(-1)) & ~tie).any()):
+            mismatched.append(i)
+    wall = time.perf_counter() - t
+    print(f"recurrent {cfg.name} float32 decode vs apply {Bd}x{Sd}: "
+          f"max_err/max|logit| {worst:.4g} (tol {LOGIT_RTOL:g}) near_ties "
+          f"{ties} of {Bd * Sd} argmax_mismatch_outside_ties {mismatched} "
+          f"({wall:.2f} s with the float32 draw)", flush=True)
+    assert not mismatched, f"argmax differs at positions {mismatched}"
+    del model, params, full, cache
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -897,7 +1367,10 @@ def main(argv: list[str]) -> int:
     rms = kernel_phase(torch, device)
     fa = flash_phase(torch, device)
     gmm = gmm_phase(torch, device)
-    print("kernels: rmsnorm flash_attention moe_gmm", flush=True)
+    flash_112_phase(torch, device)
+    scans = scan_phase(torch, device)
+    print("kernels: rmsnorm flash_attention moe_gmm ssd_scan wkv6",
+          flush=True)
     _phase("kernels", t)
 
     t = time.perf_counter()
@@ -956,6 +1429,35 @@ def main(argv: list[str]) -> int:
                          serving_traffic(cfg.vocab_size),
                          profile="--profile" in argv)
     _phase("MoE serving path", t)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    recurrent = {}
+    for arch in RECURRENT_ARCHS:
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model, params = build_recurrent(torch, device, get_arch(arch))
+        cfg = model.cfg
+        print(f"recurrent path: {cfg.name}, {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, bfloat16, "
+              f"{sum(t.numel() for t in _leaves(params))} parameters "
+              f"({sum(t.numel() * t.element_size() for t in _leaves(params))}"
+              f" B); peak_allocated_bytes after the draw "
+              f"{torch.cuda.max_memory_allocated()}", flush=True)
+        _phase(f"{cfg.name} model", t)
+        t = time.perf_counter()
+        recurrent.update(run_recurrent(torch, device, model, params,
+                                       profile="--profile" in argv))
+        _phase(f"{cfg.name} recurrent path", t)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        decode_check(torch, device, get_arch(arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _phase(f"{arch} float32 decode check", t)
 
     records = [
         dict(name="rmsnorm", route="cuda",
@@ -970,7 +1472,15 @@ def main(argv: list[str]) -> int:
         dict(name="moe_gmm", route="cuda",
              source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
              replaces="src/repro/kernels/moe_gmm/kernel.py:19",
-             launches=served["moe_gmm"], **gmm)]
+             launches=served["moe_gmm"], **gmm),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:19",
+             launches=recurrent["ssd_scan"], **scans["ssd_scan"]),
+        dict(name="wkv6", route="cuda",
+             source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+             replaces="src/repro/kernels/rwkv6/kernel.py:18",
+             launches=recurrent["wkv6"], **scans["wkv6"])]
     _phase("total", t_all)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -29,6 +29,8 @@ SOURCES: dict[str, str] = {
     "rmsnorm": "rmsnorm/csrc/rmsnorm.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
+    "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
+    "wkv6": "rwkv6/csrc/wkv6.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

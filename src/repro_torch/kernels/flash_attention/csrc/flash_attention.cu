@@ -227,6 +227,7 @@ cudaError_t launch_dh(const Params& p, int batch, int hq, int dh,
   switch (dh) {
     case 32: return launch<T, 32>(p, batch, hq, stream);
     case 64: return launch<T, 64>(p, batch, hq, stream);
+    case 112: return launch<T, 112>(p, batch, hq, stream);   // zamba2-7b
     case 128: return launch<T, 128>(p, batch, hq, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -236,8 +237,8 @@ cudaError_t launch_dh(const Params& p, int batch, int hq, int dh,
 
 // q [B, Sq, Hq, Dh], k/v [B, Skv, Hkv, Dh], o [B, Sq, Hq, Dh]; each given by
 // its pointer and (batch, seq, head) strides in elements, the last dimension
-// contiguous. dtype: 0 = float32, 1 = float16, 2 = bfloat16. Dh is 32, 64 or
-// 128. Returns a cudaError_t (0 = launched).
+// contiguous. dtype: 0 = float32, 1 = float16, 2 = bfloat16. Dh is 32, 64,
+// 112 or 128. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,

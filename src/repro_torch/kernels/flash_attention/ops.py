@@ -25,7 +25,7 @@ import torch
 __all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
 
 NEG_INF = -1e30                  # the TPU kernel's masked score (not -inf)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _count_lock = threading.Lock()
 _fn = None

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the decoder LM, dense and MoE families (the
-RWKV6, Zamba2 and enc-dec models wait for later slices)."""
+"""Model zoo of the port: the decoder LM in its dense, MoE, RWKV6 and
+Zamba2-hybrid families (``lm.py``, with the blocks of ``layers.py``,
+``rwkv.py`` and ``ssm.py``). The enc-dec model waits for a later slice."""
 from ..configs.base import ArchConfig
 from .lm import LM
 

@@ -1,23 +1,35 @@
-"""Decoder LM, dense and MoE families: the port of ``repro/models/lm.py``.
+"""Decoder LM, dense, MoE, RWKV6 and Zamba2-hybrid families: the port of
+``repro/models/lm.py``.
 
 Parameters are a dict of tensors with the reference's pytree keys; the
 per-layer leaves under ``params["layers"]`` are stacked ``[L, ...]`` and a
 layer is ``leaf[i]`` (a view), walked by a Python loop where the reference
-scans. The decode cache keeps the reference's ``init_cache`` layout
-``[L, B, S_max, ...]``.
+scans. Zamba2's Mamba layers are stacked ``[ng, grp, ...]`` under
+``params["mamba"]`` and ``[tail, ...]`` under ``params["mamba_tail"]``;
+its one shared attention+MLP block (``params["shared"]``) is called before
+each group, scaled by that call's ``shared_adapters[g]``. The decode cache
+keeps the reference's ``init_cache`` layout: ``[L, B, S_max, ...]`` K/V,
+RWKV's token shifts and f32 WKV states per layer, Zamba2's f32 SSM states,
+conv windows and the shared block's K/V per group.
 
 Differences from the reference, on purpose:
 
 * ``decode_step`` writes the new K/V into the cache **in place**, and only
   at each active row's ``lens`` position; inert rows write nothing. The
   reference's functional update would copy the whole cache (4 GiB for
-  llama-7b at batch 8 and 1024 tokens) on every step. The returned cache is
-  the same dict of tensors that was passed in.
+  llama-7b at batch 8 and 1024 tokens) on every step. The recurrent
+  families' states are overwritten in place too. The returned cache is the
+  same dict of tensors that was passed in.
 * The norms, the prefill attention and the MoE experts go to the port's
   Hopper kernels on CUDA (``layers.rmsnorm``, ``layers.blockwise_attention``,
   ``layers.moe_block``): per forward, ``2L + 1`` rmsnorm launches, ``3L``
   grouped-matmul launches for the MoE family and, in ``prefill`` and
-  ``apply``, ``L`` flash-attention launches.
+  ``apply``, ``L`` flash-attention launches. The recurrent families' sequence
+  forward (``apply``) goes through the scan kernels: ``L`` wkv6 launches
+  and ``L`` rmsnorm launches (``ln_x``; its block norms are layernorms)
+  per rwkv forward; per zamba forward one ssd_scan launch per Mamba layer,
+  one flash-attention launch per shared-block call, and one rmsnorm
+  launch per Mamba layer plus two per shared call plus one.
 * The MoE block routes only the (token, k) pairs it keeps, through ragged
   grouped matmuls (``layers.moe_block``), where the reference fills
   ``[E, C, D]`` dispatch buffers; ``prefill`` and ``decode_step`` run it
@@ -27,8 +39,9 @@ Differences from the reference, on purpose:
   with :func:`repro_torch.core.bridge.params_from_reference` to compute the
   same function.
 
-``remat`` and ``loss`` wait for the training slice, the RWKV and Zamba2
-families for the recurrent slice.
+``remat`` and ``loss`` wait for the training slice. ``prefill`` serves the
+attention families only, as in the reference: a recurrent family's prompt
+pass is its decode loop.
 """
 from __future__ import annotations
 
@@ -40,11 +53,13 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from . import layers as L
+from . import rwkv as R
+from . import ssm as SSM
 
 __all__ = ["LM"]
 
 _KV_DTYPES = ("bf16", "int8")
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "rwkv", "zamba")
 
 
 def _norm(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -85,16 +100,19 @@ def layer_params(layers: dict, i: int) -> dict:
 
 
 class LM:
-    """Decoder-only LM, dense and MoE families, on ``device`` (default
-    CUDA). ``moe_capacity_factor`` bounds each expert's queue in ``apply``
-    (None: dropless); ``prefill`` and ``decode_step`` are always dropless."""
+    """Decoder-only LM for the dense, moe, rwkv and zamba families, on
+    ``device`` (default CUDA). ``moe_capacity_factor`` bounds each expert's
+    queue in ``apply`` (None: dropless); ``prefill`` and ``decode_step`` are
+    always dropless. ``kv_cache_dtype`` applies to the attention families;
+    Zamba2's shared block keeps its K/V in the model's dtype, as in the
+    reference."""
 
     def __init__(self, cfg: ArchConfig, *,
                  moe_capacity_factor: float | None = 1.25,
                  kv_cache_dtype: str = "bf16", device=None) -> None:
         if cfg.family not in _FAMILIES:
-            raise ValueError(f"the port's LM runs the {_FAMILIES} families; "
-                             f"{cfg.family!r} waits for a later slice")
+            raise ValueError(f"the port's LM runs the {_FAMILIES} families, "
+                             f"not {cfg.family!r}")
         if kv_cache_dtype not in _KV_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {_KV_DTYPES}")
         self.cfg = cfg
@@ -116,21 +134,54 @@ class LM:
         }
         params.update(_with_prefix("ln_f", _norm_init(cfg, D, dt,
                                                       device=dev)))
+        if cfg.family in ("dense", "moe"):
+            params["layers"] = self._layer_init(gen, Ln)
+        elif cfg.family == "rwkv":
+            lp = R.rwkv6_init(gen, D, headdim=cfg.rwkv_headdim,
+                              d_ff=cfg.d_ff, dtype=dt, leading=Ln,
+                              device=dev)
+            lp.update(_with_prefix("ln1", _norm_init(cfg, D, dt, Ln, dev)))
+            lp.update(_with_prefix("ln2", _norm_init(cfg, D, dt, Ln, dev)))
+            params["layers"] = lp
+        else:                                             # zamba
+            ng, grp, tail = self._zamba_split()
+            kw = dict(d_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+                      expand=cfg.ssm_expand, dtype=dt, device=dev)
+            params["mamba"] = SSM.ssd_init(gen, D, leading=(ng, grp), **kw)
+            if tail:
+                params["mamba_tail"] = SSM.ssd_init(gen, D, leading=(tail,),
+                                                    **kw)
+            params["shared"] = self._layer_init(gen, ())
+            # per-call adapter: input-norm gains (Zamba2's per-call LoRA
+            # simplified to a per-call scale, as in the reference)
+            params["shared_adapters"] = torch.ones((ng, D), dtype=dt,
+                                                   device=dev)
+        return params
+
+    def _layer_init(self, gen: torch.Generator, leading: tuple) -> dict:
+        """An attention + MLP (or MoE) layer, ``leading`` dims first."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        D = cfg.d_model
         spec = L.AttnParamsSpec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.d_head, cfg.qkv_bias)
-        lp: dict[str, Any] = {"attn": spec.init(gen, dt, leading=Ln,
+        lp: dict[str, Any] = {"attn": spec.init(gen, dt, leading=leading,
                                                 device=dev)}
-        lp.update(_with_prefix("ln1", _norm_init(cfg, D, dt, Ln, dev)))
-        lp.update(_with_prefix("ln2", _norm_init(cfg, D, dt, Ln, dev)))
+        lp.update(_with_prefix("ln1", _norm_init(cfg, D, dt, leading, dev)))
+        lp.update(_with_prefix("ln2", _norm_init(cfg, D, dt, leading, dev)))
         if cfg.family == "moe":
             lp["moe"] = L.moe_init(gen, D, cfg.d_ff, cfg.n_experts, dt,
-                                   leading=Ln, device=dev)
+                                   leading=leading, device=dev)
         else:
             lp["mlp"] = L.mlp_init(gen, D, cfg.d_ff, cfg.mlp, dt,
-                                   bias=(cfg.mlp == "gelu"), leading=Ln,
+                                   bias=(cfg.mlp == "gelu"), leading=leading,
                                    device=dev)
-        params["layers"] = lp
-        return params
+        return lp
+
+    def _zamba_split(self) -> tuple[int, int, int]:
+        """(groups, Mamba layers per group, Mamba layers in the tail)."""
+        grp = self.cfg.zamba_group
+        ng = self.cfg.n_layers // grp
+        return ng, grp, self.cfg.n_layers - ng * grp
 
     # ------------------------------------------------------------ blocks
     def _ffn(self, p: dict, x: torch.Tensor,
@@ -147,9 +198,13 @@ class LM:
         return L.gelu_mlp(p["mlp"], x), None
 
     def _attn_mlp_block(self, p: dict, h: torch.Tensor,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor,
+                        adapter_g: torch.Tensor | None = None
+                        ) -> torch.Tensor:
         cfg = self.cfg
         x = _norm(cfg, p, "ln1", h)
+        if adapter_g is not None:
+            x = x * adapter_g
         h = h + L.attention_block(
             p["attn"], x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             d_head=cfg.d_head, positions=positions,
@@ -167,19 +222,85 @@ class LM:
     def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         """Full forward: tokens [B, S] → logits [B, S, padded_vocab]. Also
         sets ``self._aux``, the MoE aux loss summed over the layers."""
+        cfg = self.cfg
         B, S = tokens.shape
         self._aux = torch.zeros((), dtype=torch.float32, device=self.device)
         h = params["embed"][tokens]
         positions = self._positions(B, S)
-        for i in range(self.cfg.n_layers):
-            h = self._attn_mlp_block(layer_params(params["layers"], i), h,
-                                     positions)
-        h = _norm(self.cfg, params, "ln_f", h)
+        if cfg.family in ("dense", "moe"):
+            for i in range(cfg.n_layers):
+                h = self._attn_mlp_block(layer_params(params["layers"], i),
+                                         h, positions)
+        elif cfg.family == "rwkv":
+            for i in range(cfg.n_layers):
+                lp = layer_params(params["layers"], i)
+                h = h + R.rwkv6_time_mix(lp, _norm(cfg, lp, "ln1", h),
+                                         headdim=cfg.rwkv_headdim)
+                h = h + R.rwkv6_channel_mix(lp, _norm(cfg, lp, "ln2", h))
+        else:                                             # zamba
+            for g, lps in self._zamba_groups(params):
+                h = self._attn_mlp_block(
+                    params["shared"], h, positions,
+                    adapter_g=params["shared_adapters"][g])
+                for lp in lps:
+                    h = h + self._mamba(lp, h)
+            for lp in self._zamba_tail(params):
+                h = h + self._mamba(lp, h)
+        h = _norm(cfg, params, "ln_f", h)
         return h @ params["unembed"]
+
+    def _mamba(self, p: dict, h: torch.Tensor, **state):
+        cfg = self.cfg
+        return SSM.ssd_block(p, h, d_state=cfg.ssm_state,
+                             headdim=cfg.ssm_headdim, expand=cfg.ssm_expand,
+                             **state)
+
+    def _zamba_groups(self, params: dict):
+        """(g, the group's Mamba layers) for each group, in order."""
+        ng, grp, _ = self._zamba_split()
+        for g in range(ng):
+            gp = layer_params(params["mamba"], g)
+            yield g, [layer_params(gp, j) for j in range(grp)]
+
+    def _zamba_tail(self, params: dict) -> list[dict]:
+        tail = self._zamba_split()[2]
+        return [layer_params(params["mamba_tail"], j) for j in range(tail)]
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> dict:
-        cfg, dev = self.cfg, self.device
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        f32 = torch.float32
+        if cfg.family == "rwkv":
+            H, P, Ln = (cfg.d_model // cfg.rwkv_headdim, cfg.rwkv_headdim,
+                        cfg.n_layers)
+            return {
+                "tm_shift": torch.zeros((Ln, batch, 1, cfg.d_model),
+                                        dtype=dt, device=dev),
+                "cm_shift": torch.zeros((Ln, batch, 1, cfg.d_model),
+                                        dtype=dt, device=dev),
+                "wkv": torch.zeros((Ln, batch, H, P, P), dtype=f32,
+                                   device=dev),
+            }
+        if cfg.family == "zamba":
+            ng, grp, tail = self._zamba_split()
+            di = cfg.ssm_expand * cfg.d_model
+            H, P, N = di // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
+            convdim = di + 2 * N
+            kv = (ng, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+            cache = {
+                "ssm": torch.zeros((ng, grp, batch, H, P, N), dtype=f32,
+                                   device=dev),
+                "conv": torch.zeros((ng, grp, batch, 3, convdim), dtype=dt,
+                                    device=dev),
+                "k": torch.zeros(kv, dtype=dt, device=dev),
+                "v": torch.zeros(kv, dtype=dt, device=dev),
+            }
+            if tail:
+                cache["ssm_tail"] = torch.zeros((tail, batch, H, P, N),
+                                                dtype=f32, device=dev)
+                cache["conv_tail"] = torch.zeros((tail, batch, 3, convdim),
+                                                 dtype=dt, device=dev)
+            return cache
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
         if self.kv_cache_dtype == "int8":
             # per-(token, head) scales: KIVI-style post-RoPE int8 KV
@@ -202,8 +323,14 @@ class LM:
         leaves stacked [L, B, S, ...] in ``init_cache`` layout over the
         token slice [0, S). Rows may be ragged: positions past a row's
         length hold junk K/V that later per-row ``cache_len`` masking never
-        attends."""
+        attends.
+
+        Attention families only (dense / moe): a recurrent family carries
+        per-step state, so its prompt pass *is* the decode loop."""
         cfg = self.cfg
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError("prefill supports attention families only "
+                             f"(got {cfg.family!r})")
         B, S = tokens.shape
         K, Dh = cfg.n_kv_heads, cfg.d_head
         h = params["embed"][tokens]
@@ -238,13 +365,18 @@ class LM:
 
     def _attn_decode_block(self, p: dict, h: torch.Tensor, cache: dict,
                            layer: int, lens: torch.Tensor,
-                           sel: torch.Tensor) -> torch.Tensor:
+                           sel: torch.Tensor,
+                           adapter_g: torch.Tensor | None = None
+                           ) -> torch.Tensor:
         """One-token attention + MLP. ``lens`` [B] is each row's cache
         length: the row writes this token at its own position. Only rows
-        ``sel`` write; the others leave the cache untouched."""
+        ``sel`` write; the others leave the cache untouched. ``layer``
+        indexes the cache's leading axis (Zamba2: the group)."""
         cfg = self.cfg
         B = h.shape[0]
         x = _norm(cfg, p, "ln1", h)
+        if adapter_g is not None:
+            x = x * adapter_g
         pa = p["attn"]
         q = L._proj(x, pa, "wq", "bq").reshape(B, 1, cfg.n_heads, cfg.d_head)
         k = L._proj(x, pa, "wk", "bk").reshape(B, 1, cfg.n_kv_heads,
@@ -262,7 +394,7 @@ class LM:
             buf.index_put_(at, upd[sel, 0])
             return buf
 
-        if self.kv_cache_dtype == "int8":
+        if "k_scale" in cache:
             kq, ksc = _quant_int8(k)
             vq, vsc = _quant_int8(v)
             o = L.decode_attention_q8(q, put("k", kq), put("v", vq),
@@ -282,7 +414,14 @@ class LM:
         (a ragged continuous-batching step). ``active`` is an optional [B]
         bool mask: rows that are False write nothing into the cache; their
         logits are garbage and the caller must ignore them. The cache is
-        updated in place, at each active row's own position, and returned."""
+        updated in place, at each active row's own position, and returned.
+        The mask is only supported for the attention families: recurrent
+        state (rwkv / zamba SSM) advances unconditionally, and an ``active``
+        mask raises for them."""
+        cfg = self.cfg
+        if active is not None and cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                "active-row masking requires a KV-cache family (dense/moe)")
         B = token.shape[0]
         dev = self.device
         lens = torch.as_tensor(cache_len, dtype=torch.int64,
@@ -291,8 +430,39 @@ class LM:
                else torch.nonzero(torch.as_tensor(active, device=dev)
                                   ).flatten())
         h = params["embed"][token]                         # [B, 1, D]
-        for i in range(self.cfg.n_layers):
-            h = self._attn_decode_block(layer_params(params["layers"], i), h,
-                                        cache, i, lens, sel)
-        h = _norm(self.cfg, params, "ln_f", h)
+        if cfg.family in ("dense", "moe"):
+            for i in range(cfg.n_layers):
+                h = self._attn_decode_block(layer_params(params["layers"], i),
+                                            h, cache, i, lens, sel)
+        elif cfg.family == "rwkv":
+            for i in range(cfg.n_layers):
+                lp = layer_params(params["layers"], i)
+                o, (tms, wkv) = R.rwkv6_time_mix(
+                    lp, _norm(cfg, lp, "ln1", h), headdim=cfg.rwkv_headdim,
+                    state=(cache["tm_shift"][i], cache["wkv"][i]))
+                h = h + o
+                o, cms = R.rwkv6_channel_mix(
+                    lp, _norm(cfg, lp, "ln2", h), state=cache["cm_shift"][i])
+                h = h + o
+                cache["tm_shift"][i].copy_(tms)
+                cache["cm_shift"][i].copy_(cms)
+                cache["wkv"][i].copy_(wkv)
+        else:                                             # zamba
+            def mamba_step(lp, h, ssm, conv):
+                o, (st, cs) = self._mamba(lp, h, state=ssm, conv_state=conv)
+                ssm.copy_(st)
+                conv.copy_(cs)
+                return h + o
+
+            for g, lps in self._zamba_groups(params):
+                h = self._attn_decode_block(
+                    params["shared"], h, cache, g, lens, sel,
+                    adapter_g=params["shared_adapters"][g])
+                for j, lp in enumerate(lps):
+                    h = mamba_step(lp, h, cache["ssm"][g, j],
+                                   cache["conv"][g, j])
+            for j, lp in enumerate(self._zamba_tail(params)):
+                h = mamba_step(lp, h, cache["ssm_tail"][j],
+                               cache["conv_tail"][j])
+        h = _norm(cfg, params, "ln_f", h)
         return (h @ params["unembed"])[:, 0], cache

@@ -24,6 +24,8 @@ from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,
                                              grouped_matmul_plain, moe_gmm,
                                              moe_gmm_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rwkv6.ops import wkv6, wkv6_plain
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 from repro_torch.models import build_model
 from repro_torch.serve import (Engine, PagedKVCache, RELOAD_POLICY_NAMES,
                                ServeConfig, naive_generate)
@@ -174,7 +176,9 @@ FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 4, 4, 128, True, 
                (2, 64, 256, 8, 2, 64, False, 0), (1, 256, 64, 2, 1, 64, True, 0),
                (1, 64, 256, 4, 2, 32, True, 192),
                (2, 100, 300, 8, 8, 128, True, 200),
-               (2, 96, 96, 32, 32, 128, True, 0)]
+               (2, 96, 96, 32, 32, 128, True, 0),
+               (2, 200, 200, 4, 4, 112, True, 0),     # zamba2-7b's heads
+               (1, 96, 160, 8, 8, 112, False, 0)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -447,3 +451,137 @@ def test_moe_engine_on_card_matches_cpu_oracle(cuda, policy):
     assert flash_attention.launches - fa0 == L * st.prefill_calls
     assert rmsnorm.launches - rms0 == (2 * L + 1) * forwards
     assert moe_gmm.launches - gmm0 == 3 * L * forwards
+
+
+# the scans, tests/test_kernels.py's sweeps (S padding included) and one
+# long case each: (B, S, H, P, N, chunk) and (B, S, H, P, chunk)
+SSD_CASES = [(2, 100, 3, 32, 16, 32), (1, 64, 2, 64, 64, 16),
+             (2, 33, 1, 16, 8, 64), (1, 1000, 4, 64, 64, 128)]
+WKV_CASES = [(2, 100, 3, 32, 25), (1, 31, 2, 64, 8), (2, 64, 1, 16, 64),
+             (1, 1000, 4, 64, 32)]
+# tests/test_kernels.py's float32 tolerances; bfloat16 as KERNEL_TOL
+SCAN_TOL = {"ssd_scan": {torch.float32: (5e-4, 5e-4),
+                         torch.bfloat16: (3e-2, 3e-2)},
+            "wkv6": {torch.float32: (1e-3, 1e-3),
+                     torch.bfloat16: (3e-2, 3e-2)}}
+
+
+def _ssd_inputs(cuda, B, S, H, P, N, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=gen, device=cuda).to(dtype)
+    dt = torch.randn(B, S, H, generator=gen, device=cuda).abs().to(dtype)
+    A = -torch.randn(H, generator=gen, device=cuda).abs()
+    Bm = torch.randn(B, S, N, generator=gen, device=cuda).to(dtype)
+    Cm = torch.randn(B, S, N, generator=gen, device=cuda).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _wkv_inputs(cuda, B, S, H, P, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, P, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    lw = (-torch.exp(torch.randn(B, S, H, P, generator=gen, device=cuda))
+          ).clamp(-20, 0).to(dtype)
+    u = torch.randn(H, P, generator=gen, device=cuda)
+    return r, k, v, lw, u
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_on_card(cuda, case, dtype):
+    B, S, H, P, N, chunk = case
+    args = _ssd_inputs(cuda, B, S, H, P, N, dtype)
+    before = ssd_scan.launches
+    y = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    rtol, atol = SCAN_TOL["ssd_scan"][dtype]
+    torch.testing.assert_close(y.float(),
+                               ssd_scan_plain(*args, chunk=chunk).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_matches_plain_on_card(cuda, case, dtype):
+    B, S, H, P, chunk = case
+    args = _wkv_inputs(cuda, B, S, H, P, dtype)
+    before = wkv6.launches
+    y = wkv6(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    rtol, atol = SCAN_TOL["wkv6"][dtype]
+    torch.testing.assert_close(y.float(),
+                               wkv6_plain(*args, chunk=chunk).float(),
+                               rtol=rtol, atol=atol)
+
+
+def test_scan_wrappers_refuse_what_they_cannot_launch(cuda):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 16, 2, 8, 4, torch.float32)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A.cpu(), Bm, Cm)               # A on the host
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt.bfloat16(), A, Bm, Cm)          # mixed dtypes
+    with pytest.raises(ValueError):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm,
+                 Cm)                                   # not contiguous
+    with pytest.raises(ValueError):                    # P above 64
+        ssd_scan(torch.zeros(1, 16, 2, 96, device=cuda), dt, A, Bm, Cm)
+    with pytest.raises(ValueError):                    # N above 64
+        big = torch.zeros(1, 16, 80, device=cuda)
+        ssd_scan(x, dt, A, big, big)
+    with pytest.raises(TypeError):
+        ssd_scan(x.double(), dt.double(), A, Bm.double(), Cm.double())
+    with pytest.raises(TypeError):                     # no float16 instance
+        ssd_scan(x.half(), dt.half(), A, Bm.half(), Cm.half())
+    assert ssd_scan.launches == before
+    r, k, v, lw, u = _wkv_inputs(cuda, 1, 16, 2, 8, torch.float32)
+    before = wkv6.launches
+    with pytest.raises(ValueError):
+        wkv6(r, k, v, lw.bfloat16(), u)                # mixed dtypes
+    with pytest.raises(ValueError):
+        wkv6(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, lw, u)
+    with pytest.raises(ValueError):                    # chunk above 64
+        wkv6(r.repeat(1, 8, 1, 1), k.repeat(1, 8, 1, 1), v.repeat(1, 8, 1, 1),
+             lw.repeat(1, 8, 1, 1), u, chunk=128)
+    with pytest.raises(ValueError):
+        wkv6(r, k, v, lw, u.cpu())                     # u on the host
+    with pytest.raises(TypeError):                     # no float16 instance
+        wkv6(r.half(), k.half(), v.half(), lw.half(), u)
+    assert wkv6.launches == before
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_recurrent_apply_on_card_matches_cpu(cuda, arch):
+    """A reduced float32 model (TF32 off): ``apply`` on the card through the
+    scan kernels against the same model on the CPU (the plain versions),
+    with each kernel launched once per layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model, params, model, gparams = _serving_model(cuda, arch)
+    gen = torch.Generator().manual_seed(1)
+
+    def perturb(tree, gtree):            # the zero-initialised leaves
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                perturb(leaf, gtree[name])
+            elif not leaf.any():
+                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen))
+                gtree[name].copy_(leaf)
+    perturb(params, gparams)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (2, 150)))
+    want = cpu_model.apply(params, toks)
+    counts = (ssd_scan.launches, wkv6.launches, flash_attention.launches)
+    got = model.apply(gparams, toks.to(cuda))
+    torch.cuda.synchronize()
+    L = model.cfg.n_layers
+    if arch == "rwkv6-7b":
+        assert wkv6.launches - counts[1] == L
+    else:
+        ng = L // model.cfg.zamba_group
+        assert ssd_scan.launches - counts[0] == L
+        assert flash_attention.launches - counts[2] == ng
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

@@ -43,6 +43,8 @@ def test_port_sources_exist():
     assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
             "flash_attention.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -63,7 +65,9 @@ def test_package_imports_without_jax():
         "repro_torch.configs, repro_torch.kernels.build, "
         "repro_torch.kernels.rmsnorm.ops, repro_torch.models, "
         "repro_torch.serve, repro_torch.kernels.flash_attention.ops, "
-        "repro_torch.kernels.moe_gmm.ops\n"
+        "repro_torch.kernels.moe_gmm.ops, repro_torch.kernels.ssd_scan.ops, "
+        "repro_torch.kernels.rwkv6.ops, repro_torch.models.ssm, "
+        "repro_torch.models.rwkv\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"

@@ -12,7 +12,6 @@ port's own ``naive_generate``, whatever the batching. The models are
 reduced olmo-1b (as the reference's tests use) and reduced llama-7b.
 """
 import threading
-import types
 
 import jax
 import numpy as np
@@ -157,12 +156,8 @@ def test_bad_requests_rejected():
 
 
 def _recurrent_model():
-    """A model whose family keeps no KV cache (the port's LM refuses to
-    build one, so a stand-in carries the config)."""
-    cfg = reduced(get_arch("rwkv6-7b"))
-    return types.SimpleNamespace(
-        cfg=cfg, device=torch.device("cpu"),
-        init_cache=lambda b, s: {"wkv": torch.zeros(2, b, 4, 32, 32)})
+    """A model whose family keeps no KV cache: reduced rwkv6-7b."""
+    return build_model(reduced(get_arch("rwkv6-7b")), device="cpu")
 
 
 def test_recurrent_families_rejected():
