@@ -22,8 +22,10 @@ failure:
    The rmsnorm kernel at [2048, 4096] float16 and the reference sweep;
    the flash-attention kernel at the serving prefill's shape (8 x 768,
    32 heads of 128, causal, bfloat16), at the paper's prompt (1 x 2048),
-   on ``tests/test_kernels.py``'s sweep and on two ``q_offset > 0`` cases,
-   each in float32, bfloat16 and float16. The grouped-matmul kernel
+   on ``tests/test_kernels.py``'s sweep, on two ``q_offset > 0`` cases
+   and on views at unaligned strides (16 bits: the kernel's element-load
+   path), each in float32, bfloat16 and float16; the timed lines add the
+   function's TFLOP/s and the share of the bound reached. The grouped-matmul kernel
    (``moe_gmm``) at moonshot-16b's expert shapes (D 2048, F 1408, 64
    experts): the balanced serving-prefill shape (64 groups of 576 rows),
    the same 8 x 768 tokens routed top-6 by a random moonshot router
@@ -108,7 +110,10 @@ failure:
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each path fails unless each of its kernels was
-launched, as many times as its shape says. ``--profile`` adds one more run
+launched, as many times as its shape says, and (serving, MoE, zamba2-7b)
+unless every flash launch went to the 16-bit tensor-core instance
+(``launches_tc``; ``launches_scalar`` is the float32 one). The build
+phase prints each kernel function's registers and spills (``ptxas -v``). ``--profile`` adds one more run
 of each path (the prefill under policy ``fixed``, the serving paths under
 ``critical-path``, one ``apply`` of each recurrent model) under
 ``torch.profiler`` and prints the card's busy time (the union of its
@@ -117,7 +122,7 @@ device time by kernel name.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
-serving path, which runs all three; of ssd_scan on zamba2-7b's and of
+serving path, which runs all three, flash's also by instance; of ssd_scan on zamba2-7b's and of
 wkv6 on rwkv6-7b's timed ``apply`` runs); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -231,6 +236,36 @@ DECODE_CHECK = (2, 150)        # rows x tokens: 150 is no multiple of 128/32
 DECODE_MAX_LEN = 160
 
 
+def reset_launches(fn) -> None:
+    """Zero a wrapper's launch counts: ``launches`` and, for flash
+    attention, ``launches_tc`` and ``launches_scalar`` by instance."""
+    for attr in ("launches", "launches_tc", "launches_scalar"):
+        if hasattr(fn, attr):
+            setattr(fn, attr, 0)
+
+
+def assert_flash_on_tensor_cores(fa) -> None:
+    """Every flash launch since the last reset went to the 16-bit wgmma
+    instance."""
+    assert fa.launches_tc == fa.launches and fa.launches_scalar == 0, \
+        (f"flash_attention: {fa.launches} launches, {fa.launches_tc} on the "
+         f"tensor cores, {fa.launches_scalar} scalar")
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """Each kernel function's ptxas register and spill line, after its
+    (mangled) name."""
+    out, fn, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and fn is not None:
+            out.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spills}")
+    return out
+
+
 def _phase(name: str, t0: float) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -334,17 +369,30 @@ def kernel_phase(torch, device) -> dict:
     return main
 
 
-def flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
-                   itemsize) -> tuple[float, str]:
-    """Least time for the attention: q, k, v read once and o written once;
-    4 operations per (query, visible key, channel) (two products), the
-    visible keys counted for these shapes (causal rows see
-    min(Skv, i + q_offset + 1))."""
+def flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
+    """The attention's operations: 4 per (query, visible key, channel)
+    (two products), the visible keys counted for these shapes (causal rows
+    see min(Skv, i + q_offset + 1)). The bfloat16 kernel's second P.V
+    product (P split into hi + lo) is not counted: it is the kernel's cost,
+    not the function's."""
     if causal:
         visible = sum(min(Skv, i + q_offset + 1) for i in range(Sq))
     else:
         visible = Sq * Skv
-    ops = 4 * B * Hq * visible * Dh
+    return 4 * B * Hq * visible * Dh
+
+
+def flash_rate(ops: int, k_ms: float, bound_ms: float) -> str:
+    """TFLOP/s of the function's operations and the share of the bound."""
+    return (f"tflops {ops / k_ms / 1e9:.1f} bound_share "
+            f"{bound_ms / k_ms:.4f}")
+
+
+def flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+                   itemsize) -> tuple[float, str]:
+    """Least time for the attention: q, k, v read once and o written once,
+    and flash_ops at the peak rate of the type."""
+    ops = flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset)
     peak = F32_FLOPS if itemsize == 4 else F16_FLOPS
     t_ops = ops / peak
     t_bytes = (2 * B * Sq * Hq + 2 * B * Skv * Hkv) * Dh * itemsize \
@@ -359,7 +407,7 @@ def flash_phase(torch, device) -> dict:
     Returns the record of the serving prefill's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        attention_limit, flash_attention, flash_attention_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 in full f32
     gen = torch.Generator(device=device).manual_seed(0)
@@ -398,7 +446,9 @@ def flash_phase(torch, device) -> dict:
             bound_ms, bound_by = flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh,
                                                 causal, off, q.element_size())
             line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
-                     f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+                     f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+                     + flash_rate(flash_ops(B, Sq, Skv, Hq, Dh, causal, off),
+                                  k_ms, bound_ms))
             if main is None:
                 main = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
@@ -409,18 +459,23 @@ def flash_phase(torch, device) -> dict:
                                  f"plain version at {lbl} {name}")
         del q, k, v, o, p, err
     # views at an unaligned stride: q, k, v sliced out of one fused
-    # projection whose rows are 513 floats long, one float in
-    x = torch.randn(2, 96, 8 * 64 + 1, generator=gen, device=device)
-    heads = x[..., 1:].view(2, 96, 8, 64)
-    q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
-    p = flash_attention_plain(q, k, v)
-    err = (flash_attention(q, k, v) - p).abs()
-    atol, rtol = KERNEL_TOL["float32"]
-    ok = bool((err <= atol + rtol * p.abs()).all())
-    print(f"kernel flash_attention strided-view 2x96 h4/2 d64 float32: "
-          f"max_abs_err {err.max().item():.3g} ok={ok}", flush=True)
-    if not ok:
-        raise AssertionError("flash_attention disagrees on a strided view")
+    # projection whose rows are 513 elements long, one element in (in 16
+    # bits the wgmma kernel's element-load path)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dt).removeprefix("torch.")
+        x = torch.randn(2, 96, 8 * 64 + 1, generator=gen, device=device
+                        ).to(dt)
+        heads = x[..., 1:].view(2, 96, 8, 64)
+        q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
+        p = flash_attention_plain(q, k, v)
+        err = (flash_attention(q, k, v).float() - p.float()).abs()
+        ratio = (err / attention_limit(p, name)).max().item()
+        print(f"kernel flash_attention strided-view 2x96 h4/2 d64 {name}: "
+              f"max_abs_err {err.max().item():.3g} max err/limit "
+              f"{ratio:.3g} (attention_limit) ok={ratio <= 1.0}", flush=True)
+        if ratio > 1.0:
+            raise AssertionError(f"flash_attention disagrees on a strided "
+                                 f"view in {name}")
     del flush
     return main
 
@@ -588,24 +643,6 @@ def wkv6_bound_ms(B, S, H, P, chunk, itemsize) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_limit(want, name: str):
-    """Elementwise limit on |kernel - plain| for an attention output
-    [..., Dh]. float32: KERNEL_TOL. 16-bit: two units in the last place of
-    |plain| (2^-6 relative in bfloat16, 2^-9 in float16: the two differ
-    in the f32 summation order, then each rounds once), plus 2^-8 of the
-    row's rms for outputs near zero. A row's outputs shrink as it sees more
-    keys (~sqrt(e / keys) for unit inputs at these head sizes: 0.018 at key
-    8192), so a limit fixed in absolute terms would pass a wrong late row;
-    this one scales with each row."""
-    want = want.float()
-    if name == "float32":
-        atol, rtol = KERNEL_TOL[name]
-        return atol + rtol * want.abs()
-    ulp = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}[name]
-    rms = want.square().mean(dim=-1, keepdim=True).sqrt()
-    return 2 * ulp * want.abs() + 2.0 ** -8 * rms
-
-
 def _check_close(label: str, got, want, tol) -> float:
     """Max |got - want|; raises unless |got - want| <= atol + rtol|want|
     everywhere."""
@@ -733,7 +770,7 @@ def flash_112_phase(torch, device) -> None:
     would take 17 GB), timed beside F.scaled_dot_product_attention."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        attention_limit, flash_attention, flash_attention_plain)
 
     B, S, H, Dh = FLASH_112
     gen = torch.Generator(device=device).manual_seed(0)
@@ -772,7 +809,9 @@ def flash_112_phase(torch, device) -> None:
     bound_ms, bound_by = flash_bound_ms(B, S, S, H, H, Dh, True, 0, 2)
     print(f"kernel flash_attention zamba-shared {B}x{S} h{H} d{Dh} causal "
           f"bfloat16: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
-          f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+          f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+          + flash_rate(flash_ops(B, S, S, H, Dh, True, 0), k_ms, bound_ms),
+          flush=True)
     del q, k, v, o, flush
 
 
@@ -899,7 +938,8 @@ def run_serving(torch, device, model, params, prompts, *,
             route_ties.append([])
     _phase("serving oracle (naive_generate)", t)
 
-    launches = dict.fromkeys(kernels, 0)
+    launches = dict.fromkeys([*kernels, "flash_attention_tc",
+                              "flash_attention_scalar"], 0)
     streams: dict[str, list[list[int]]] = {}
     margins_of: dict[str, dict[int, list]] = {}
     for policy in SERVE_POLICIES:
@@ -918,13 +958,15 @@ def run_serving(torch, device, model, params, prompts, *,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():         # the serving path starts here
-            fn.launches = 0
+            reset_launches(fn)
         t0 = time.perf_counter()
         out = eng.generate(prompts, max_new=max_new)
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = {name: fn.launches for name, fn in kernels.items()}
+        fa_tc = flash_attention.launches_tc
+        fa_scalar = flash_attention.launches_scalar
         peak = torch.cuda.max_memory_allocated() if cuda else None
         eng.close()
         st = eng.stats
@@ -940,6 +982,8 @@ def run_serving(torch, device, model, params, prompts, *,
                    for i in range(checked))
         counts = " ".join(f"{name}_launches {n[name]} (= {want[name]})"
                           for name in kernels)
+        counts += (f" flash_attention_launches_tc {fa_tc} "
+                   f"flash_attention_launches_scalar {fa_scalar}")
         print(f"serve {cfg.name} policy={policy}: wall_s {wall:.3f} "
               f"prefill_time_s {st.prefill_time:.3f} decode_time_s "
               f"{st.decode_time:.3f} stall_time_s {st.stall_time:.3f} "
@@ -959,12 +1003,15 @@ def run_serving(torch, device, model, params, prompts, *,
             for name in kernels:
                 assert n[name] == want[name] > 0, \
                     f"{name} launched {n[name]} times, expected {want[name]}"
+            assert_flash_on_tensor_cores(flash_attention)
         for i in range(checked):
             if 0 not in route_ties[i]:
                 assert first_err[i] <= SERVE_RTOL, \
                     f"first-token logits of request {i} disagree"
         for name in kernels:
             launches[name] += n[name]
+        launches["flash_attention_tc"] += fa_tc
+        launches["flash_attention_scalar"] += fa_scalar
         streams[policy] = out
         margins_of[policy] = margins
     ref_policy = SERVE_POLICIES[0]
@@ -1223,7 +1270,7 @@ def run_recurrent(torch, device, model, params, *,
 
     t = time.perf_counter()
     for fn in kernels.values():
-        fn.launches = 0
+        reset_launches(fn)
     logits = forward()                      # warm-up: cuBLAS handles
     n = {name: fn.launches for name, fn in kernels.items()}
     assert tuple(logits.shape) == (B, S, cfg.padded_vocab), logits.shape
@@ -1234,10 +1281,12 @@ def run_recurrent(torch, device, model, params, *,
         for name in kernels:
             assert n[name] == per_fwd[name], \
                 f"{name} launched {n[name]} times, expected {per_fwd[name]}"
+        if "flash_attention" in kernels:
+            assert_flash_on_tensor_cores(flash_attention)
         torch.cuda.reset_peak_memory_stats()
     walls = []
     for fn in kernels.values():             # the recurrent path starts here
-        fn.launches = 0
+        reset_launches(fn)
     for _ in range(RECURRENT_TIMED):
         t0 = time.perf_counter()
         forward()
@@ -1257,6 +1306,11 @@ def run_recurrent(torch, device, model, params, *,
             want = RECURRENT_TIMED * per_fwd[name]
             assert launches[name] == want, \
                 f"{name} launched {launches[name]} times, expected {want}"
+        if "flash_attention" in kernels:
+            assert_flash_on_tensor_cores(flash_attention)
+            print(f"recurrent {cfg.name}: flash_attention_launches_tc "
+                  f"{flash_attention.launches_tc} launches_scalar "
+                  f"{flash_attention.launches_scalar}", flush=True)
 
     Bd, Sd = DECODE_CHECK
     dtoks = decode_tokens(torch, device, cfg.vocab_size)
@@ -1358,9 +1412,8 @@ def main(argv: list[str]) -> int:
     build.build_all()
     for name, (secs, log) in sorted(build.build_log.items()):
         print(f"build {name}: nvcc {secs:.2f} s", flush=True)
-        for line in log.splitlines():       # ptxas: registers and spills
-            if "registers" in line or "spill" in line:
-                print(f"build {name}: {line.strip()}", flush=True)
+        for line in ptxas_lines(log):       # ptxas: registers and spills
+            print(f"build {name}: {line}", flush=True)
     _phase("build", t)
 
     t = time.perf_counter()
@@ -1468,7 +1521,9 @@ def main(argv: list[str]) -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:23",
-             launches=served["flash_attention"], **fa),
+             launches=served["flash_attention"],
+             launches_tc=served["flash_attention_tc"],
+             launches_scalar=served["flash_attention_scalar"], **fa),
         dict(name="moe_gmm", route="cuda",
              source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
              replaces="src/repro/kernels/moe_gmm/kernel.py:19",

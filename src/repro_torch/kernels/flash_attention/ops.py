@@ -6,7 +6,10 @@ v ``[B, Skv, Hkv, Dh]`` with ``Hq % Hkv == 0``, and returns
 ``csrc/flash_attention.cu`` (built on first use, see
 :mod:`repro_torch.kernels.build`) or raises; there is no fallback. On a CPU
 tensor, and only there, it computes :func:`flash_attention_plain`.
-``flash_attention.launches`` counts the kernel's launches.
+``flash_attention.launches`` counts the kernel's launches, and by instance
+``launches_tc`` (16-bit: the wgmma kernel) and ``launches_scalar``
+(float32: scalar FMAs). :func:`attention_limit` is the rule a 16-bit kernel
+output is held to against the plain version.
 
 The kernel reads through the tensors' strides and masks the ragged edges
 itself, so unlike the reference wrapper (``repro/kernels/flash_attention/
@@ -22,13 +25,35 @@ import threading
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_plain", "attention_limit",
+           "NEG_INF"]
 
 NEG_INF = -1e30                  # the TPU kernel's masked score (not -inf)
 HEAD_DIMS = (32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# float32 kernel vs plain: |k - p| <= atol + rtol * |p|, about one unit in
+# the last place (the two differ in the f32 summation order)
+F32_TOL = (2e-5, 2e-4)
 _count_lock = threading.Lock()
 _fn = None
+
+
+def attention_limit(want, name: str):
+    """Elementwise limit on |kernel - plain| for an attention output
+    [..., Dh]. float32: F32_TOL. 16-bit: two units in the last place of
+    |plain| (2^-6 relative in bfloat16, 2^-9 in float16: the two differ
+    in the f32 summation order, then each rounds once), plus 2^-8 of the
+    row's rms for outputs near zero. A row's outputs shrink as it sees more
+    keys (~sqrt(e / keys) for unit inputs at these head sizes: 0.018 at key
+    8192), so a limit fixed in absolute terms would pass a wrong late row;
+    this one scales with each row."""
+    want = want.float()
+    if name == "float32":
+        atol, rtol = F32_TOL
+        return atol + rtol * want.abs()
+    ulp = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}[name]
+    rms = want.square().mean(dim=-1, keepdim=True).sqrt()
+    return 2 * ulp * want.abs() + 2.0 ** -8 * rms
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -131,7 +156,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"cudaError {err}")
     with _count_lock:
         flash_attention.launches += 1
+        if q.dtype == torch.float32:
+            flash_attention.launches_scalar += 1
+        else:
+            flash_attention.launches_tc += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_scalar = 0

@@ -18,7 +18,8 @@ from repro_torch.core import ops as port_ops
 from repro_torch.core.bridge import inputs_from_reference
 from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
 from repro_torch.core.trace import TraceConfig, trace_prefill
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
+from repro_torch.kernels.flash_attention.ops import (attention_limit,
+                                                     flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,
                                              grouped_matmul_plain, moe_gmm,
@@ -171,21 +172,43 @@ def test_slow_kernels_keep_safe_overwrite_order(cuda, monkeypatch, seed):
 
 
 # (B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset): tests/test_kernels.py's
-# sweep, two chunks of queries against a longer KV, and llama-7b's heads
+# sweep, two chunks of queries against a longer KV, and llama-7b's heads;
+# then the 16-bit kernel's edges (64-row KV tiles, 128-row query tiles):
+# one query row, KV shorter than a tile or no multiple of it, and a chunk
+# of queries at an offset at zamba2-7b's head size
 FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 4, 4, 128, True, 0),
                (2, 64, 256, 8, 2, 64, False, 0), (1, 256, 64, 2, 1, 64, True, 0),
                (1, 64, 256, 4, 2, 32, True, 192),
                (2, 100, 300, 8, 8, 128, True, 200),
                (2, 96, 96, 32, 32, 128, True, 0),
                (2, 200, 200, 4, 4, 112, True, 0),     # zamba2-7b's heads
-               (1, 96, 160, 8, 8, 112, False, 0)]
+               (1, 96, 160, 8, 8, 112, False, 0),
+               (2, 1, 100, 4, 2, 128, True, 99), (2, 1, 37, 4, 4, 64, False, 0),
+               (1, 130, 40, 4, 4, 112, True, 0), (2, 70, 24, 4, 2, 64, False, 0),
+               (2, 150, 150, 4, 4, 128, True, 0), (1, 64, 130, 4, 2, 32, False, 0),
+               (1, 100, 300, 4, 4, 112, True, 200)]
+
+
+def _assert_attention_close(o, want):
+    """float32: KERNEL_TOL; 16-bit: attention_limit (two units in the last
+    place plus a share of each row's rms)."""
+    name = str(o.dtype).removeprefix("torch.")
+    err = (o.float() - want.float()).abs()
+    ratio = (err / attention_limit(want, name)).max().item()
+    assert ratio <= 1.0, f"max err/limit {ratio:.3g} ({name})"
+
+
+def _count_flash():
+    return (flash_attention.launches, flash_attention.launches_tc,
+            flash_attention.launches_scalar)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
-    """One launch per call; the kernel's f32 online softmax against the
+    """One launch per call, on the wgmma instance in 16 bits and the scalar
+    one in float32; the kernel's f32 online softmax against the
     materialised f32 scores of the plain version (TF32 off, so the plain
     f32 products are full f32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,16 +216,48 @@ def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(B, S, H, Dh, generator=gen, device=cuda).to(dtype)
                for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
-    before = flash_attention.launches
+    n, tc, sc = _count_flash()
     o = flash_attention(q, k, v, causal=causal, q_offset=off)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    f32 = dtype == torch.float32
+    assert _count_flash() == (n + 1, tc + (not f32), sc + f32)
     assert o.dtype == dtype and o.shape == q.shape
-    rtol, atol = KERNEL_TOL[dtype]
-    torch.testing.assert_close(
-        o.float(), flash_attention_plain(q, k, v, causal=causal,
-                                         q_offset=off).float(),
-        rtol=rtol, atol=atol)
+    _assert_attention_close(o, flash_attention_plain(q, k, v, causal=causal,
+                                                     q_offset=off))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_unaligned_16bit_views(cuda, dtype):
+    """q, k, v sliced out of 513-element rows, one element in: no pointer
+    or stride is 16-byte aligned, so the wgmma kernel stages its tiles
+    with element loads; still the tensor-core instance, not the scalar."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 80, 8 * 64 + 1, generator=gen, device=cuda).to(dtype)
+    heads = x[..., 1:].view(2, 80, 8, 64)
+    q, k, v = heads[:, :, :4], heads[:, :, 4:6], heads[:, :, 6:]
+    n, tc, sc = _count_flash()
+    o = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _count_flash() == (n + 1, tc + 1, sc)
+    _assert_attention_close(o, flash_attention_plain(q, k, v))
+    # the aligned copies give the same bytes
+    assert torch.equal(o, flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_is_deterministic_and_batch_invariant(cuda, dtype):
+    """Two launches give equal bytes, and row b = 0 of a batch of 8 equals
+    the same row run alone, byte for byte: a row's result depends only on
+    its own (b, h, row), never on B or the grid."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(8, 300, 8, 112, generator=gen, device=cuda
+                           ).to(dtype) for _ in range(3))
+    o = flash_attention(q, k, v)
+    assert torch.equal(o, flash_attention(q, k, v))
+    alone = flash_attention(q[:1], k[:1], v[:1])
+    torch.cuda.synchronize()
+    assert torch.equal(o[:1], alone)
 
 
 def test_flash_kernel_reads_strided_views_and_writes_out(cuda):

@@ -5,10 +5,14 @@
 ``attention_ref``, on that file's shape sweep and at its tolerances
 (float32 rtol 2e-4 / atol 2e-5, bfloat16 3e-2), plus ``q_offset > 0``
 cases against ``flash_attention_kernel(..., q_offset=...)`` and
-``attention_ref(q_offset=...)``. On a CPU tensor the wrapper computes the
+``attention_ref(q_offset=...)``. The rounding rule of the card's 16-bit
+kernel (P split into hi + lo in bfloat16) is held here by emulating its
+tile arithmetic in torch. On a CPU tensor the wrapper computes the
 plain version and launches nothing; the kernel itself is held against the
 plain version on the card in ``tests/test_torch_cuda.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +23,8 @@ from repro.kernels.flash_attention.ops import flash_attention as pallas_fa
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.core import lockcheck
 from repro_torch.core.bridge import host_tensor
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
+from repro_torch.kernels.flash_attention.ops import (attention_limit,
+                                                     flash_attention,
                                                      flash_attention_plain)
 
 torch.set_num_threads(1)
@@ -145,3 +150,50 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(case):
         kw["out"] = torch.empty(1, 16, 4, 16)
     with pytest.raises((ValueError, TypeError)):
         flash_attention(q, k, v, **kw)
+
+
+def _kernel_arithmetic(q, k, v, p_rounding: str, tile: int = 64):
+    """Causal attention as the card's 16-bit kernel computes it: 64-key
+    tiles, scores and the online softmax (m, l, acc) in f32, l summed from
+    the f32 P, and P rounded to the input type before the P.V product,
+    either once (``"once"``) or as hi + lo, two products (``"split"``)."""
+    B, S, H, Dh = q.shape
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    acc = torch.zeros(B, H, S, Dh)
+    q_pos = torch.arange(S)[:, None]
+    for k0 in range(0, S, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / math.sqrt(Dh)
+        s = s.masked_fill(torch.arange(k0, k0 + s.shape[-1]) > q_pos, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(q.dtype).float()
+        if p_rounding == "split":
+            hi = hi + (p - hi).to(q.dtype).float()
+        acc = acc * corr + hi @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("Dh", [112, 128])
+def test_bf16_kernel_must_split_p(Dh):
+    """Why the bfloat16 kernel issues P as hi + lo: rounded once to bf16, P
+    carries ~2^-9 of error into every term of a row, and at 512 keys that
+    already exceeds attention_limit; split, it stays well inside. float16
+    keeps 11 bits, so its kernel rounds P once."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 1, 512, 2, Dh), dtype=np.float32)
+    for dtype, rounding, within in ((torch.bfloat16, "split", True),
+                                    (torch.bfloat16, "once", False),
+                                    (torch.float16, "once", True)):
+        q, k, v = (torch.from_numpy(a).to(dtype) for a in x)
+        want = flash_attention_plain(q, k, v)
+        got = _kernel_arithmetic(q, k, v, rounding)
+        name = str(dtype).removeprefix("torch.")
+        ratio = ((got.float() - want.float()).abs()
+                 / attention_limit(want, name)).max().item()
+        assert (ratio <= 1.0) == within, (name, rounding, ratio)
