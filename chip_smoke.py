@@ -31,8 +31,12 @@ failure:
    the same 8 x 768 tokens routed top-6 by a random moonshot router
    (ragged groups, the record's shape), a bucket-8 decode step (48 routed
    rows, most experts empty), groups of count 0 beside one that takes every
-   row, and ``tests/test_kernels.py``'s ``TestMoEGMM`` sweep through the
-   dense-grouped ``moe_gmm``, each in float32, bfloat16 and float16. The
+   row, the routed rows' down product (1408 -> 2048), and
+   ``tests/test_kernels.py``'s ``TestMoEGMM`` sweep through the
+   dense-grouped ``moe_gmm``, each in float32, bfloat16 and float16; every
+   16-bit call at moonshot's shapes must run on the wgmma instance, and
+   the decode step's host time per call is printed in bfloat16 and in
+   float32, whose instance encodes no tensor map. The
    library time is one PyTorch call computing the same function
    (``F.rms_norm``, ``F.scaled_dot_product_attention``; for ``moe_gmm``
    ``torch.bmm`` on the balanced shape, which does the routed shape's
@@ -112,7 +116,10 @@ Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each path fails unless each of its kernels was
 launched, as many times as its shape says, and (serving, MoE, zamba2-7b)
 unless every flash launch went to the 16-bit tensor-core instance
-(``launches_tc``; ``launches_scalar`` is the float32 one). The build
+(``launches_tc``; ``launches_scalar`` is the float32 one), and (MoE)
+unless every moe_gmm launch went to the wgmma instance
+(``launches_wgmma``; ``launches_mma`` is the instance for views TMA
+cannot read). The build
 phase prints each kernel function's registers and spills (``ptxas -v``). ``--profile`` adds one more run
 of each path (the prefill under policy ``fixed``, the serving paths under
 ``critical-path``, one ``apply`` of each recurrent model) under
@@ -122,9 +129,10 @@ device time by kernel name.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
-serving path, which runs all three, flash's also by instance; of ssd_scan on zamba2-7b's and of
-wkv6 on rwkv6-7b's timed ``apply`` runs); the last line is
-``{"ok": true, "device": {...}}``.
+serving path, which runs all three, flash's and moe_gmm's also by
+instance; of ssd_scan on zamba2-7b's timed ``apply`` runs, one per call,
+with its device launches, three per call, as ``kernel_launches``; of wkv6
+on rwkv6-7b's); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -204,6 +212,7 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 GMM_PREFILL_TOKENS = 8 * 768       # the serving prefill's largest call
 GMM_DECODE_TOKENS = 8              # a bucket-8 decode step
 GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 64, 64), (8, 16, 48, 32)]
+GMM_HOST_CALLS = 200               # decode-step calls timed on the host
 
 MAIN_LAYERS = 8
 MAIN_SEQ = 2048
@@ -237,11 +246,29 @@ DECODE_MAX_LEN = 160
 
 
 def reset_launches(fn) -> None:
-    """Zero a wrapper's launch counts: ``launches`` and, for flash
-    attention, ``launches_tc`` and ``launches_scalar`` by instance."""
-    for attr in ("launches", "launches_tc", "launches_scalar"):
+    """Zero a wrapper's launch counts: ``launches``; by instance, flash
+    attention's ``launches_tc`` and ``launches_scalar``, moe_gmm's
+    ``launches_wgmma``, ``launches_mma`` and ``launches_scalar``; and
+    ssd_scan's device launches, ``kernel_launches``."""
+    for attr in ("launches", "launches_tc", "launches_scalar",
+                 "launches_wgmma", "launches_mma", "kernel_launches"):
         if hasattr(fn, attr):
             setattr(fn, attr, 0)
+
+
+def assert_gmm_on_wgmma(gmm) -> None:
+    """Every moe_gmm launch since the last reset went to the wgmma/TMA
+    instance."""
+    assert gmm.launches_wgmma == gmm.launches, \
+        (f"moe_gmm: {gmm.launches} launches, {gmm.launches_wgmma} on wgmma, "
+         f"{gmm.launches_mma} on mma.sync, {gmm.launches_scalar} scalar")
+
+
+def rate(ops: int, k_ms: float, bound_ms: float) -> str:
+    """A timed kernel's TFLOP/s of the function's operations and the share
+    of its bound it reaches."""
+    return (f"tflops {ops / k_ms / 1e9:.1f} bound_share "
+            f"{bound_ms / k_ms:.4f}")
 
 
 def assert_flash_on_tensor_cores(fa) -> None:
@@ -382,12 +409,6 @@ def flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
     return 4 * B * Hq * visible * Dh
 
 
-def flash_rate(ops: int, k_ms: float, bound_ms: float) -> str:
-    """TFLOP/s of the function's operations and the share of the bound."""
-    return (f"tflops {ops / k_ms / 1e9:.1f} bound_share "
-            f"{bound_ms / k_ms:.4f}")
-
-
 def flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
                    itemsize) -> tuple[float, str]:
     """Least time for the attention: q, k, v read once and o written once,
@@ -447,7 +468,7 @@ def flash_phase(torch, device) -> dict:
                                                 causal, off, q.element_size())
             line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
                      f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-                     + flash_rate(flash_ops(B, Sq, Skv, Hq, Dh, causal, off),
+                     + rate(flash_ops(B, Sq, Skv, Hq, Dh, causal, off),
                                   k_ms, bound_ms))
             if main is None:
                 main = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
@@ -493,9 +514,15 @@ def gmm_bound_ms(rows: int, d: int, f: int, hit: int,
 
 def gmm_phase(torch, device) -> dict:
     """moe_gmm against its plain versions on the card at moonshot-16b's
-    expert shapes and on the reference sweep, in three dtypes; the three
-    main shapes timed in bfloat16. Returns the record of the routed
-    serving-prefill shape."""
+    expert shapes and on the reference sweep, in three dtypes; the main
+    shapes timed in bfloat16: the balanced and the routed gate product
+    (2048 -> 1408), the routed down product (1408 -> 2048) and a bucket-8
+    decode step. Every 16-bit call at these shapes must go to the wgmma
+    instance. Returns the record of the routed gate product, with the down
+    product's and the decode step's times and bounds beside it, and the
+    host's time to issue one decode-step call: ``host_us`` in bfloat16 (the
+    wrapper and the encoding of the call's two tensor maps) and
+    ``host_us_scalar`` in float32 (the same wrapper, no tensor map)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.moe_gmm.ops import (
         grouped_matmul, grouped_matmul_plain, moe_gmm, moe_gmm_plain)
@@ -515,25 +542,33 @@ def gmm_phase(torch, device) -> dict:
         _, _, perm, offsets, counts = moe_route(probs, k)
         return x[perm // k], offsets.int(), counts.int()
 
-    cases = []          # (label, x [R, D] f32, offsets, counts or None)
+    cases = []   # (label, x [R, K] f32, offsets, counts or None)
     C = GMM_PREFILL_TOKENS * k // E
     cases.append(("prefill-balanced", torch.randn(
         E * C, D, generator=gen, device=device), None, None))
-    cases.append(("prefill-routed", *routed(GMM_PREFILL_TOKENS)))
+    x_routed, off_routed, cnt_routed = routed(GMM_PREFILL_TOKENS)
+    cases.append(("prefill-routed", x_routed, off_routed, cnt_routed))
     cases.append(("decode-routed", *routed(GMM_DECODE_TOKENS)))
     zero = torch.zeros(E, dtype=torch.int32, device=device)
     full = zero.clone()
     full[E // 2] = 300                  # one group takes every row
     cases.append(("count-0-groups", torch.randn(
         300, D, generator=gen, device=device), zero.clone(), full))
-    w32 = torch.randn(E, D, Fe, generator=gen, device=device)
-    main = None
-    for label, x32, offsets, counts in cases:
+    w_gate = torch.randn(E, D, Fe, generator=gen, device=device)
+    cases = [(*case, w_gate) for case in cases]
+    # the down product of the routed rows: [R, 1408] x [E, 1408, 2048]
+    cases.append(("prefill-routed-down", torch.randn(
+        x_routed.shape[0], Fe, generator=gen, device=device), off_routed,
+        cnt_routed, torch.randn(E, Fe, D, generator=gen, device=device)))
+    main, timed, host_us = None, {}, {}
+    for label, x32, offsets, counts, w32 in cases:
         for dt in (torch.bfloat16, torch.float32, torch.float16):
             x, w = x32.to(dt), w32.to(dt)
+            K, N = w.shape[1], w.shape[2]
             name = str(dt).removeprefix("torch.")
+            wg0 = moe_gmm.launches_wgmma
             if counts is None:              # the dense-grouped interface
-                x3 = x.view(E, C, D)
+                x3 = x.view(E, C, K)
                 y = moe_gmm(x3, w)
                 torch.cuda.synchronize()
                 p = moe_gmm_plain(x3, w)
@@ -543,12 +578,15 @@ def gmm_phase(torch, device) -> dict:
                 torch.cuda.synchronize()
                 p = grouped_matmul_plain(x, w, offsets, counts)
                 hit = int((counts > 0).sum())
-            atol, rtol = gmm_tol(name, D)
+            if device.type == "cuda" and dt != torch.float32:
+                assert moe_gmm.launches_wgmma == wg0 + 1, \
+                    f"moe_gmm {label} {name} did not run on wgmma"
+            atol, rtol = gmm_tol(name, K)
             err = (y.float() - p.float()).abs()
             max_err = err.max().item()
             ok = bool((err <= atol + rtol * p.float().abs()).all())
             rows = x.shape[0]
-            line = (f"kernel moe_gmm {label} rows={rows} D={D} F={Fe} "
+            line = (f"kernel moe_gmm {label} rows={rows} D={K} F={N} "
                     f"experts_hit={hit}/{E} {name}: max_abs_err {max_err:.3g} "
                     f"(tol {atol:g} + {rtol:g}*|plain|) ok={ok}")
             if dt == torch.bfloat16 and label != "count-0-groups":
@@ -565,21 +603,39 @@ def gmm_phase(torch, device) -> dict:
                     p_ms = _median_ms(lambda: grouped_matmul_plain(
                         x, w, offsets, counts), torch, flush)
                     lib_ms = None
-                bound_ms, bound_by = gmm_bound_ms(rows, D, Fe, hit,
+                bound_ms, bound_by = gmm_bound_ms(rows, K, N, hit,
                                                   x.element_size())
                 line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
                          f"library_ms {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} "
-                         f"bound_ms {bound_ms:.4f} ({bound_by})")
+                         f"bound_ms {bound_ms:.4f} ({bound_by}) "
+                         + rate(2 * rows * K * N, k_ms, bound_ms))
+                timed[label] = (k_ms, bound_ms)
                 if label == "prefill-routed":
                     # torch.bmm on the balanced shape: the same operations
                     main = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=bmm_ms)
+            if label == "decode-routed" and dt != torch.float16:
+                # the same wrapper; the f32 instance encodes no tensor map
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(GMM_HOST_CALLS):
+                    grouped_matmul(x, w, offsets, counts, out=y)
+                host_us[name] = ((time.perf_counter() - t0)
+                                 / GMM_HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+                line += f" host_us_per_call {host_us[name]:.1f}"
             print(line, flush=True)
             if not ok:
                 raise AssertionError(f"moe_gmm kernel disagrees with its "
                                      f"plain version at {label} {name}")
             del x, w, y, p, err
+    main.update(down_ms=timed["prefill-routed-down"][0],
+                down_bound_ms=timed["prefill-routed-down"][1],
+                decode_ms=timed["decode-routed"][0],
+                decode_bound_ms=timed["decode-routed"][1],
+                host_us=host_us["bfloat16"],
+                host_us_scalar=host_us["float32"])
     for E2, C2, D2, F2 in GMM_SWEEP:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             x = torch.randn(E2, C2, D2, generator=gen, device=device).to(dt)
@@ -597,47 +653,56 @@ def gmm_phase(torch, device) -> dict:
                 raise AssertionError(f"moe_gmm kernel disagrees with its "
                                      f"plain version at {(E2, C2, D2, F2)} "
                                      f"{name}")
-    del flush, w32, cases
+    del flush, w_gate, cases, x_routed
     return main
 
 
-def ssd_bound_ms(B, S, H, P, N, chunk, itemsize) -> tuple[float, str]:
-    """Least time for the SSD scan: x, dt, B, C read once and y written
-    once; per chunk of n rows, per b, the lower triangle's C.B products
-    (n(n+1)/2 x N multiply-adds: B and C are shared by the heads, so C.B is
-    needed once for all of them), and per (b, h) its weights (an
-    exponential and two products each), its weighted sum of x (x P), the
-    incoming-state term and the state update (n x P x N multiply-adds
-    each): two operations a multiply-add, one an exponential or a
-    product."""
+def ssd_ops(B, S, H, P, N, chunk) -> int:
+    """The SSD scan's operations: per chunk of n rows, per b, the lower
+    triangle's C.B products (n(n+1)/2 x N multiply-adds: B and C are
+    shared by the heads, so C.B is needed once for all of them), and per
+    (b, h) its weights (an exponential and two products each), its weighted
+    sum of x (x P), the incoming-state term and the state update (n x P x N
+    multiply-adds each): two operations a multiply-add, one an exponential
+    or a product."""
     ops = 0
     for t0 in range(0, S, chunk):
         n = min(chunk, S - t0)
         tri = n * (n + 1) // 2
         ops += B * 2 * tri * N \
             + B * H * (2 * tri * P + 3 * tri + 2 * 2 * n * P * N)
-    t_ops = ops / F32_FLOPS
+    return ops
+
+
+def ssd_bound_ms(B, S, H, P, N, chunk, itemsize) -> tuple[float, str]:
+    """Least time for the SSD scan: x, dt, B, C read once and y written
+    once, and ``ssd_ops`` at the f32 rate."""
+    t_ops = ssd_ops(B, S, H, P, N, chunk) / F32_FLOPS
     t_bytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize \
         / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def wkv6_bound_ms(B, S, H, P, chunk, itemsize) -> tuple[float, str]:
-    """Least time for WKV6: r, k, v, lw read once and y written once; per
-    chunk of n rows, per (b, h), the strict lower triangle's A terms
-    (n(n-1)/2 x P, each two products, a sum and an exponential), A v
-    (n(n-1)/2 x P multiply-adds), the bonus (5 n P), the incoming-state
-    term and the state update (n x P x P multiply-adds each, and 2 n P for
-    their decay factors)."""
+def wkv6_ops(B, S, H, P, chunk) -> int:
+    """WKV6's operations: per chunk of n rows, per (b, h), the strict lower
+    triangle's A terms (n(n-1)/2 x P, each two products, a sum and an
+    exponential), A v (n(n-1)/2 x P multiply-adds), the bonus (5 n P), the
+    incoming-state term and the state update (n x P x P multiply-adds
+    each, and 2 n P for their decay factors)."""
     ops = 0
     for t0 in range(0, S, chunk):
         n = min(chunk, S - t0)
         tri = n * (n - 1) // 2
         ops += 4 * tri * P + 2 * tri * P + 5 * n * P \
             + 2 * 2 * n * P * P + 2 * 2 * n * P
-    ops *= B * H
-    t_ops = ops / F32_FLOPS
+    return ops * B * H
+
+
+def wkv6_bound_ms(B, S, H, P, chunk, itemsize) -> tuple[float, str]:
+    """Least time for WKV6: r, k, v, lw read once and y written once, and
+    ``wkv6_ops`` at the f32 rate."""
+    t_ops = wkv6_ops(B, S, H, P, chunk) / F32_FLOPS
     t_bytes = 5 * B * S * H * P * itemsize / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -691,11 +756,11 @@ def scan_phase(torch, device) -> dict:
                 randn(H, P))
 
     records = {}
-    for name, fn, plain, make, main_shape, sweep, bound in (
+    for name, fn, plain, make, main_shape, sweep, bound, count in (
             ("ssd_scan", ssd_scan, ssd_scan_plain, ssd_inputs, SSD_MAIN,
-             SSD_SWEEP, ssd_bound_ms),
+             SSD_SWEEP, ssd_bound_ms, ssd_ops),
             ("wkv6", wkv6, wkv6_plain, wkv_inputs, WKV_MAIN, WKV_SWEEP,
-             wkv6_bound_ms)):
+             wkv6_bound_ms, wkv6_ops)):
         cases = [(main_shape, torch.float32, True)] + [
             (shp, dt, False) for shp in sweep
             for dt in (torch.float32, torch.bfloat16)]
@@ -704,8 +769,12 @@ def scan_phase(torch, device) -> dict:
             # the main shape of wkv6 takes the model's decay range; that of
             # ssd_scan the test's ranges (see ssd_model_range)
             args = make(*dims, dt, main and name == "wkv6")
+            reset_launches(fn)
             y = fn(*args, chunk=chunk)
             torch.cuda.synchronize()
+            if name == "ssd_scan" and device.type == "cuda":   # 3 a call
+                assert (fn.launches, fn.kernel_launches) == (1, 3), \
+                    (fn.launches, fn.kernel_launches)
             p = plain(*args, chunk=chunk)
             dname = str(dt).removeprefix("torch.")
             label = (f"{name} {'main' if main else 'sweep'} "
@@ -719,7 +788,8 @@ def scan_phase(torch, device) -> dict:
                 bound_ms, bound_by = bound(*shape, args[0].element_size())
                 print(f"kernel {label}: kernel_ms {k_ms:.4f} plain_ms "
                       f"{p_ms:.4f} library_ms None bound_ms {bound_ms:.4f} "
-                      f"({bound_by})", flush=True)
+                      f"({bound_by}) " + rate(count(*shape), k_ms, bound_ms),
+                      flush=True)
                 records[name] = dict(max_abs_err=max_err, ms=k_ms,
                                      plain_ms=p_ms, bound_ms=bound_ms,
                                      bound_by=bound_by, library_ms=None)
@@ -810,7 +880,7 @@ def flash_112_phase(torch, device) -> None:
     print(f"kernel flash_attention zamba-shared {B}x{S} h{H} d{Dh} causal "
           f"bfloat16: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
           f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-          + flash_rate(flash_ops(B, S, S, H, Dh, True, 0), k_ms, bound_ms),
+          + rate(flash_ops(B, S, S, H, Dh, True, 0), k_ms, bound_ms),
           flush=True)
     del q, k, v, o, flush
 
@@ -939,7 +1009,8 @@ def run_serving(torch, device, model, params, prompts, *,
     _phase("serving oracle (naive_generate)", t)
 
     launches = dict.fromkeys([*kernels, "flash_attention_tc",
-                              "flash_attention_scalar"], 0)
+                              "flash_attention_scalar", "moe_gmm_wgmma",
+                              "moe_gmm_mma"], 0)
     streams: dict[str, list[list[int]]] = {}
     margins_of: dict[str, dict[int, list]] = {}
     for policy in SERVE_POLICIES:
@@ -967,6 +1038,7 @@ def run_serving(torch, device, model, params, prompts, *,
         n = {name: fn.launches for name, fn in kernels.items()}
         fa_tc = flash_attention.launches_tc
         fa_scalar = flash_attention.launches_scalar
+        gmm_wgmma, gmm_mma = moe_gmm.launches_wgmma, moe_gmm.launches_mma
         peak = torch.cuda.max_memory_allocated() if cuda else None
         eng.close()
         st = eng.stats
@@ -984,6 +1056,9 @@ def run_serving(torch, device, model, params, prompts, *,
                           for name in kernels)
         counts += (f" flash_attention_launches_tc {fa_tc} "
                    f"flash_attention_launches_scalar {fa_scalar}")
+        if moe:
+            counts += (f" moe_gmm_launches_wgmma {gmm_wgmma} "
+                       f"moe_gmm_launches_mma {gmm_mma}")
         print(f"serve {cfg.name} policy={policy}: wall_s {wall:.3f} "
               f"prefill_time_s {st.prefill_time:.3f} decode_time_s "
               f"{st.decode_time:.3f} stall_time_s {st.stall_time:.3f} "
@@ -1004,6 +1079,8 @@ def run_serving(torch, device, model, params, prompts, *,
                 assert n[name] == want[name] > 0, \
                     f"{name} launched {n[name]} times, expected {want[name]}"
             assert_flash_on_tensor_cores(flash_attention)
+            if moe:
+                assert_gmm_on_wgmma(moe_gmm)
         for i in range(checked):
             if 0 not in route_ties[i]:
                 assert first_err[i] <= SERVE_RTOL, \
@@ -1012,6 +1089,8 @@ def run_serving(torch, device, model, params, prompts, *,
             launches[name] += n[name]
         launches["flash_attention_tc"] += fa_tc
         launches["flash_attention_scalar"] += fa_scalar
+        launches["moe_gmm_wgmma"] += gmm_wgmma
+        launches["moe_gmm_mma"] += gmm_mma
         streams[policy] = out
         margins_of[policy] = margins
     ref_policy = SERVE_POLICIES[0]
@@ -1292,11 +1371,16 @@ def run_recurrent(torch, device, model, params, *,
         forward()
         walls.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in kernels.items()}
+    if "ssd_scan" in kernels:
+        launches["ssd_scan_kernel"] = ssd_scan.kernel_launches
     peak = torch.cuda.max_memory_allocated() if cuda else None
     med = statistics.median(walls)
     counts = " ".join(f"{name}_launches {launches[name]} "
                       f"(= {RECURRENT_TIMED} x {per_fwd[name]})"
                       for name in kernels)
+    if "ssd_scan" in kernels:
+        counts += (f" ssd_scan_kernel_launches "
+                   f"{launches['ssd_scan_kernel']}")
     print(f"recurrent {cfg.name} apply {B}x{S}: median_ms {med * 1e3:.2f} "
           f"walls_ms {[round(w * 1e3, 2) for w in walls]} tokens_per_s "
           f"{B * S / med:.1f} peak_allocated_bytes {peak} {counts}",
@@ -1306,6 +1390,8 @@ def run_recurrent(torch, device, model, params, *,
             want = RECURRENT_TIMED * per_fwd[name]
             assert launches[name] == want, \
                 f"{name} launched {launches[name]} times, expected {want}"
+        if "ssd_scan" in kernels:          # three device launches a call
+            assert launches["ssd_scan_kernel"] == 3 * launches["ssd_scan"]
         if "flash_attention" in kernels:
             assert_flash_on_tensor_cores(flash_attention)
             print(f"recurrent {cfg.name}: flash_attention_launches_tc "
@@ -1527,11 +1613,15 @@ def main(argv: list[str]) -> int:
         dict(name="moe_gmm", route="cuda",
              source="src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
              replaces="src/repro/kernels/moe_gmm/kernel.py:19",
-             launches=served["moe_gmm"], **gmm),
+             launches=served["moe_gmm"],
+             launches_wgmma=served["moe_gmm_wgmma"],
+             launches_mma=served["moe_gmm_mma"], **gmm),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:19",
-             launches=recurrent["ssd_scan"], **scans["ssd_scan"]),
+             launches=recurrent["ssd_scan"],
+             kernel_launches=recurrent["ssd_scan_kernel"],
+             **scans["ssd_scan"]),
         dict(name="wkv6", route="cuda",
              source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
              replaces="src/repro/kernels/rwkv6/kernel.py:18",

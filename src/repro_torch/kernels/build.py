@@ -7,8 +7,10 @@ loaded with :mod:`ctypes`. Nothing is compiled when a module is imported:
 the first launch of a kernel builds it, and :func:`build_all` builds every
 kernel at once, one ``nvcc`` per source, all started together.
 
-A library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+A library's file name carries a hash of its source, of every header the
+source includes by a quoted ``#include`` (``kernels/common/hopper.cuh``),
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -59,11 +62,31 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _included(src: pathlib.Path) -> list[pathlib.Path]:
+    """``src`` and every file it includes by a quoted ``#include``, found
+    relative to the including file, recursively, each once, in order."""
+    seen: list[pathlib.Path] = []
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / m.decode()).resolve()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = _PKG / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _included(src):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -13,8 +13,11 @@ On a CUDA tensor each launches ``csrc/moe_gmm.cu`` (built on first use,
 see :mod:`repro_torch.kernels.build`) or raises; there is no fallback. On
 a CPU tensor, and only there, each computes its plain version
 (:func:`grouped_matmul_plain`, :func:`moe_gmm_plain`). ``moe_gmm.launches``
-counts the kernel's launches from both. The kernel masks the ragged edges
-itself, so unlike the reference wrapper this one pads nothing.
+counts the kernel's launches from both, and by instance:
+``launches_wgmma`` (16-bit views TMA can read: wgmma with TMA loads),
+``launches_mma`` (other 16-bit views: mma.sync with element loads) and
+``launches_scalar`` (float32). The kernel masks the ragged edges itself,
+so unlike the reference wrapper this one pads nothing.
 """
 from __future__ import annotations
 
@@ -90,6 +93,17 @@ def _check(x, w, offsets, counts, out) -> None:
                          f"{x.device} with a contiguous last dimension")
 
 
+def _wgmma_view(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether a 16-bit call goes to the wgmma instance: the rule of
+    ``moe_gmm_launch`` (csrc/moe_gmm.cu), which TMA sets. Every pointer
+    16-byte aligned; D, F and every row and expert stride multiples of 8
+    elements."""
+    return (all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+            and all(n % 8 == 0 for n in (x.shape[1], w.shape[2], x.stride(0),
+                                         w.stride(0), w.stride(1),
+                                         out.stride(0))))
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                    counts: torch.Tensor, *,
                    out: torch.Tensor | None = None) -> torch.Tensor:
@@ -116,8 +130,12 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed: cudaError {err}")
+    instance = ("launches_scalar" if x.dtype == torch.float32 else
+                "launches_wgmma" if _wgmma_view(x, w, out) else
+                "launches_mma")
     with _count_lock:
         moe_gmm.launches += 1
+        setattr(moe_gmm, instance, getattr(moe_gmm, instance) + 1)
     return out
 
 
@@ -143,3 +161,6 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 moe_gmm.launches = 0
+moe_gmm.launches_wgmma = 0
+moe_gmm.launches_mma = 0
+moe_gmm.launches_scalar = 0

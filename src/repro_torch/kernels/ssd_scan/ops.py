@@ -8,7 +8,11 @@ and returns ``y [B, S, H, P]`` in ``xh``'s dtype. On a CUDA tensor it
 launches ``csrc/ssd_scan.cu`` (built on first use, see
 :mod:`repro_torch.kernels.build`) or raises; there is no fallback. On a CPU
 tensor, and only there, it computes :func:`ssd_scan_plain`.
-``ssd_scan.launches`` counts the kernel's launches.
+``ssd_scan.launches`` counts the wrapper's calls that launched the kernel,
+one per call; ``ssd_scan.kernel_launches`` counts the device launches,
+three per call (chunk states, the pass across chunks, the outputs), which
+share an f32 workspace of ``[B, H, ceil(S / chunk), P, N]`` states the
+wrapper allocates on the caller's stream.
 
 The scan starts from a zero state and returns none, as the TPU kernel
 does; the model's decode step, which carries a state, uses its own
@@ -27,6 +31,7 @@ __all__ = ["ssd_scan", "ssd_scan_plain"]
 MAX_P = 64                 # what csrc/ssd_scan.cu is built for
 MAX_N = 64
 MAX_CHUNK = 128
+KERNELS_PER_CALL = 3       # chunk states, state pass, outputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
@@ -78,7 +83,7 @@ def _launcher():
     if _fn is None:
         from ..build import library
         fn = library("ssd_scan").ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -140,15 +145,21 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.numel() == 0:
         return y
     a = A.to(torch.float32).contiguous()
+    nc = -(-S // c)
+    work = torch.empty(B * H * nc * (P * N + 1), dtype=torch.float32,
+                       device=xh.device)
     err = _launcher()(xh.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                      Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), B, S, H, P,
-                      N, c, _DTYPE_CODE[xh.dtype],
+                      Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
+                      work.data_ptr(), B, S, H, P, N, c,
+                      _DTYPE_CODE[xh.dtype],
                       torch.cuda.current_stream(xh.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     with _count_lock:
         ssd_scan.launches += 1
+        ssd_scan.kernel_launches += KERNELS_PER_CALL
     return y
 
 
 ssd_scan.launches = 0
+ssd_scan.kernel_launches = 0

@@ -392,6 +392,82 @@ def test_moe_gmm_wrapper_refuses_what_it_cannot_launch(cuda):
         grouped_matmul(x.double(), w.double(), off, cnt)
 
 
+def _moonshot_routed(cuda, n_tokens: int, seed: int):
+    """x rows [n_tokens * 6, 2048] and int32 offsets, counts of moonshot's
+    routing (64 experts, top-6) of random tokens by a random router; and
+    the generator, for the weights."""
+    from repro_torch.models.layers import moe_route
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    router = torch.randn(2048, 64, generator=gen, device=cuda) / 2048 ** 0.5
+    x = torch.randn(n_tokens, 2048, generator=gen, device=cuda)
+    _, _, perm, off, cnt = moe_route(torch.softmax(x @ router, -1), 6)
+    return gen, x[perm // 6], off.int(), cnt.int()
+
+
+@pytest.mark.parametrize("product", ["gate", "down"])
+def test_moe_gmm_routed_serving_prefill_on_wgmma(cuda, product):
+    """The serving prefill's routed rows (8 x 768 tokens, top-6: 36,864
+    rows) through moonshot's gate (2048 -> 1408) and down (1408 -> 2048)
+    products in bfloat16: on the wgmma instance, two launches byte-equal,
+    and the plain version under gmm_tol."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, x, off, cnt = _moonshot_routed(cuda, 8 * 768, 3)
+    K, N = (2048, 1408) if product == "gate" else (1408, 2048)
+    if product == "down":
+        x = torch.randn(x.shape[0], K, generator=gen, device=cuda)
+    x = x.bfloat16()
+    w = torch.randn(64, K, N, generator=gen, device=cuda).bfloat16()
+    before = moe_gmm.launches_wgmma
+    y = grouped_matmul(x, w, off, cnt)
+    again = grouped_matmul(x, w, off, cnt)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches_wgmma == before + 2
+    assert torch.equal(y, again)
+    rtol, atol = gmm_tol(torch.bfloat16, K)
+    torch.testing.assert_close(y.float(), grouped_matmul_plain(
+        x, w, off, cnt).float(), rtol=rtol, atol=atol)
+
+
+def test_moe_gmm_group_alone_is_byte_equal_to_the_full_call(cuda):
+    """A group's rows computed alone (R = its count, one expert) are byte
+    for byte its rows in the routed call of 36,864 rows: no tile or
+    instance depends on R or on the other groups."""
+    gen, x, off, cnt = _moonshot_routed(cuda, 8 * 768, 4)
+    x = x.bfloat16()
+    w = torch.randn(64, 2048, 1408, generator=gen, device=cuda).bfloat16()
+    full = grouped_matmul(x, w, off, cnt)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for e in {int(cnt.argmax()), int(cnt.argmin()), 17}:
+        o, c = int(off[e]), int(cnt[e])
+        if c == 0:
+            continue
+        alone = grouped_matmul(x[o:o + c].contiguous(), w[e:e + 1], zero,
+                               torch.tensor([c], dtype=torch.int32,
+                                            device=cuda))
+        assert torch.equal(alone, full[o:o + c]), e
+
+
+def test_moe_gmm_counts_launches_by_instance(cuda):
+    """Aligned 16-bit views go to the wgmma instance; a view at an odd
+    stride and offset, which TMA cannot read, to the mma.sync one; float32
+    to the scalar one. ``launches`` counts them all."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    big = torch.randn(70, 97, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(4, 96, 72, generator=gen, device=cuda).bfloat16()
+    off = torch.tensor([0, 10, 10, 40], dtype=torch.int32, device=cuda)
+    cnt = torch.tensor([10, 0, 30, 30], dtype=torch.int32, device=cuda)
+    for x, w_, instance in [(big[:, :96].contiguous(), w, "launches_wgmma"),
+                            (big[:, 1:], w, "launches_mma"),
+                            (big[:, 1:].float(), w.float(),
+                             "launches_scalar")]:
+        before = {a: getattr(moe_gmm, a) for a in (
+            "launches", "launches_wgmma", "launches_mma", "launches_scalar")}
+        grouped_matmul(x, w_, off, cnt)
+        torch.cuda.synchronize()
+        after = {a: getattr(moe_gmm, a) - n for a, n in before.items()}
+        assert after == {a: int(a in ("launches", instance)) for a in after}
+
+
 def _serving_model(cuda, arch="llama-7b"):
     """A reduced float32 model on the card and its twin on the CPU, with
     the same parameters."""
@@ -607,6 +683,69 @@ def test_scan_wrappers_refuse_what_they_cannot_launch(cuda):
     with pytest.raises(TypeError):                     # no float16 instance
         wkv6(r.half(), k.half(), v.half(), lw.half(), u)
     assert wkv6.launches == before
+
+
+def test_ssd_scan_on_zamba_ranges_against_float64(cuda):
+    """zamba2-7b's input ranges (softplus'd dt, A = -linspace(1, 16)) at
+    S = 8192, chunk 128: the kernel's error against a float64 evaluation
+    of the model's recurrence is at most twice the plain version's
+    (chip_smoke.py's ssd_model_range rule)."""
+    from repro_torch.models.ssm import _ssd_chunked
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, S, H, P, N = 1, 8192, 8, 64, 64
+    x = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device=cuda))
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    Bm = torch.randn(B, S, N, generator=gen, device=cuda)
+    Cm = torch.randn(B, S, N, generator=gen, device=cuda)
+    args = (x, dt, A, Bm, Cm)
+    y = ssd_scan(*args, chunk=128)
+    p = ssd_scan_plain(*args, chunk=128)
+    h0 = torch.zeros(B, H, P, N, dtype=torch.float64, device=cuda)
+    exact, _ = _ssd_chunked(*(t.double() for t in args), chunk=128, h0=h0)
+    err_k = (y.double() - exact).abs().max().item()
+    err_p = (p.double() - exact).abs().max().item()
+    assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+@pytest.mark.parametrize("S,chunk", [(1000, 16), (1000, 32), (1000, 64),
+                                     (8191, 128), (130, 128)])
+def test_ssd_scan_chunk_sizes_and_ragged_tails(cuda, S, chunk):
+    """Chunks of 16, 32, 64 and 128, with a last chunk shorter than the
+    others (S not a multiple of the chunk), float32 against the plain
+    version at SCAN_TOL."""
+    args = _ssd_inputs(cuda, 2, S, 3, 64, 64, torch.float32, seed=7)
+    y = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOL["ssd_scan"][torch.float32]
+    torch.testing.assert_close(y, ssd_scan_plain(*args, chunk=chunk),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_odd_head_and_state_sizes(cuda, dtype):
+    """P = 30 and N = 15: P * N is no multiple of 4 (the state pass's
+    one-element path) and rows of x are no multiple of 16 bytes."""
+    args = _ssd_inputs(cuda, 2, 300, 3, 30, 15, dtype, seed=9)
+    y = ssd_scan(*args, chunk=64)
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOL["ssd_scan"][dtype]
+    torch.testing.assert_close(y.float(), ssd_scan_plain(
+        *args, chunk=64).float(), rtol=rtol, atol=atol)
+
+
+def test_ssd_scan_is_deterministic_and_counts_its_launches(cuda):
+    """Two calls give the same bytes; each call counts one in ``launches``
+    and its three device launches in ``kernel_launches``."""
+    args = _ssd_inputs(cuda, 2, 700, 5, 64, 64, torch.float32, seed=8)
+    before = (ssd_scan.launches, ssd_scan.kernel_launches)
+    y = ssd_scan(*args, chunk=128)
+    again = ssd_scan(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert (ssd_scan.launches - before[0],
+            ssd_scan.kernel_launches - before[1]) == (2, 6)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])

@@ -124,3 +124,108 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         ssd_scan(x, dt, A, Bm, Cm, chunk=0)
     with pytest.raises(ValueError, match="no kernel for device"):
         ssd_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm)))
+
+
+# --- the CUDA kernel's design, emulated on the CPU -------------------------
+# csrc/ssd_scan.cu computes the scan in three passes: each chunk's own
+# state, a pass across the chunks that carries the state, then the outputs.
+# _three_pass is that decomposition in plain torch with the kernel's
+# per-element formulas (seg summed in f64, each exponent's difference taken
+# in f64 and rounded to f32); `mm` is every chunk product, so that the
+# tensor-core roundings the kernel does not use can be held to the same
+# rule: TF32 (operands rounded once to 10 mantissa bits) and 3xTF32
+# (hi.hi + hi.lo + lo.hi).
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest, ties to even."""
+    i = t.contiguous().view(torch.int32)
+    i = (i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.view(torch.float32)
+
+
+def _mm_tf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.matmul(ah, bl) + torch.matmul(al, bh)) + torch.matmul(ah, bh)
+
+
+def _three_pass(xh, dt, A, Bm, Cm, *, chunk, mm=torch.matmul):
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    c = min(chunk, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+
+    def chunks(t):                      # [B, S, ...] -> [B, nc, c, ...], f32
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(B, nc, c, *t.shape[2:])
+
+    x, d, Bf, Cf = chunks(xh), chunks(dt), chunks(Bm), chunks(Cm)
+    seg = torch.cumsum((d * A.float()).double(), dim=2)      # [B,nc,c,H]
+    last = seg[:, :, -1:]
+    # pass 1: S_c = sum_s (x_s * tail_s) B_s^T, and exp(seg_last)
+    tail = torch.exp((last - seg).float()) * d
+    xt = (x * tail[..., None]).permute(0, 1, 3, 4, 2)        # [B,nc,H,P,c]
+    own = mm(xt, Bf[:, :, None])                              # [B,nc,H,P,N]
+    decay = torch.exp(last[:, :, 0].float())[..., None, None]  # [B,nc,H,1,1]
+    # pass 2: the state entering each chunk
+    h = torch.zeros(B, H, P, N)
+    entering = []
+    for i in range(nc):
+        entering.append(h)
+        h = decay[:, i] * h + own[:, i]
+    hin = torch.stack(entering, 1)                            # [B,nc,H,P,N]
+    # pass 3: y = W x + (C h^T) exp(seg), W = (C.B^T * decay) * dt
+    cb = mm(Cf, Bf.transpose(-1, -2))                         # [B,nc,t,s]
+    diff = (seg[:, :, :, None] - seg[:, :, None]).float()     # [B,nc,t,s,H]
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool))[..., None]
+    w = cb[..., None] * torch.exp(diff.masked_fill(~tri, -1e30)) \
+        * d[:, :, None]
+    y = mm(w.permute(0, 1, 4, 2, 3), x.permute(0, 1, 3, 2, 4))  # [B,nc,H,t,P]
+    ch = mm(Cf[:, :, None], hin.transpose(-1, -2))            # [B,nc,H,c,P]
+    y = y + ch * torch.exp(seg.float()).permute(0, 1, 3, 2)[..., None]
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, nc * c, H, P)[:, :S]
+    return y.to(xh.dtype)
+
+
+def _over_limit(got, want, rtol=5e-4, atol=5e-4) -> float:
+    """max |got - want| / (atol + rtol |want|): above 1 fails the rule."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
+DESIGN_CASES = SWEEP + [(1, 1024, 4, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", DESIGN_CASES)
+def test_three_pass_decomposition_matches_plain_and_ref(B, S, H, P, N, chunk,
+                                                        seed):
+    """The kernel's three passes, in f32 torch on the CPU, against the plain
+    version and the reference's ssd_scan_ref at the float32 rule, on the
+    reference test's input ranges."""
+    js, ts = _inputs(B, S, H, P, N, seed=seed)
+    got = _three_pass(*ts, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == ts[0].shape
+    ref = np.asarray(ssd_scan_ref(*js, chunk=37), np.float32)
+    np.testing.assert_allclose(got.numpy(), ssd_scan_plain(
+        *ts, chunk=chunk).numpy(), **TOL["float32"])
+    np.testing.assert_allclose(got.numpy(), ref, **TOL["float32"])
+
+
+def test_tf32_chunk_products_fail_the_rule_and_3xtf32_passes():
+    """Why the kernel's chunk products are not plain TF32: rounded once,
+    they miss the float32 rule against the plain version by far; split as
+    3xTF32 they keep it, as f32 FMAs do."""
+    _, ts = _inputs(1, 1024, 4, 64, 64, seed=0)
+    plain = ssd_scan_plain(*ts, chunk=128).numpy()
+    once = _over_limit(_three_pass(*ts, chunk=128, mm=_mm_tf32), plain)
+    split = _over_limit(_three_pass(*ts, chunk=128, mm=_mm_3xtf32), plain)
+    full = _over_limit(_three_pass(*ts, chunk=128), plain)
+    assert once > 5.0, once
+    assert split <= 1.0 and full <= 1.0, (split, full)
