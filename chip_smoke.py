@@ -105,7 +105,8 @@ failure:
    2 x 8192 tokens (numpy seed 0): one warm-up, then 3 timed runs; the
    median, tokens/s, the peak allocated bytes and each kernel's launches,
    asserted per forward (rwkv6-7b: 32 wkv6 and 32 rmsnorm; zamba2-7b: 81
-   ssd_scan, 108 rmsnorm and 13 flash attention), and the bfloat16 noise
+   ssd_scan, 108 rmsnorm and 13 flash attention; each scan call three
+   device launches), and the bfloat16 noise
    floor (``apply`` on one token at two batch shapes). Then the
    reference's own check at full size, decode against apply, on the same
    model drawn in float32 (``decode_check``'s rule, and why float32): 150
@@ -130,9 +131,10 @@ device time by kernel name.
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
 serving path, which runs all three, flash's and moe_gmm's also by
-instance; of ssd_scan on zamba2-7b's timed ``apply`` runs, one per call,
-with its device launches, three per call, as ``kernel_launches``; of wkv6
-on rwkv6-7b's); the last line is ``{"ok": true, "device": {...}}``.
+instance; of ssd_scan on zamba2-7b's timed ``apply`` runs and of wkv6 on
+rwkv6-7b's, one per call, each with its device launches, three per call,
+as ``kernel_launches``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -249,7 +251,7 @@ def reset_launches(fn) -> None:
     """Zero a wrapper's launch counts: ``launches``; by instance, flash
     attention's ``launches_tc`` and ``launches_scalar``, moe_gmm's
     ``launches_wgmma``, ``launches_mma`` and ``launches_scalar``; and
-    ssd_scan's device launches, ``kernel_launches``."""
+    the scans' device launches, ``kernel_launches``."""
     for attr in ("launches", "launches_tc", "launches_scalar",
                  "launches_wgmma", "launches_mma", "kernel_launches"):
         if hasattr(fn, attr):
@@ -772,9 +774,9 @@ def scan_phase(torch, device) -> dict:
             reset_launches(fn)
             y = fn(*args, chunk=chunk)
             torch.cuda.synchronize()
-            if name == "ssd_scan" and device.type == "cuda":   # 3 a call
+            if device.type == "cuda":       # both: 3 device launches a call
                 assert (fn.launches, fn.kernel_launches) == (1, 3), \
-                    (fn.launches, fn.kernel_launches)
+                    (name, fn.launches, fn.kernel_launches)
             p = plain(*args, chunk=chunk)
             dname = str(dt).removeprefix("torch.")
             label = (f"{name} {'main' if main else 'sweep'} "
@@ -1371,16 +1373,17 @@ def run_recurrent(torch, device, model, params, *,
         forward()
         walls.append(time.perf_counter() - t0)
     launches = {name: fn.launches for name, fn in kernels.items()}
-    if "ssd_scan" in kernels:
-        launches["ssd_scan_kernel"] = ssd_scan.kernel_launches
+    scans = [name for name in ("ssd_scan", "wkv6") if name in kernels]
+    for name in scans:
+        launches[f"{name}_kernel"] = kernels[name].kernel_launches
     peak = torch.cuda.max_memory_allocated() if cuda else None
     med = statistics.median(walls)
     counts = " ".join(f"{name}_launches {launches[name]} "
                       f"(= {RECURRENT_TIMED} x {per_fwd[name]})"
                       for name in kernels)
-    if "ssd_scan" in kernels:
-        counts += (f" ssd_scan_kernel_launches "
-                   f"{launches['ssd_scan_kernel']}")
+    for name in scans:
+        counts += (f" {name}_kernel_launches "
+                   f"{launches[f'{name}_kernel']}")
     print(f"recurrent {cfg.name} apply {B}x{S}: median_ms {med * 1e3:.2f} "
           f"walls_ms {[round(w * 1e3, 2) for w in walls]} tokens_per_s "
           f"{B * S / med:.1f} peak_allocated_bytes {peak} {counts}",
@@ -1390,8 +1393,9 @@ def run_recurrent(torch, device, model, params, *,
             want = RECURRENT_TIMED * per_fwd[name]
             assert launches[name] == want, \
                 f"{name} launched {launches[name]} times, expected {want}"
-        if "ssd_scan" in kernels:          # three device launches a call
-            assert launches["ssd_scan_kernel"] == 3 * launches["ssd_scan"]
+        for name in scans:                 # three device launches a call
+            assert launches[f"{name}_kernel"] == 3 * launches[name], \
+                (name, launches[f"{name}_kernel"], launches[name])
         if "flash_attention" in kernels:
             assert_flash_on_tensor_cores(flash_attention)
             print(f"recurrent {cfg.name}: flash_attention_launches_tc "
@@ -1625,7 +1629,8 @@ def main(argv: list[str]) -> int:
         dict(name="wkv6", route="cuda",
              source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
              replaces="src/repro/kernels/rwkv6/kernel.py:18",
-             launches=recurrent["wkv6"], **scans["wkv6"])]
+             launches=recurrent["wkv6"],
+             kernel_launches=recurrent["wkv6_kernel"], **scans["wkv6"])]
     _phase("total", t_all)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -7,7 +7,12 @@ the bonus ``u [H, P]``, and returns ``y [B, S, H, P]`` in ``r``'s dtype. On
 a CUDA tensor it launches ``csrc/wkv6.cu`` (built on first use, see
 :mod:`repro_torch.kernels.build`) or raises; there is no fallback. On a CPU
 tensor, and only there, it computes :func:`wkv6_plain`.
-``wkv6.launches`` counts the kernel's launches.
+``wkv6.launches`` counts the wrapper's calls that launched the kernel, one
+per call; ``wkv6.kernel_launches`` counts the device launches, three per
+call (group states, the pass across groups, the outputs), which share an
+f32 workspace of ``[B, H, ng, P, P]`` states and ``[B, H, ng, P]`` decays,
+``ng = ceil(ceil(S / chunk) / GROUP)``, that the wrapper allocates on the
+caller's stream.
 
 The recurrence starts from a zero state and returns none, as the TPU
 kernel does; the model's decode step, which carries a state, uses its own
@@ -26,6 +31,8 @@ __all__ = ["wkv6", "wkv6_plain"]
 
 MAX_P = 64                 # what csrc/wkv6.cu is built for
 MAX_CHUNK = 64
+GROUP = 16                 # chunks a workspace state covers
+KERNELS_PER_CALL = 3       # group states, state pass, outputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
@@ -78,7 +85,7 @@ def _launcher():
     if _fn is None:
         from ..build import library
         fn = library("wkv6").wkv6_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -134,15 +141,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if y.numel() == 0:
         return y
     uf = u.to(torch.float32).contiguous()
+    nc = -(-S // c)
+    ng = -(-nc // GROUP)
+    work = torch.empty(B * H * ng * (P * P + P), dtype=torch.float32,
+                       device=r.device)
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lw.data_ptr(), uf.data_ptr(), y.data_ptr(), B, S, H, P,
-                      c, _DTYPE_CODE[r.dtype],
+                      lw.data_ptr(), uf.data_ptr(), y.data_ptr(),
+                      work.data_ptr(), B, S, H, P, c, GROUP,
+                      _DTYPE_CODE[r.dtype],
                       torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError {err}")
     with _count_lock:
         wkv6.launches += 1
+        wkv6.kernel_launches += KERNELS_PER_CALL
     return y
 
 
 wkv6.launches = 0
+wkv6.kernel_launches = 0

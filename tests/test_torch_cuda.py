@@ -680,6 +680,9 @@ def test_scan_wrappers_refuse_what_they_cannot_launch(cuda):
              lw.repeat(1, 8, 1, 1), u, chunk=128)
     with pytest.raises(ValueError):
         wkv6(r, k, v, lw, u.cpu())                     # u on the host
+    with pytest.raises(ValueError):                    # P above 64
+        big = torch.zeros(1, 16, 2, 96, device=cuda)
+        wkv6(big, big, big, big, torch.zeros(2, 96, device=cuda))
     with pytest.raises(TypeError):                     # no float16 instance
         wkv6(r.half(), k.half(), v.half(), lw.half(), u)
     assert wkv6.launches == before
@@ -746,6 +749,74 @@ def test_ssd_scan_is_deterministic_and_counts_its_launches(cuda):
     assert torch.equal(y, again)
     assert (ssd_scan.launches - before[0],
             ssd_scan.kernel_launches - before[1]) == (2, 6)
+
+
+def test_wkv6_on_the_models_decay_range(cuda):
+    """rwkv6-7b's log decays, -exp(N(0, 2) - 6) clipped at -20, at
+    1 x 4096 with 8 heads of 64, chunk 32: float32 against the plain
+    version at SCAN_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    r, k, v = (torch.randn(1, 4096, 8, 64, generator=gen, device=cuda)
+               for _ in range(3))
+    lw = (-torch.exp(torch.randn(1, 4096, 8, 64, generator=gen, device=cuda)
+                     * 2.0 - 6.0)).clamp(-20, 0)
+    u = torch.randn(8, 64, generator=gen, device=cuda)
+    y = wkv6(r, k, v, lw, u, chunk=32)
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOL["wkv6"][torch.float32]
+    torch.testing.assert_close(y, wkv6_plain(r, k, v, lw, u, chunk=32),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("chunk", [8, 25, 32, 64])
+@pytest.mark.parametrize("S", [1, 31, 33, 127, 129, 1000])
+def test_wkv6_chunk_sizes_and_ragged_tails(cuda, S, chunk):
+    """Chunks of 8, 25, 32 and 64 (both tile instances), S below, at and
+    past a chunk and its groups, with a last chunk shorter than the others:
+    float32 against the plain version at SCAN_TOL."""
+    args = _wkv_inputs(cuda, 2, S, 3, 64, torch.float32, seed=7)
+    y = wkv6(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOL["wkv6"][torch.float32]
+    torch.testing.assert_close(y, wkv6_plain(*args, chunk=chunk),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_odd_head_size_and_unaligned_rows(cuda, dtype):
+    """P = 30 (rows no multiple of 4 elements: the kernel's element loads),
+    and P = 64 views one element past an aligned start."""
+    args = _wkv_inputs(cuda, 2, 300, 3, 30, dtype, seed=9)
+    y = wkv6(*args, chunk=32)
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOL["wkv6"][dtype]
+    torch.testing.assert_close(y.float(), wkv6_plain(
+        *args, chunk=32).float(), rtol=rtol, atol=atol)
+    r, k, v, lw, u = _wkv_inputs(cuda, 1, 200, 2, 64, dtype, seed=10)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    views = [shifted(t) for t in (r, k, v, lw)]
+    y = wkv6(*views, u, chunk=32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), wkv6_plain(
+        r, k, v, lw, u, chunk=32).float(), rtol=rtol, atol=atol)
+
+
+def test_wkv6_is_deterministic_and_counts_its_launches(cuda):
+    """Two calls give the same bytes; each call counts one in ``launches``
+    and its three device launches in ``kernel_launches``."""
+    args = _wkv_inputs(cuda, 2, 700, 5, 64, torch.float32, seed=8)
+    before = (wkv6.launches, wkv6.kernel_launches)
+    y = wkv6(*args, chunk=32)
+    again = wkv6(*args, chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert (wkv6.launches - before[0],
+            wkv6.kernel_launches - before[1]) == (2, 6)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
