@@ -113,6 +113,43 @@ failure:
    one-token ``decode_step``s of 2 rows against ``apply`` at every
    position.
 
+7. Prefill under the compiled backend (slice 8): the same plan and
+   policy runs with ``exec_backend="compiled"``: certified-static regions
+   issued straight-line on CUDA streams, nondet regions handed to the
+   inline executor or the fleet; each line adds the compiled counters.
+   Logits within LOGIT_RTOL x max|plain| of the plain evaluation and of
+   the interpreted run of the same policy; whether two compiled runs of
+   one policy give the same bytes is printed.
+8. LoRA fwd+bwd (slice 8, ROADMAP A11a): ``benchmarks/fig11_lora.py``'s
+   cut with one device — llama-7b width, 3 layers, T = 1024 and 2048,
+   float16, ``head_group=8``, ``q_block=max(512, T//2)``, 2 MLP slices,
+   256-byte extents — planned under fig11's 2.5 GiB x 3/32 = 251,658,240 B,
+   which offloads; inputs ``make_inputs(seed=0)``; the five policy runs
+   under both backends. The rule, fixed before the phase first ran on the
+   card: every adapter gradient finite and within LORA_GRAD_RTOL x
+   max|plain| of the port's plain evaluation on the card, each gradient
+   alone; a plain gradient that is not finite (float16 overflow) fails the
+   phase. Each line prints makespan, busy and stall from events, offload
+   and reload bytes, rmsnorm launches (asserted: one per rmsnorm vertex of
+   the forward and the re-traced backward) and ``rmsnorm_bwd``'s device
+   time (plain torch in float64, as the reference op).
+9. The simulator against the card (ROADMAP A7): an H100 ``HardwareModel``
+   measured here (pinned 256 MiB copies each way, a 4 KiB copy's
+   latency, an on-card copy's rate, an empty launch, the prefill's largest
+   matmul vertex), printed; then for the prefill and both LoRA plans, in
+   ``nondet`` and ``fixed``, the simulated makespan beside the measured
+   event busy time and makespan of both backends. Reported, not asserted.
+
+Placement (ROADMAP C2): every prefill and LoRA run asserts that the HBM it
+allocates beyond what was allocated before it (peak
+``max_memory_allocated`` minus the base) is at most the arena, the
+returned outputs on the card and HBM_ALLOWANCE: one cuBLAS workspace
+(4 MiB, set here by ``CUBLAS_WORKSPACE_CONFIG``) and one cuBLASLt
+workspace (1 MiB) per (thread, compute stream) pair a run can form —
+WS_PAIRS, the fleet's threads and the static walker on the 5 compute
+streams, and the inline executor — and the ops' row scratch
+(SCRATCH_BYTES). Each term is printed.
+
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each path fails unless each of its kernels was
 launched, as many times as its shape says, and (serving, MoE, zamba2-7b)
@@ -122,11 +159,13 @@ unless every moe_gmm launch went to the wgmma instance
 (``launches_wgmma``; ``launches_mma`` is the instance for views TMA
 cannot read). The build
 phase prints each kernel function's registers and spills (``ptxas -v``). ``--profile`` adds one more run
-of each path (the prefill under policy ``fixed``, the serving paths under
+of each path (the prefill under policy ``fixed``, interpreted and
+compiled, LoRA at T=2048 compiled, the serving paths under
 ``critical-path``, one ``apply`` of each recurrent model) under
 ``torch.profiler`` and prints the card's busy time (the union of its
 kernel and copy intervals), its idle share of the run's wall time, and the
-device time by kernel name.
+device time by kernel name; for a runtime run, beside the busy time its
+own timing events give.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
@@ -153,6 +192,20 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# one 4 MiB cuBLAS workspace per (handle, stream), fixed before torch first
+# calls cuBLAS, so the placement bound can count them (cuBLASLt adds 1 MiB
+# per pair where it runs)
+CUBLAS_WS_BYTES = 4 * 2**20
+CUBLASLT_WS_BYTES = 2**20
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = f":{CUBLAS_WS_BYTES // 1024}:1"
+N_STREAMS = 5                      # TurnipRuntime's compute streams
+# (thread, compute stream) pairs a run can form: the fleet's threads, the
+# static walker's one thread on the N_STREAMS streams, the inline executor
+WS_PAIRS = 2 * N_STREAMS + 1
+SCRATCH_BYTES = 16 * 2**20         # the ops' row scratch, all streams
+HBM_ALLOWANCE = WS_PAIRS * (CUBLAS_WS_BYTES + CUBLASLT_WS_BYTES) + \
+    SCRATCH_BYTES
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
@@ -221,6 +274,17 @@ MAIN_SEQ = 2048
 POLICY_RUNS = [("random", "nondet"), ("fixed", "nondet"),
                ("critical-path", "nondet"), ("transfer-first", "nondet"),
                ("fixed", "fixed")]
+EXEC_BACKENDS = ("interpreted", "compiled")
+TWICE_POLICY = ("critical-path", "nondet")   # run twice compiled: same bytes?
+
+# LoRA fwd+bwd (fig11's cut, one device)
+LORA_TOKENS = (1024, 2048)
+LORA_LAYERS = 3
+LORA_BUDGET_GIB = 2.5
+# adapter gradients against the plain evaluation, each relative to its own
+# largest plain value: float16 storage between every vertex (~3 digits),
+# the streaming sums' order, over 3 layers forward and backward
+LORA_GRAD_RTOL = 2e-2
 
 # the recurrent scans: tests/test_kernels.py's tolerances in float32, and
 # KERNEL_TOL's in bfloat16 (one rounding of an f32 sum)
@@ -1160,13 +1224,16 @@ def build_main_path(*, arch=None, seq_len=MAIN_SEQ, n_layers=MAIN_LAYERS,
 
 def profile_run(torch, label: str, run) -> None:
     """One run under torch.profiler: the card's busy time and idle share
-    over the run's wall time (``run`` returns it in seconds), and device
-    time by kernel name."""
+    over the run's wall time, and device time by kernel name. ``run``
+    returns the wall time in seconds, or a runtime's RunResult, whose
+    event-timed busy time is then printed beside the profiler's."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_s = run()
+        got = run()
         torch.cuda.synchronize()
+    rr = got if hasattr(got, "makespan") else None
+    wall_s = rr.makespan if rr is not None else got
     spans, by_name = [], {}
     for e in prof.events():
         if "cuda" not in str(getattr(e, "device_type", "")).lower():
@@ -1194,16 +1261,101 @@ def profile_run(torch, label: str, run) -> None:
           f"{window_ms:.2f} device_busy_ms {busy_us / 1e3:.2f} "
           f"device_idle_share_of_wall {1 - busy_us / 1e3 / (wall_s * 1e3):.3f} "
           f"device_events {len(spans)}", flush=True)
+    if rr is not None:
+        ev = rr.device_busy[0] * 1e3
+        print(f"profile {label}: events device_busy_ms {ev:.2f} "
+              f"(compute busy_ms {rr.busy[0] * 1e3:.2f}) against the "
+              f"profiler's {busy_us / 1e3:.2f}: ratio "
+              f"{ev / (busy_us / 1e3):.3f}, within 10% "
+              f"{abs(ev / (busy_us / 1e3) - 1) <= 0.10}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:
         print(f"profile {label}: {ms:9.3f} ms {n:5d}x {name[:100]}",
               flush=True)
 
 
+def placement(torch, base: int, rr) -> str:
+    """ROADMAP C2: the HBM a run allocated beyond ``base`` (its peak) is
+    within the arena, the outputs it returned on the card and
+    HBM_ALLOWANCE. Returns the terms, printed by the caller."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outs = sum(t.numel() * t.element_size() for t in rr.outputs.values()
+               if t.is_cuda)
+    rest = peak - rr.arena_bytes - outs
+    assert peak <= rr.arena_bytes + outs + HBM_ALLOWANCE, \
+        (f"run allocated {peak} B beyond its base: arena {rr.arena_bytes} "
+         f"+ outputs {outs} + {rest} > allowance {HBM_ALLOWANCE}")
+    return (f"peak_over_base {peak} = arena {rr.arena_bytes} + outputs "
+            f"{outs} + rest {rest} (allowance {HBM_ALLOWANCE})")
+
+
+def counters(rr) -> str:
+    return (f"n_compiled {rr.n_compiled} n_interpreted {rr.n_interpreted} "
+            f"fused_dma_batches {rr.fused_dma_batches} n_inline "
+            f"{rr.n_inline} n_threaded {rr.n_threaded}")
+
+
+def plan_runs(torch, device, tr, res, cap, inputs, *, label: str,
+              n_rms: int, check, runs=POLICY_RUNS) -> dict:
+    """The policy runs of one plan under both executor backends, each with
+    its placement bound (C2) and rmsnorm launches asserted and its outputs
+    held by ``check(rr, interpreted_rr_of_the_same_policy)``, which
+    returns a description. One compiled policy (TWICE_POLICY) runs twice:
+    whether the two runs give the same bytes is printed. Returns the runs
+    by (backend, policy, mode)."""
+    from repro_torch.core.runtime import TurnipRuntime
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    def measured(rt):
+        before = rmsnorm.launches
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        rr = rt.run(inputs)
+        mem = placement(torch, base, rr) if device.type == "cuda" else ""
+        n = rmsnorm.launches - before
+        assert n == n_rms or device.type != "cuda", \
+            f"rmsnorm launched {n} times, expected {n_rms}"
+        return rr, n, mem
+
+    out = {}
+    for backend in EXEC_BACKENDS:
+        for policy, mode in runs:
+            rt = TurnipRuntime(tr.tg, res, backend="bytes",
+                               capacities={0: cap}, policy=policy, mode=mode,
+                               seed=0, device=device, exec_backend=backend)
+            rr, n, mem = measured(rt)
+            desc = check(rr, out.get(("interpreted", policy, mode)))
+            busy, stall = rr.busy[0], rr.stall[0]
+            print(f"{label} {backend} policy={policy} mode={mode}: "
+                  f"makespan_ms {rr.makespan * 1e3:.2f} busy_ms "
+                  f"{busy * 1e3:.2f} stall_ms {stall * 1e3:.2f} idle_share "
+                  f"{stall / rr.makespan:.3f} device_busy_ms "
+                  f"{rr.device_busy[0] * 1e3:.2f} offload_bytes "
+                  f"{rr.offload_bytes} reload_bytes {rr.reload_bytes} "
+                  f"h2d_ms {rr.transfer_time['h2d'] * 1e3:.2f} d2h_ms "
+                  f"{rr.transfer_time['d2h'] * 1e3:.2f} compute_launch_ms "
+                  f"{rr.launch_time.get('compute', 0.0) * 1e3:.2f} "
+                  f"rmsnorm_launches {n} {counters(rr)} {mem} {desc}",
+                  flush=True)
+            out[(backend, policy, mode)] = rr
+            if backend == "compiled" and (policy, mode) == TWICE_POLICY:
+                again, _, mem = measured(rt)
+                same = all(torch.equal(rr.outputs[t], again.outputs[t])
+                           for t in rr.outputs)
+                print(f"{label} compiled policy={policy} mode={mode} again: "
+                      f"makespan_ms {again.makespan * 1e3:.2f} "
+                      f"byte_equal_to_first {same} {mem}", flush=True)
+    return out
+
+
 def run_main_path(torch, device, tr, res, cap, inputs, *, n_rms: int,
-                  profile: bool = False):
-    """Warm-up plus the policy runs. Returns the launches of each kernel
-    over the measured runs."""
+                  profile: bool = False) -> tuple[dict, dict]:
+    """Warm-up plus the policy runs under both backends (plan_runs).
+    Returns the launches of each kernel over the measured runs, and the
+    runs."""
     from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
@@ -1216,57 +1368,275 @@ def run_main_path(torch, device, tr, res, cap, inputs, *, n_rms: int,
     assert torch.isfinite(ref).all() and scale > 0, "plain logits not finite"
     _phase("plain evaluation", t)
 
-    def runtime(policy, mode):
+    def runtime(policy, mode, backend="interpreted"):
         return TurnipRuntime(tr.tg, res, backend="bytes", capacities={0: cap},
-                             policy=policy, mode=mode, seed=0, device=device)
+                             policy=policy, mode=mode, seed=0, device=device,
+                             exec_backend=backend)
 
     t = time.perf_counter()
     runtime("random", "nondet").run(inputs)          # warm-up: pinned pools,
-    _phase("warm-up run", t)                         # cuBLAS handles
-    rmsnorm.launches = 0                  # the main path starts here
-    first = None
-    for policy, mode in POLICY_RUNS:
-        before = rmsnorm.launches
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-        rr = runtime(policy, mode).run(inputs)
-        n = rmsnorm.launches - before
-        excess = None
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            excess = torch.cuda.max_memory_allocated() - base - rr.arena_bytes
+    runtime("random", "nondet", "compiled").run(inputs)   # cuBLAS handles
+    _phase("warm-up runs", t)
+
+    def check(rr, interpreted) -> str:
         out = rr.outputs[L]
         assert out.device.type == device.type and \
             rr.arena_device.startswith(device.type), "run left the device"
-        assert all(v.device.type == device.type for v in rr.outputs.values())
+        assert all(v.device.type == device.type
+                   for v in rr.outputs.values())
         assert out.shape == ref.shape and torch.isfinite(out).all()
         err = (out.float() - ref.float()).abs().max().item()
-        if first is None:
-            first = out
-        err_runs = (out.float() - first.float()).abs().max().item()
-        busy, stall = rr.busy[0], rr.stall[0]
-        print(f"run policy={policy} mode={mode}: makespan_ms "
-              f"{rr.makespan * 1e3:.2f} busy_ms {busy * 1e3:.2f} stall_ms "
-              f"{stall * 1e3:.2f} idle_share {stall / rr.makespan:.3f} "
-              f"offload_bytes {rr.offload_bytes} reload_bytes "
-              f"{rr.reload_bytes} h2d_s {rr.transfer_time['h2d']:.4f} "
-              f"d2h_s {rr.transfer_time['d2h']:.4f} compute_launch_s "
-              f"{rr.launch_time.get('compute', 0.0):.4f} "
-              f"rmsnorm_launches {n} "
-              f"excess_over_arena_bytes {excess} arena_bytes "
-              f"{rr.arena_bytes} logits_max_err_vs_plain {err:.3g} "
-              f"(tol {LOGIT_RTOL:g}*{scale:.3g}) max_err_vs_first_run "
-              f"{err_runs:.3g}", flush=True)
-        assert n == n_rms, f"rmsnorm launched {n} times, expected {n_rms}"
         assert err <= LOGIT_RTOL * scale, "logits disagree with plain eval"
-        assert err_runs <= LOGIT_RTOL * scale, "logits disagree across runs"
+        desc = (f"logits_max_err_vs_plain {err:.3g} (tol {LOGIT_RTOL:g}*"
+                f"{scale:.3g})")
+        if interpreted is not None:
+            e2 = (out.float() - interpreted.outputs[L].float()).abs() \
+                .max().item()
+            assert e2 <= LOGIT_RTOL * scale, \
+                "compiled logits disagree with the interpreted run"
+            desc += f" max_err_vs_interpreted {e2:.3g}"
+        return desc
+
+    rmsnorm.launches = 0                  # the main path starts here
+    runs = plan_runs(torch, device, tr, res, cap, inputs, label="prefill",
+                     n_rms=n_rms, check=check)
     launches = {"rmsnorm": rmsnorm.launches}
     if profile:
-        profile_run(torch, "prefill policy=fixed",
-                    lambda: runtime("fixed", "nondet").run(inputs).makespan)
-    return launches
+        for backend in EXEC_BACKENDS:
+            profile_run(torch, f"prefill {backend} policy=fixed",
+                        lambda: runtime("fixed", "nondet", backend).run(
+                            inputs))
+    return launches, runs
+
+
+def lora_capacity(cfg, n_layers: int = LORA_LAYERS) -> int:
+    """fig11's tightest budget, 2.5 GiB for the whole model, scaled to the
+    depth: 251,658,240 B for 3 of llama-7b's 32 layers."""
+    return int(LORA_BUDGET_GIB * 2**30 * n_layers / cfg.n_layers)
+
+
+def build_lora_path(seq_len: int, *, arch=None, n_layers=LORA_LAYERS,
+                    cap=None, dtype="float16"):
+    """Trace and plan fig11's LoRA fwd+bwd at ``seq_len`` tokens with one
+    device. Returns (traced, result, capacity)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import BuildConfig, build_memgraph
+    from repro_torch.core.trace import TraceConfig, trace_lora_train
+
+    cfg = arch if arch is not None else get_arch("llama-7b")
+    tr = trace_lora_train(cfg, seq_len=seq_len, n_layers=n_layers,
+                          trace=TraceConfig(n_devices=1, head_group=8,
+                                            q_block=max(512, seq_len // 2),
+                                            mlp_slices=2, dtype=dtype))
+    cap = lora_capacity(cfg, n_layers) if cap is None else cap
+    res = build_memgraph(tr.tg, BuildConfig(
+        capacity=cap, size_fn=lambda v: -(-v.out.nbytes // 256) * 256))
+    assert res.n_offloads > 0 and res.n_reloads > 0, \
+        f"the LoRA plan under {cap} B does not offload"
+    return tr, res, cap
+
+
+def run_lora_path(torch, device, tr, res, cap, inputs, *,
+                  profile: bool = False, pair_fusion: bool = False) -> dict:
+    """The LoRA plan's policy runs under both backends, each adapter
+    gradient held against the port's plain evaluation (LORA_GRAD_RTOL,
+    each gradient alone); with ``pair_fusion``, pair_fusion_effect.
+    Returns the runs."""
+    from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
+
+    t = time.perf_counter()
+    T = tr.tg.vertices[tr.input_tid].out.shape[0]
+    grads = tr.grad_tids
+    assert grads, "the LoRA graph has no gradient outputs"
+    plain = eval_taskgraph(tr.tg, inputs, device=device, plain=True)
+    ref = {tid: plain[tid] for tid in grads.values()}
+    del plain
+    scales = {}
+    for name, tid in grads.items():
+        assert bool(torch.isfinite(ref[tid]).all()), \
+            f"the plain float16 gradient {name} is not finite (overflow)"
+        scales[tid] = ref[tid].float().abs().max().item()
+        assert scales[tid] > 0, f"the plain gradient {name} is zero"
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _phase(f"LoRA T={T} plain evaluation", t)
+    mg = res.memgraph
+    bwd = [m for m, v in mg.vertices.items() if v.op_name == "rmsnorm_bwd"]
+    n_rms = sum(v.op == "rmsnorm" for v in tr.tg.vertices.values())
+
+    def check(rr, interpreted) -> str:
+        worst = 0.0
+        for name, tid in grads.items():
+            out = rr.outputs[tid]
+            assert bool(torch.isfinite(out).all()), f"grad {name} not finite"
+            err = (out.float().to(ref[tid].device)
+                   - ref[tid].float()).abs().max().item()
+            worst = max(worst, err / scales[tid])
+            assert err <= LORA_GRAD_RTOL * scales[tid], \
+                (f"grad {name}: max|run - plain| {err:.3g} > "
+                 f"{LORA_GRAD_RTOL:g} x {scales[tid]:.3g}")
+        bwd_ms = sum(rr.spans[m][1] - rr.spans[m][0] for m in bwd) * 1e3
+        return (f"grads {len(grads)} max_err/max|plain| {worst:.3g} "
+                f"(tol {LORA_GRAD_RTOL:g}) rmsnorm_bwd_ms {bwd_ms:.2f} "
+                f"({len(bwd)} vertices)")
+
+    t = time.perf_counter()
+    TurnipRuntime(tr.tg, res, backend="bytes", capacities={0: cap},
+                  policy="random", seed=0, device=device).run(inputs)
+    _phase("LoRA warm-up run", t)
+    runs = plan_runs(torch, device, tr, res, cap, inputs,
+                     label=f"lora T={T}", n_rms=n_rms, check=check)
+    if pair_fusion:
+        pair_fusion_effect(torch, device, tr, res, cap, inputs, check)
+    if profile:
+        profile_run(torch, "lora compiled policy=fixed",
+                    lambda: TurnipRuntime(
+                        tr.tg, res, backend="bytes", capacities={0: cap},
+                        policy="fixed", seed=0, device=device,
+                        exec_backend="compiled").run(inputs))
+    return runs
+
+
+def pair_fusion_effect(torch, device, tr, res, cap, inputs, check) -> None:
+    """What the reference's lowering does on the card when the plan is
+    liveness-certified: it fuses runs of H2D and D2H copies into one batch,
+    which the static walker issues on the head's one copy stream, so both
+    directions share it. The certified plan compiled under policy
+    ``random`` as lowered ("paired"), and the same plan with every mixed
+    batch split into its single-direction runs ("split"; each direction on
+    its own stream), in turns (split, paired, paired, split): makespan,
+    copy time and fused batches."""
+    import copy
+    import dataclasses as dc
+
+    from repro_torch.core import certify_progress, default_pool_config
+    from repro_torch.core.compile import lower
+    from repro_torch.core.dispatch import engine_key
+    from repro_torch.core.runtime import TurnipRuntime
+
+    lcert = certify_progress(res.memgraph, default_pool_config(None))
+    if not lcert.ok:
+        print(f"pair fusion: the plan is not liveness-certified "
+              f"({len(lcert.hazards)} hazards); nothing to time", flush=True)
+        return
+    certified = copy.copy(res)
+    certified.liveness_certificate = lcert
+    mg = res.memgraph
+    rt = TurnipRuntime(tr.tg, certified, backend="bytes",
+                       capacities={0: cap}, policy="random", seed=0,
+                       device=device, exec_backend="compiled")
+    paired = lower(certified, policy=rt.policy)
+    kind = [engine_key(mg.vertices[m]) for m in paired.order]
+    split, mixed = [], 0
+    for a, b in paired.batches:
+        if len({kind[i] for i in range(a, b)}) == 1:
+            split.append((a, b))
+            continue
+        mixed += 1
+        i = a
+        while i < b:
+            j = i + 1
+            while j < b and kind[j] == kind[i]:
+                j += 1
+            if j - i >= 2:
+                split.append((i, j))
+            i = j
+    plans = {"paired": paired, "split": dc.replace(paired, batches=split)}
+    plans["split"].verify(mg)
+    for name in ("split", "paired", "paired", "split"):
+        rt._compiled = plans[name]
+        rr = rt.run(inputs)
+        desc = check(rr, None)
+        print(f"pair fusion {name}: makespan_ms {rr.makespan * 1e3:.2f} "
+              f"h2d_ms {rr.transfer_time['h2d'] * 1e3:.2f} d2h_ms "
+              f"{rr.transfer_time['d2h'] * 1e3:.2f} batches "
+              f"{len(plans[name].batches)} (h2d+d2h batches "
+              f"{mixed if name == 'paired' else 0}) {counters(rr)} {desc}",
+              flush=True)
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def measure_hardware(torch, device, tg):
+    """An H100 HardwareModel measured on this card: h2d and d2h rates of a
+    pinned 256 MiB copy, the time of a 4 KiB pinned copy (dma_latency),
+    the rate of a 1 GiB copy inside HBM counting the bytes read and
+    written (hbm_bw, as the model charges 3 x nbytes per vertex), an
+    empty kernel's device time (kernel_overhead), and the effective rate
+    of the largest-FLOP compute vertex of ``tg`` at its shapes (flops).
+    d2d_bw, disk and NIC keep the defaults: one card has no second device,
+    and the smoke moves nothing over disk or a NIC."""
+    from repro_torch.core.ops import get_op
+    from repro_torch.core.simulate import HardwareModel
+
+    big = 256 * 2**20
+    host = torch.empty(big, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(big, dtype=torch.uint8, device=device)
+    h2d_ms = _event_ms(torch, lambda: dev.copy_(host, non_blocking=True), 10)
+    d2h_ms = _event_ms(torch, lambda: host.copy_(dev, non_blocking=True), 10)
+    small_h, small_d = host[:4096], dev[:4096]
+    lat_ms = _event_ms(torch, lambda: small_d.copy_(small_h,
+                                                    non_blocking=True), 100)
+    src = torch.empty(2**30, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    hbm_ms = _event_ms(torch, lambda: dst.copy_(src), 10)
+    del src, dst, dev, host
+    empty_ms = _event_ms(torch, lambda: torch.cuda._sleep(0), 100)
+    v = max((v for v in tg.vertices.values() if v.kind.value == "compute"),
+            key=lambda v: v.flops)
+    gen = torch.Generator(device=device).manual_seed(0)
+    vals = [torch.randn(tg.vertices[i].out.shape, generator=gen,
+                        device=device).to(tg.vertices[i].out.torch_dtype)
+            for i in v.inputs]
+    out = torch.empty(v.out.shape, dtype=v.out.torch_dtype, device=device)
+    fn = get_op(v.op)
+    fn(*vals, out=out, **v.params)
+    mm_ms = _event_ms(torch, lambda: fn(*vals, out=out, **v.params), 30)
+    hw = HardwareModel(flops=v.flops / (mm_ms / 1e3),
+                       hbm_bw=2 * 2**30 / (hbm_ms / 1e3),
+                       h2d_bw=big / (h2d_ms / 1e3),
+                       d2h_bw=big / (d2h_ms / 1e3),
+                       kernel_overhead=empty_ms / 1e3,
+                       dma_latency=lat_ms / 1e3)
+    print(f"hardware: h2d 256 MiB {h2d_ms:.4f} ms, d2h {d2h_ms:.4f} ms, "
+          f"4 KiB h2d {lat_ms:.5f} ms, 1 GiB HBM copy {hbm_ms:.4f} ms, "
+          f"empty launch {empty_ms:.5f} ms, {v.op} {v.name} "
+          f"{[tuple(tg.vertices[i].out.shape) for i in v.inputs]} "
+          f"{v.out.dtype} {v.flops:.4g} flop {mm_ms:.4f} ms", flush=True)
+    print(f"hardware model: {hw!r}", flush=True)
+    return hw
+
+
+def sim_vs_measured(label: str, res, hw, runs: dict) -> None:
+    """The simulator's makespan of ``res`` under ``hw`` beside the measured
+    runs of the same dispatch (policy ``fixed``; ``nondet`` and ``fixed``
+    mode) under both backends. Reported, not asserted."""
+    from repro_torch.core.simulate import simulate
+    for mode in ("nondet", "fixed"):
+        sim = simulate(res.memgraph, hw, mode=mode, policy="fixed")
+        line = (f"A7 {label} mode={mode}: sim_makespan_ms "
+                f"{sim.makespan * 1e3:.3f} sim_busy_ms "
+                f"{sim.busy[0] * 1e3:.3f}")
+        for backend in EXEC_BACKENDS:
+            rr = runs[(backend, "fixed", mode)]
+            line += (f" | {backend}: makespan_ms {rr.makespan * 1e3:.2f} "
+                     f"busy_ms {rr.busy[0] * 1e3:.2f} device_busy_ms "
+                     f"{rr.device_busy[0] * 1e3:.2f} sim/makespan "
+                     f"{sim.makespan / rr.makespan:.4f} sim/device_busy "
+                     f"{sim.makespan / rr.device_busy[0]:.4f}")
+        print(line, flush=True)
 
 
 def _leaves(tree: dict):
@@ -1530,13 +1900,45 @@ def main(argv: list[str]) -> int:
     _phase("inputs", t)
 
     t = time.perf_counter()
-    launches = run_main_path(torch, device, tr, res, cap, inputs,
-                             n_rms=2 * MAIN_LAYERS + 1,
-                             profile="--profile" in argv)
+    hw = measure_hardware(torch, device, tr.tg)
+    _phase("hardware model", t)
+
+    t = time.perf_counter()
+    launches, runs = run_main_path(torch, device, tr, res, cap, inputs,
+                                   n_rms=2 * MAIN_LAYERS + 1,
+                                   profile="--profile" in argv)
     _phase("prefill path", t)
     if launches["rmsnorm"] == 0:
         raise AssertionError("the prefill path launched no rmsnorm kernel")
-    del inputs, tr, res
+    sims = [("prefill", res, runs)]
+    del inputs, tr
+
+    for T in LORA_TOKENS:
+        t = time.perf_counter()
+        ltr, lres, lcap = build_lora_path(T)
+        linputs = inputs_from_reference(ltr.make_inputs(seed=0),
+                                        device=device)
+        print(f"LoRA path: llama-7b width, {LORA_LAYERS} layers, T={T}, "
+              f"float16; {len(ltr.tg)} task vertices, {len(lres.memgraph)} "
+              f"memgraph vertices; HBM budget {lcap} B; offloads "
+              f"{lres.n_offloads} reloads {lres.n_reloads}; "
+              f"{sum(v.numel() * v.element_size() for v in linputs.values())}"
+              f" B pinned inputs", flush=True)
+        _phase(f"LoRA T={T} trace, plan and inputs", t)
+        t = time.perf_counter()
+        lruns = run_lora_path(torch, device, ltr, lres, lcap, linputs,
+                              profile="--profile" in argv and T == 2048,
+                              pair_fusion=T == 2048)
+        _phase(f"LoRA T={T} path", t)
+        sims.append((f"lora T={T}", lres, lruns))
+        del ltr, linputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, plan_res, plan_runs_ in sims:
+        sim_vs_measured(label, plan_res, hw, plan_runs_)
+    del sims, runs, res
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t = time.perf_counter()
     model, params = build_serving(torch, device)

@@ -1,23 +1,29 @@
 """The unified executor core (DESIGN.md §17), on CUDA streams.
 
-One scheduling kernel, two backends of the reference's three. The
+One scheduling kernel, three backends, as in the reference. The
 scheduling state machine (ready sets, dependency counts, the
 :class:`~repro_torch.core.dispatch.DispatchPolicy` choice among
 simultaneously ready vertices) lives in ONE place — :class:`ReadyKernel`,
-copied from the reference — and the *threading model* is chosen per run:
+copied from the reference — and the *threading model* is chosen per run
+or, for a compiled plan, per region:
 
 * :class:`ThreadedExecutor` — the persistent engine-stream worker fleet:
   one worker thread per stream of each (device, engine-class) pair,
   condition-variable wakeups on completion events — the paper's
-  event-driven runtime. On CUDA each worker owns one ``torch.cuda.Stream``:
-  ``n_streams`` compute streams per device and ``n_transfer_streams``
-  streams each for h2d, d2h and d2d. The disk engine is a host thread and
-  owns no stream.
+  event-driven runtime. On CUDA each worker owns one stream of the
+  device's stream set (:func:`stream_for`): ``n_streams`` compute streams
+  per logical device and ``n_transfer_streams`` streams each for h2d, d2h
+  and d2d. The disk engine is a host thread and owns no stream.
 * :class:`InlineExecutor` — the same kernel scheduled entirely on the
   calling thread, which launches on one stream.
-
-The reference's third backend, the straight-line ``StaticExecutor`` for
-compiled plans, comes with the plan compiler (ROADMAP A10).
+* :class:`StaticExecutor` — the straight-line walker for the certified
+  STATIC regions of a :class:`~repro_torch.core.compile.CompiledPlan`. On
+  the CPU it is the reference's walker. On CUDA it issues every
+  instruction on the stream its (device, engine, stream id) names and
+  never waits for a vertex: a cross-stream dependency is a
+  ``wait_event`` on the predecessor's event, and the host waits only
+  before a host-side effect, at a seam and at the run's end (its class
+  docstring).
 
 **When a vertex is complete.** In the reference every backend marks a
 vertex done when its op *returns* (DESIGN.md §17: "an op's completion *is*
@@ -25,20 +31,40 @@ its return"). On CUDA a launch returns before the work is done, so that
 rule would let a successor read an extent that is still being written,
 and would let the planner's safe-overwrite edges (§13: a write to an
 extent waits for every reader of its previous value) order only the
-launches, not the work. The port's rule: a worker launches the vertex's
-work under its own stream, records a ``torch.cuda.Event`` on that stream
-and calls ``event.synchronize()`` *before* it reports the completion to
-the kernel (:func:`run_vertex`). Only then are the vertex's successors
-published, so every successor — on whatever stream, device engine or
-host thread — is launched after its predecessors' work has finished on
-the card: data edges and safe-overwrite edges hold across streams exactly
-as the certifier assumed. ``synchronize`` releases the GIL, so the other
-streams keep launching while one waits. The events are created with
-``blocking=True`` so that a waiting worker sleeps instead of spinning on a
-CPU core. A vertex's span (its timeline interval) ends after its event has
-fired, so ``RunResult.busy``/``stall`` measure the card's work, not the
-launch. On the CPU there are no streams: an op's completion is its
-return, as in the reference.
+launches, not the work. The interpreters' rule: a worker launches the
+vertex's work under its own stream, records a ``torch.cuda.Event`` on
+that stream and calls ``event.synchronize()`` *before* it reports the
+completion to the kernel (:func:`run_vertex`). Only then are the vertex's
+successors published, so every successor — on whatever stream, device
+engine or host thread — is launched after its predecessors' work has
+finished on the card: data edges and safe-overwrite edges hold across
+streams exactly as the certifier assumed. ``synchronize`` releases the
+GIL, so the other streams keep launching while one waits. The events are
+created with ``blocking=True`` so that a waiting worker sleeps instead of
+spinning on a CPU core. The static walker keeps the same edges on the
+card with event waits instead of host waits. On the CPU there are no
+streams: an op's completion is its return, as in the reference.
+
+**What a vertex's interval is.** On CUDA every vertex's work is bracketed
+by two timing events recorded on its stream (:class:`ExecContext`
+``events``): the start just before its first launch, the end after its
+last. The run's timeline, ``busy`` and ``stall`` are built from those
+intervals after the run, relative to one start event (``RunResult``).
+An interval is the stream's time from reaching the start event to
+finishing the vertex's work. Where the stream is idle when the start is
+recorded, the start fires at once, so the interval also holds the host's
+time to issue the vertex's launches (Python dispatch, and the wait for
+the interpreter lock between them); only where the host issues ahead of
+the card is it the card's time alone. The host's own span of each vertex
+— from its pick to its completion — is kept apart (``host_spans``,
+``launch``). Host-side vertices (the disk engine) and CPU runs have host
+intervals only.
+
+**Pinned host memory.** Host tensors are pinned and come from torch's
+caching host allocator, which does not hand a block out again until the
+copies recorded against it have finished; a host-side effect (a disk
+spill reading a pinned buffer, a drop releasing one) is only issued after
+the copies that touch it have completed (:class:`StaticExecutor`).
 
 Nondeterminism semantics are unchanged end-to-end: any backend executes
 some dependency-respecting order the policy could have chosen, and the
@@ -70,8 +96,8 @@ from .stores import HostStore
 from .taskgraph import TaskGraph
 
 __all__ = ["ExecContext", "ReadyKernel", "InlineExecutor",
-           "ThreadedExecutor", "select_best", "run_vertex", "INLINE",
-           "THREADED"]
+           "ThreadedExecutor", "StaticExecutor", "select_best", "run_vertex",
+           "stream_for", "INLINE", "THREADED"]
 
 # nondet-region backend hints (compile.Region.backend / RunResult counters)
 INLINE = "inline"
@@ -97,22 +123,59 @@ def select_best(candidates: Sequence[_T],
 
 
 # --------------------------------------------------------------------------
+# the device's stream set
+# --------------------------------------------------------------------------
+_STREAMS: dict[tuple, "torch.cuda.Stream"] = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def stream_for(device: torch.device, engine: str, logical: int,
+               index: int) -> "torch.cuda.Stream | None":
+    """The stream of one (logical device, engine class, stream id) of a run
+    on ``device``: ``None`` on the CPU and for the disk engine (a host
+    thread). Streams are made once per process and shared by every run
+    and backend, so a run's cuBLAS workspaces (one per handle and stream)
+    and its stream count are fixed by ``n_streams`` and
+    ``n_transfer_streams``, not by how many runs came before. Sharing a
+    stream between two executors adds order, never removes it."""
+    if device.type != "cuda" or engine == DISK:
+        return None
+    key = (device.index, engine, logical, index)
+    with _STREAMS_LOCK:
+        st = _STREAMS.get(key)
+        if st is None:
+            st = _STREAMS[key] = torch.cuda.Stream(device=device)
+        return st
+
+
+def _timing_event() -> "torch.cuda.Event":
+    return torch.cuda.Event(enable_timing=True, blocking=True)
+
+
+# --------------------------------------------------------------------------
 # vertex execution (shared by every backend and the reference interpreter)
 # --------------------------------------------------------------------------
 def _exec_vertex(v: MemVertex, mg: MemGraph, tg: TaskGraph, mem: Any,
-                 host: HostStore) -> None:
+                 host: HostStore,
+                 mark: Callable[[], None] | None = None) -> None:
     """Launch one vertex's work on the current stream. Values are device
     tensors read from, and written into, the memory backend ``mem``; an op
     writes straight into its planned extent where the backend has one
-    (:meth:`ByteArena.dest`)."""
-    if v.op == MemOp.INPUT:
-        mem.write(v.loc, host.get_input(v.src_tid))       # h2d copy
-    elif v.op in (MemOp.COMPUTE, MemOp.TRANSFER):
+    (:meth:`ByteArena.dest`). ``mark`` is called just before the first
+    launch of the vertex's work (after its operands were looked up), to
+    start its timed interval there."""
+    if v.op in (MemOp.COMPUTE, MemOp.TRANSFER):
         vals = [mem.read(mg.vertices[m].loc) for m in v.operands]
         fn = get_op(v.op_name or ("copy" if v.op == MemOp.TRANSFER else ""))
-        out = fn(*vals, out=mem.dest(v.loc, tg.vertices[v.src_tid].out),
-                 **v.params)
-        mem.write(v.loc, out)
+        dest = mem.dest(v.loc, tg.vertices[v.src_tid].out)
+        if mark is not None:
+            mark()
+        mem.write(v.loc, fn(*vals, out=dest, **v.params))
+        return
+    if mark is not None:
+        mark()
+    if v.op == MemOp.INPUT:
+        mem.write(v.loc, host.get_input(v.src_tid))       # h2d copy
     elif v.op == MemOp.OFFLOAD:
         # d2h copy into a fresh pinned host tensor
         host.put_offload(v.mid, mem.read(mg.vertices[v.operands[0]].loc))
@@ -138,10 +201,10 @@ def _exec_vertex(v: MemVertex, mg: MemGraph, tg: TaskGraph, mem: Any,
 class ExecContext:
     """Everything a backend needs to execute vertices of one run: the
     plan's graphs, the shared memory/store tiers, the dispatch policy,
-    and the run-wide timeline/span accumulators. One context is shared by
-    every backend of a run, so ByteArena extents, TieredStore tier moves,
-    and HostPool lease accounting are exactly the invariants the
-    certifiers assumed — regardless of which backend touches them."""
+    and the run-wide interval records. One context is shared by every
+    backend of a run, so ByteArena extents, TieredStore tier moves, and
+    HostPool lease accounting are exactly the invariants the certifiers
+    assumed — regardless of which backend touches them."""
 
     mg: MemGraph
     tg: TaskGraph
@@ -150,13 +213,21 @@ class ExecContext:
     policy: DispatchPolicy
     mode: str                                    # "nondet" | "fixed"
     latency: Callable[[MemVertex], float] | None
-    timeline: list[tuple[float, float, int, str, str]]
-    spans: dict[int, tuple[float, float]]
-    t0: float
+    t0: float                                    # host clock at the start
     device: torch.device = torch.device("cpu")   # where vertices run
+    # mid -> host (start, end) seconds since t0: from the vertex's pick
+    # until its completion was known to the host (for the static walker:
+    # until its launch returned)
+    host_spans: dict[int, tuple[float, float]] = dataclasses.field(
+        default_factory=dict)
     # mid -> host seconds from a vertex's start until its launch returned
-    # (the rest of its span is the wait for the card)
+    # (the rest of its host span is the wait for the card)
     launch: dict[int, float] = dataclasses.field(default_factory=dict)
+    # mid -> (start, end) timing events around the vertex's work on its
+    # stream (CUDA); read after the run against t0_event
+    events: dict[int, tuple[Any, Any]] = dataclasses.field(
+        default_factory=dict)
+    t0_event: Any = None
     # §B write-protected sum-into: one lock per ADD_INTO lock group
     locks: dict[tuple[int, int], threading.Lock] = dataclasses.field(
         default_factory=dict)
@@ -172,15 +243,28 @@ class ExecContext:
             g = mg.vertices[m].lock_group
             if g is not None:
                 locks.setdefault(g, threading.Lock())
-        return ExecContext(mg=mg, tg=tg, mem=mem, host=host, policy=policy,
-                           mode=mode, latency=latency, timeline=[],
-                           spans={}, t0=t0, device=device, locks=locks)
+        ctx = ExecContext(mg=mg, tg=tg, mem=mem, host=host, policy=policy,
+                          mode=mode, latency=latency, t0=t0, device=device,
+                          locks=locks)
+        if device.type == "cuda":
+            ctx.t0_event = _timing_event()
+            ctx.t0_event.record(torch.cuda.current_stream(device))
+        return ctx
 
-    def new_stream(self) -> "torch.cuda.Stream | None":
-        """A stream of this run's device (``None`` on the CPU)."""
-        if self.device.type != "cuda":
-            return None
-        return torch.cuda.Stream(device=self.device)
+    def stream(self, engine: str, logical: int = 0,
+               index: int = 0) -> "torch.cuda.Stream | None":
+        """This run's stream for (engine, logical device, stream id)."""
+        return stream_for(self.device, engine, logical, index)
+
+    def device_intervals(self) -> dict[int, tuple[float, float]]:
+        """mid -> (start, end) seconds since the run's start event, of
+        every vertex whose work was timed on a stream. Call after the
+        run's work has finished on the card."""
+        if self.t0_event is None:
+            return {}
+        z = self.t0_event
+        return {m: (z.elapsed_time(a) / 1e3, z.elapsed_time(b) / 1e3)
+                for m, (a, b) in self.events.items()}
 
 
 def _exec_complete(ctx: ExecContext, v: MemVertex,
@@ -192,21 +276,23 @@ def _exec_complete(ctx: ExecContext, v: MemVertex,
     if stream is None:
         _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host)
         return time.perf_counter()
+    start, done = _timing_event(), _timing_event()
     with torch.cuda.stream(stream):
-        _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host)
-        done = torch.cuda.Event(blocking=True)
+        _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host,
+                     mark=lambda: start.record(stream))
         done.record(stream)
     launched = time.perf_counter()
     done.synchronize()
+    ctx.events[v.mid] = (start, done)
     return launched
 
 
 def run_vertex(ctx: ExecContext, m: int,
                stream: "torch.cuda.Stream | None" = None) -> None:
     """Execute one vertex with the run's latency model and ADD_INTO lock
-    discipline, recording its timeline interval. Shared by the inline and
-    threaded backends. The interval ends when the vertex's work has
-    finished (on ``stream``, when given)."""
+    discipline, recording its host span (and, on ``stream``, its timed
+    device interval). Shared by the inline and threaded backends. Returns
+    once the vertex's work has finished."""
     v = ctx.mg.vertices[m]
     t_start = time.perf_counter() - ctx.t0
     if ctx.latency is not None:
@@ -222,10 +308,7 @@ def run_vertex(ctx: ExecContext, m: int,
             launched = _exec_complete(ctx, v, stream)
     else:
         launched = _exec_complete(ctx, v, stream)
-    t_end = time.perf_counter() - ctx.t0
-    ctx.timeline.append((t_start, t_end, v.device, engine_of(v),
-                         v.name or str(m)))
-    ctx.spans[m] = (t_start, t_end)
+    ctx.host_spans[m] = (t_start, time.perf_counter() - ctx.t0)
     ctx.launch[m] = launched - ctx.t0 - t_start
 
 
@@ -389,7 +472,7 @@ class InlineExecutor:
     def __init__(self, ctx: ExecContext, members: Sequence[int]) -> None:
         self.ctx = ctx
         self.kernel = ReadyKernel(ctx.mg, members, ctx.policy, ctx.mode)
-        self.stream = ctx.new_stream()
+        self.stream = ctx.stream(INLINE)
 
     def run_subset(self, mids: Sequence[int]) -> None:
         """Execute one job to completion on the calling thread. Errors
@@ -461,7 +544,7 @@ class ThreadedExecutor:
             width = n_streams if kind == COMPUTE else n_transfer_streams
             width = max(1, min(width, per_key[(d, kind)]))
             for i in range(width):
-                stream = None if kind == DISK else ctx.new_stream()
+                stream = ctx.stream(kind, d, i)
                 if ctx.mode == "fixed":
                     th = threading.Thread(target=self._worker_fixed,
                                           args=((d, kind), stream),
@@ -560,3 +643,173 @@ class ThreadedExecutor:
                 self._publish(s)
             if self.kernel.done:
                 self.main_cond.notify_all()
+
+
+# --------------------------------------------------------------------------
+# the straight-line walker (certified STATIC regions)
+# --------------------------------------------------------------------------
+_COPY_KINDS = ("h2d", "d2h", "d2d")
+
+
+class StaticExecutor:
+    """Execute a :class:`~repro_torch.core.compile.CompiledPlan`'s STATIC
+    regions straight-line on the calling thread: no heap, no locks, no
+    condition variables — the precomputed tick counts proved position
+    order is dependency order, so the assert is the entire per-vertex
+    dispatch. A fused DMA batch issues as one submission: its members back
+    to back on its head's stream.
+
+    On the CPU this is the reference's walker: each op's return is its
+    completion. On CUDA the walker never waits for a vertex:
+
+    * every instruction is issued on the stream its (engine, device,
+      stream id) names — a fused batch's members on their head's — its
+      work bracketed by two timing events;
+    * before issuing, that stream waits on the end event of every memgraph
+      predecessor that was issued on another stream of a static region
+      (``waits``, taken from the lowering; a predecessor in a nondet
+      region has already completed, and one on the same stream is ordered
+      by the stream). Safe-overwrite edges are memgraph edges, so a write
+      to an extent still waits for the reads of its previous value;
+    * an ADD_INTO also waits on the previous static ADD_INTO of its lock
+      group in linear order: two streams never add into one accumulator
+      at once, and the adds happen in one order, so two compiled runs of
+      an all-static plan give the same bytes;
+    * a host-side vertex (the disk engine: a spill, a load, a drop) runs
+      on the host once the host has synchronised the events of its static
+      predecessors and the last copy issued on every copy stream: no
+      pinned buffer is read, written or released while a copy is in
+      flight on it;
+    * :meth:`handoff`, before a nondet region: the host synchronises the
+      static instructions that have successors in the region and the last
+      static ADD_INTO of every lock group the region adds into (both known
+      when the plan is lowered), so the region's executor may treat every
+      earlier vertex as complete.
+
+    The caller synchronises the device at the run's end. The fused H2D/D2H
+    pair of a liveness-certified plan therefore runs both directions on
+    the head's one copy stream: the lowering is the reference's."""
+
+    def __init__(self, ctx: ExecContext, plan: Any) -> None:
+        self.ctx = ctx
+        self.plan = plan
+        self.heads: dict[int, tuple[int, int]] = plan.batch_heads
+        self.cuda = ctx.device.type == "cuda"
+        mg, instrs = ctx.mg, plan.instrs
+        head_of = {i: a for a, b in plan.batches for i in range(a, b)}
+        static = [plan.regions[ins.region].kind == "static"
+                  for ins in instrs]
+        # the stream each position issues on: (engine, device, stream id),
+        # or None for the host (the disk engine)
+        lanes: list[tuple[str, int, int] | None] = []
+        for ins in instrs:
+            h = instrs[head_of.get(ins.pos, ins.pos)]
+            lanes.append(None if h.engine == DISK
+                         else (h.engine, h.device, h.stream))
+        pos = {ins.mid: ins.pos for ins in instrs}
+
+        def on_card(p: int) -> bool:           # issued async by this walker
+            return static[pos[p]] and lanes[pos[p]] is not None
+
+        self.lanes = lanes
+        self.waits: list[tuple[int, ...]] = [()] * len(instrs)
+        prev_add: dict[tuple[int, int], int] = {}
+        for ins in instrs:
+            i = ins.pos
+            if not static[i]:
+                continue
+            w = {p for p in mg.preds[ins.mid]
+                 if on_card(p) and lanes[pos[p]] != lanes[i]}
+            v = mg.vertices[ins.mid]
+            if v.op == MemOp.ADD_INTO and v.lock_group is not None:
+                p = prev_add.get(v.lock_group)
+                if p is not None and lanes[pos[p]] != lanes[i] \
+                        and lanes[pos[p]] is not None:
+                    w.add(p)
+                prev_add[v.lock_group] = ins.mid
+            self.waits[i] = tuple(sorted(w))
+        # seam handoff sets, per nondet region index
+        self.seam_preds: dict[int, tuple[int, ...]] = {}
+        self.seam_groups: dict[int, tuple[tuple[int, int], ...]] = {}
+        for ri, r in enumerate(plan.regions):
+            if r.kind == "static":
+                continue
+            preds: set[int] = set()
+            groups: set[tuple[int, int]] = set()
+            for m in plan.order[r.start:r.end]:
+                preds.update(p for p in mg.preds[m] if on_card(p))
+                v = mg.vertices[m]
+                if v.op == MemOp.ADD_INTO and v.lock_group is not None:
+                    groups.add(v.lock_group)
+            self.seam_preds[ri] = tuple(sorted(preds))
+            self.seam_groups[ri] = tuple(sorted(groups))
+        # run state: end events, the last copy per copy stream, the last
+        # static ADD_INTO per lock group
+        self.ends: dict[int, Any] = {}
+        self.last_copy: dict[tuple[str, int, int], Any] = {}
+        self.group_last: dict[tuple[int, int], int] = {}
+
+    def run_region(self, region: Any) -> int:
+        """Issue one STATIC region; returns the fused submissions issued."""
+        n_fused = 0
+        i = region.start
+        while i < region.end:
+            span = self.heads.get(i)
+            if span is not None:
+                for j in range(span[0], span[1]):
+                    self._exec(j)
+                n_fused += 1
+                i = span[1]
+            else:
+                self._exec(i)
+                i += 1
+        return n_fused
+
+    def handoff(self, region_index: int) -> None:
+        """Before nondet region ``region_index`` runs: wait on the host for
+        the static work it may depend on (class docstring)."""
+        if not self.cuda:
+            return
+        for p in self.seam_preds[region_index]:
+            self.ends[p].synchronize()
+        for g in self.seam_groups[region_index]:
+            m = self.group_last.get(g)
+            if m is not None:
+                self.ends[m].synchronize()
+
+    def _exec(self, i: int) -> None:
+        ins = self.plan.instrs[i]
+        assert ins.ready_tick <= i, "compiled plan not topological"
+        ctx = self.ctx
+        v = ctx.mg.vertices[ins.mid]
+        t_start = time.perf_counter() - ctx.t0
+        if ctx.latency is not None:
+            d = ctx.latency(v)
+            if d > 0:
+                time.sleep(d)
+        lane = self.lanes[i]
+        if not self.cuda or lane is None:
+            if self.cuda:                      # a host-side effect
+                for p in self.waits[i]:
+                    self.ends[p].synchronize()
+                for ev in self.last_copy.values():
+                    ev.synchronize()
+            _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host)
+        else:
+            stream = ctx.stream(*lane)
+            for p in self.waits[i]:
+                stream.wait_event(self.ends[p])
+            start, end = _timing_event(), _timing_event()
+            with torch.cuda.stream(stream):
+                _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host,
+                             mark=lambda: start.record(stream))
+                end.record(stream)
+            self.ends[ins.mid] = end
+            ctx.events[ins.mid] = (start, end)
+            if lane[0] in _COPY_KINDS:
+                self.last_copy[lane] = end
+            if v.op == MemOp.ADD_INTO and v.lock_group is not None:
+                self.group_last[v.lock_group] = ins.mid
+        t_end = time.perf_counter() - ctx.t0
+        ctx.host_spans[ins.mid] = (t_start, t_end)
+        ctx.launch[ins.mid] = t_end - t_start

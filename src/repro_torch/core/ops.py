@@ -10,8 +10,16 @@ plain torch (cuBLAS for the products).
 
 Every op is ``f(*operand_values, out=None, **params) -> torch.Tensor``.
 With ``out`` (a typed view of the vertex's planned arena extent), the op
-writes its result there wherever torch allows it, and returns ``out``;
-without, it returns a fresh contiguous tensor. Operands are never written.
+writes its result there and returns ``out``; without, it returns a fresh
+contiguous tensor holding the same bytes. Operands are never written.
+
+**Static placement (ROADMAP C2).** With ``out``, an op allocates no
+full-size temporary: the planner's HBM budget is the arena, and anything
+an op allocates beside it is HBM the plan did not account for. Ops write
+through ``out=`` kernels, use ``out`` itself as scratch, or keep their
+scratch row-sized (a reduction's ``[..., 1]``, LoRA's ``[T, rank]``, a
+causal mask's :data:`MASK_BLOCK`-square tile, ``rmsnorm_bwd``'s float64
+row chunks of at most :data:`ROW_SCRATCH_BYTES`).
 Ops are deterministic given their operands, so any dependency-respecting
 execution order yields identical results (floating-point commutativity of
 the streaming ``add_into`` accumulation is the one paper-sanctioned
@@ -118,9 +126,16 @@ def _relu(x, *, out=None, **_):
     return torch.clamp(x, min=0, out=out)
 
 
+def _fresh(out: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """``out``, or a fresh contiguous tensor shaped like ``like``: an op
+    computes into either the same way, so both give the same bytes."""
+    return torch.empty_like(like, memory_format=torch.contiguous_format) \
+        if out is None else out
+
+
 @register("gelu")
 def _gelu(x, *, out=None, **_):
-    return _into(out, F.gelu(x, approximate="tanh"))
+    return torch.ops.aten.gelu.out(x, approximate="tanh", out=_fresh(out, x))
 
 
 @register("silu")
@@ -165,7 +180,8 @@ PLAIN["rmsnorm"] = _rmsnorm_plain
 
 @register("softmax")
 def _softmax(x, *, out=None, **_):
-    return _into(out, torch.softmax(x, dim=-1))
+    # torch.softmax's own kernel, writing into out
+    return torch.ops.aten._softmax.out(x, -1, False, out=_fresh(out, x))
 
 
 def _mask_fill(dtype: torch.dtype) -> float:
@@ -174,15 +190,51 @@ def _mask_fill(dtype: torch.dtype) -> float:
     return float(torch.tensor(-1e30, dtype=torch.float64).to(dtype))
 
 
+# the causal mask is applied a row block at a time: the block's columns
+# past its last row's horizon are filled outright (a view, no mask), and
+# the band in between takes one MASK_BLOCK-square triangle, cached per
+# device — the only scratch ``scores`` allocates
+MASK_BLOCK = 128
+_TRI: dict[torch.device, torch.Tensor] = {}
+
+
+def _upper_tri(device: torch.device) -> torch.Tensor:
+    """[b, b] bool, True where column >= row."""
+    tri = _TRI.get(device)
+    if tri is None:
+        b = MASK_BLOCK
+        tri = torch.ones(b, b, dtype=torch.bool, device=device).triu_()
+        _TRI[device] = tri
+    return tri
+
+
+def _causal_fill_(s: torch.Tensor, q_offset: int) -> None:
+    """Fill s[..., i, j] for j > i + q_offset with the mask constant, in
+    place. For rows [r0, r1) the columns from r1 + q_offset on are masked
+    in every row; columns [r0 + q_offset + 1, r1 + q_offset) form a band
+    whose row i, local column c is masked iff c >= i - r0: the upper
+    triangle (with diagonal) of a square, the same for every block."""
+    n, m = s.shape[-2], s.shape[-1]
+    fill = _mask_fill(s.dtype)
+    tri = _upper_tri(s.device)
+    for r0 in range(0, n, MASK_BLOCK):
+        r1 = min(n, r0 + MASK_BLOCK)
+        full = max(0, r1 + q_offset)
+        if full < m:
+            s[..., r0:r1, full:].fill_(fill)
+        band0 = r0 + q_offset + 1              # band column c = 0 here
+        c0, c1 = max(0, band0), min(m, full)
+        if c0 < c1:
+            s[..., r0:r1, c0:c1].masked_fill_(
+                tri[:r1 - r0, c0 - band0:c1 - band0], fill)
+
+
 @register("scores")
 def _scores(q, k, *, scale=1.0, causal=False, q_offset=0, out=None, **_):
     """q: [..., Sq, Dh] block at absolute offset q_offset; k: [..., Skv, Dh]."""
     s = torch.matmul(q, k.transpose(-1, -2), out=out).mul_(scale)
     if causal:
-        n, m = s.shape[-2], s.shape[-1]
-        qpos = torch.arange(n, device=s.device) + q_offset
-        masked = torch.arange(m, device=s.device)[None, :] > qpos[:, None]
-        s.masked_fill_(masked, _mask_fill(s.dtype))
+        _causal_fill_(s, q_offset)
     return s
 
 
@@ -207,29 +259,42 @@ def _matmul_tn(x, y, *, out=None, **_):
 
 @register("softmax_bwd")
 def _softmax_bwd(p, dp, *, out=None, **_):
-    """VJP of softmax: p ⊙ (dp − Σ(dp⊙p))."""
-    s = (dp * p).sum(dim=-1, keepdim=True)
+    """VJP of softmax: p ⊙ (dp − Σ(dp⊙p)); dp⊙p is formed in ``out``."""
+    out = torch.mul(dp, p, out=_fresh(out, dp))
+    s = out.sum(dim=-1, keepdim=True)
     return torch.sub(dp, s, out=out).mul_(p)
 
 
 @register("gelu_bwd")
 def _gelu_bwd(x, dy, *, out=None, **_):
-    c = 0.7978845608028654
-    t = torch.tanh(c * (x + 0.044715 * x ** 3))
-    dg = 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t ** 2) * c * (1 + 3 * 0.044715 * x ** 2)
-    return torch.mul(dy, dg, out=out)
+    """dy ⊙ gelu'(x), tanh form: torch's own backward kernel, writing into
+    out (the reference's formula, evaluated in float32 for 16-bit x)."""
+    return torch.ops.aten.gelu_backward.grad_input(
+        dy, x, approximate="tanh", grad_input=_fresh(out, x))
+
+
+# rmsnorm_bwd's float64 scratch: rows are taken in chunks of at most this
+# many bytes of one float64 [rows, D] temporary
+ROW_SCRATCH_BYTES = 1 << 20
 
 
 @register("rmsnorm_bwd")
 def _rmsnorm_bwd(x, g, dy, *, eps=1e-6, out=None, **_):
     """Exact VJP of rmsnorm wrt x (gamma frozen in LoRA training); float64
-    arithmetic, as the reference op."""
-    xf = x.double()
-    D = xf.shape[-1]
-    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    dyg = dy.double() * g.double()
-    dx = r * dyg - xf * (r ** 3 / D) * (dyg * xf).sum(dim=-1, keepdim=True)
-    return _into(out, dx.to(x.dtype))
+    arithmetic, as the reference op, a chunk of rows at a time."""
+    out = _fresh(out, x)
+    D = x.shape[-1]
+    xs, dys, outs = x.reshape(-1, D), dy.reshape(-1, D), out.view(-1, D)
+    gf = g.double()
+    step = max(1, ROW_SCRATCH_BYTES // (8 * D))
+    for a in range(0, xs.shape[0], step):
+        xf = xs[a:a + step].double()
+        r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        dyg = dys[a:a + step].double().mul_(gf)
+        s = (dyg * xf).sum(dim=-1, keepdim=True)
+        dx = dyg.mul_(r).sub_(xf.mul_(r ** 3 / D).mul_(s))
+        outs[a:a + step].copy_(dx)
+    return out
 
 
 @register("split_heads")

@@ -23,17 +23,24 @@ Components:
 * :func:`eval_taskgraph` — direct dataflow evaluation with no plan: the
   oracle every run is held against.
 * :class:`TurnipRuntime` — a facade over the executor core
-  (:mod:`~repro_torch.core.executor`): the threaded engine-stream fleet on
-  CUDA streams, with completion taken from CUDA events. Ready vertices
-  are ranked by a pluggable :class:`~repro_torch.core.dispatch.DispatchPolicy`;
-  ``mode='fixed'`` reproduces the paper's ablation: vertices are *issued*
-  strictly in the compile-time simulation order (head-of-line blocking),
-  though still asynchronous once issued.
+  (:mod:`~repro_torch.core.executor`) with two executor backends. The
+  interpreted one runs the whole graph on the threaded engine-stream
+  fleet, completion taken from CUDA events. The compiled one
+  (``exec_backend='compiled'``, or ``BuildConfig(backend='compiled')``)
+  lowers the plan (:func:`~repro_torch.core.compile.lower`) and issues
+  its certified-STATIC regions straight-line on CUDA streams with no host
+  wait per vertex (:class:`~repro_torch.core.executor.StaticExecutor`),
+  handing each nondet region to the inline executor or the fleet. Ready
+  vertices are ranked by a pluggable
+  :class:`~repro_torch.core.dispatch.DispatchPolicy`; ``mode='fixed'``
+  reproduces the paper's ablation: vertices are *issued* strictly in the
+  compile-time simulation order (head-of-line blocking), though still
+  asynchronous once issued.
+* :func:`replay_stall` — the directed stuck-state scheduler that turns a
+  liveness certificate's witness (DESIGN.md §14) into an observed,
+  bounded-timeout stall against a real :class:`~repro_torch.core.pool.HostPool`.
 
-Every entry point runs on CUDA unless ``device='cpu'`` is passed. The
-compiled executor backend (``exec_backend='compiled'``) and the liveness
-stall replay of the reference come with ROADMAP A10 and the liveness
-slice.
+Every entry point runs on CUDA unless ``device='cpu'`` is passed.
 """
 from __future__ import annotations
 
@@ -44,20 +51,23 @@ from typing import Any, Callable
 
 import torch
 
+from . import liveness as _lv
 from .bridge import host_tensor
 from .build import BuildResult
 from .device import resolve_device
-from .dispatch import (COMPUTE, DispatchPolicy, TRANSFER_KINDS, engine_of,
-                       get_policy)
-from .executor import ExecContext, ThreadedExecutor, _exec_vertex
+from .dispatch import (COMPUTE, D2D, D2H, H2D, DispatchPolicy,
+                       TRANSFER_KINDS, engine_of, get_policy)
+from .executor import (INLINE, THREADED, ExecContext, InlineExecutor,
+                       StaticExecutor, ThreadedExecutor, _exec_vertex)
 from .memgraph import Loc, MemGraph, MemOp, MemVertex, RaceError
 from .ops import get_op
+from .pool import HostPool, Lease
 from .stores import DiskStore, HostStore, TieredStore
 from .taskgraph import OpKind, TaskGraph, TensorSpec
 
 __all__ = ["HostStore", "DiskStore", "TieredStore", "SlotTable", "ByteArena",
            "run_in_order", "eval_taskgraph", "TurnipRuntime", "RunResult",
-           "make_store"]
+           "make_store", "replay_stall"]
 
 
 def make_store(mg: MemGraph, inputs: dict[int, Any], *, device=None,
@@ -87,7 +97,11 @@ class SlotTable:
     """Validating memory model: an extent holds a value only between a write
     and the next overlapping write. Reading a missing/clobbered extent raises
     :class:`RaceError` — this is how the tests prove race-freedom. Values
-    are tensors of their own on ``device``; ops never write into them."""
+    are tensors of their own on ``device``; ops never write into them. On
+    CUDA a read records the reading stream on the value, so the caching
+    allocator does not hand its memory out again, when a later write
+    replaces it, before that stream's reads have finished (the compiled
+    backend does not wait for them on the host)."""
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
@@ -113,11 +127,14 @@ class SlotTable:
         with self._lock:
             dev = self._mem.get(loc.device, {})
             try:
-                return dev[(loc.offset, loc.size)]
+                value = dev[(loc.offset, loc.size)]
             except KeyError:
                 raise RaceError(
                     f"read of dead/clobbered extent {loc} — racy order or "
                     f"bad memory plan") from None
+        if value.is_cuda:
+            value.record_stream(torch.cuda.current_stream(value.device))
+        return value
 
     def zero(self, loc: Loc, spec: TensorSpec) -> None:
         self.write(loc, torch.zeros(spec.shape, dtype=spec.torch_dtype,
@@ -295,23 +312,72 @@ def _certified_reraise(res: BuildResult, err: RaceError) -> None:
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class RunResult:
+    """One run's outputs and measurements. On CUDA ``timeline``, ``spans``,
+    ``busy``, ``stall``, ``device_busy`` and ``transfer_time`` come from
+    the timing events around each vertex's work on its stream (seconds
+    since the run's start event; :mod:`~repro_torch.core.executor` says
+    what an interval holds). They cover the stream from the vertex's
+    first launch to the end of its work, so where the host issues slower
+    than the card runs they also hold the host's issue time: ``busy``
+    bounds the card's compute-busy time from above, and a profiler's
+    kernel intervals are the card's own. ``stall`` is the makespan less
+    ``busy``. Host-side vertices (the disk engine), and every vertex of a
+    CPU run, have their host spans there instead. ``host_spans`` and
+    ``launch_time`` are the host's side: when a vertex was picked and
+    when the host knew it complete (for the static walker: when its
+    launch returned), and the seconds spent launching."""
+
     outputs: dict[int, torch.Tensor]
-    makespan: float
+    makespan: float                      # host clock, start to last sync
     busy: dict[int, float]               # per device: compute-engine seconds
     stall: dict[int, float]              # makespan - busy (per device)
     transfer_time: dict[str, float]      # per DMA/disk channel: busy seconds
     offload_bytes: int
     reload_bytes: int
     timeline: list[tuple[float, float, int, str, str]]  # t0,t1,dev,engine,name
-    spans: dict[int, tuple[float, float]]  # mid -> (start, end) wall times
+    spans: dict[int, tuple[float, float]]  # mid -> (start, end), as timeline
     disk_spill_bytes: int = 0            # host→disk tier traffic
     disk_load_bytes: int = 0             # disk→host tier traffic
     peak_host_bytes: int = 0             # host-tier occupancy high-water mark
     arena_bytes: int = 0                 # ByteArena buffers (0 for slots)
     arena_device: str | None = None      # where the ByteArena lived
     # per engine class: host seconds spent launching vertices, the part of
-    # the spans above that is not waiting for the card
+    # the host spans that is not waiting for the card
     launch_time: dict[str, float] = dataclasses.field(default_factory=dict)
+    # mid -> (pick, known complete) on the host clock, seconds since start
+    host_spans: dict[int, tuple[float, float]] = dataclasses.field(
+        default_factory=dict)
+    # per device: the union of the card's engines' intervals (compute and
+    # copies), the events' counterpart of a profiler's busy time (holding
+    # host issue time too, as above)
+    device_busy: dict[int, float] = dataclasses.field(default_factory=dict)
+    # compiled-backend counters (DESIGN.md §15): vertices executed by the
+    # straight-line compiled program vs handed to the interpreter at
+    # nondet-region seams, and fused DMA submissions issued. All zero
+    # under the interpreted backend except n_interpreted = |V|.
+    n_compiled: int = 0
+    n_interpreted: int = 0
+    fused_dma_batches: int = 0
+    # seam-backend split (DESIGN.md §17): of the interpreted vertices,
+    # how many ran on the thread-free inline executor vs the threaded
+    # fleet. Invariant: n_inline + n_threaded == n_interpreted.
+    n_inline: int = 0
+    n_threaded: int = 0
+
+
+def _union(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of ``intervals``."""
+    total, cur_a, cur_b = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                total += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        total += cur_b - cur_a
+    return total
 
 
 class TurnipRuntime:
@@ -338,6 +404,11 @@ class TurnipRuntime:
     (:class:`ByteArena`, which needs ``capacities`` in bytes per logical
     device).
 
+    ``exec_backend`` — ``'interpreted'`` or ``'compiled'`` (default: the
+    plan's ``BuildConfig.backend``); ``seam_backend`` — which executor runs
+    a compiled plan's nondet regions: ``'auto'`` (the compiler's stamp),
+    ``'inline'`` or ``'threaded'``.
+
     ``latency`` — optional ``fn(vertex) -> seconds`` injected as a sleep
     before the op runs; it occupies the vertex's stream for that long.
 
@@ -359,11 +430,14 @@ class TurnipRuntime:
                  host_lease=None,
                  seed: int | None = None,
                  exec_backend: str | None = None,
+                 seam_backend: str = "auto",
                  device: str | torch.device | None = None) -> None:
         if mode not in ("nondet", "fixed"):
             raise ValueError(mode)
         if backend not in ("slots", "bytes"):
             raise ValueError(f"unknown memory backend {backend!r}")
+        if seam_backend not in ("auto", INLINE, THREADED):
+            raise ValueError(f"unknown seam backend {seam_backend!r}")
         if host_lease is not None and store_factory is not None:
             raise ValueError("pass host_lease OR store_factory, not both "
                              "(attach the lease inside the factory instead)")
@@ -377,15 +451,20 @@ class TurnipRuntime:
         self.backend = backend
         self.capacities = capacities
         self.store_factory = store_factory
+        # executor backend (DESIGN.md §15): defaults to the plan's
+        # BuildConfig.backend; `exec_backend` overrides per runtime. Note
+        # `backend` above is the *memory* backend (slots|bytes) — a
+        # distinct axis.
         self.exec_backend = (exec_backend if exec_backend is not None
                              else getattr(res, "backend", "interpreted"))
-        if self.exec_backend == "compiled":
-            raise NotImplementedError(
-                "the compiled executor backend comes with the plan compiler "
-                "(ROADMAP A10); run the interpreted backend")
-        if self.exec_backend != "interpreted":
+        if self.exec_backend not in ("interpreted", "compiled"):
             raise ValueError(f"unknown executor backend "
                              f"{self.exec_backend!r}")
+        # seam backend (DESIGN.md §17): "auto" honours the compiler's
+        # per-region stamps; "inline"/"threaded" force one backend for
+        # every seam (the differential harness's forced-backend lanes)
+        self.seam_backend = seam_backend
+        self._compiled = None          # lazily lowered CompiledPlan cache
         # shared-pool mode (DESIGN.md §12): the runtime-owned store joins
         # an arbitrated HostPool under this lease
         self.host_lease = host_lease
@@ -421,6 +500,8 @@ class TurnipRuntime:
                 and isinstance(host, TieredStore)):
             host.certified_live = True
         try:
+            if self.exec_backend == "compiled":
+                return self._run_compiled(mem, host)
             return self._run(mem, host)
         finally:
             # every exit path (success, worker error, collection RaceError,
@@ -428,17 +509,23 @@ class TurnipRuntime:
             if owns_store:
                 host.close()
 
-    def _run(self, mem, host) -> RunResult:
-        """Interpreted backend: the whole graph as one threaded job."""
-        self.policy.prepare(self.mg)
+    def _start(self) -> float:
         if self.device.type == "cuda":
             # the run's inputs and arena are ready before the clock starts
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
+        return time.perf_counter()
+
+    def _make_ctx(self, mem, host, t0: float, members) -> ExecContext:
+        return ExecContext.make(self.mg, self.tg, mem, host, self.policy,
+                                self.mode, self.latency, t0, members,
+                                self.device)
+
+    def _run(self, mem, host) -> RunResult:
+        """Interpreted backend: the whole graph as one threaded job."""
+        self.policy.prepare(self.mg)
+        t0 = self._start()
         members = list(self.mg.vertices)
-        ctx = ExecContext.make(self.mg, self.tg, mem, host, self.policy,
-                               self.mode, self.latency, t0, members,
-                               self.device)
+        ctx = self._make_ctx(mem, host, t0, members)
         fleet = ThreadedExecutor(ctx, members,
                                  n_streams=self.n_streams,
                                  n_transfer_streams=self.n_transfer_streams)
@@ -450,49 +537,403 @@ class TurnipRuntime:
             _certified_reraise(self.res, e)
         finally:
             fleet.close()
-        return self._finish(mem, host, ctx, t0)
+        return self._finish(mem, host, ctx, t0,
+                            n_interpreted=len(members),
+                            n_threaded=len(members))
 
-    def _finish(self, mem, host, ctx: ExecContext, t0: float) -> RunResult:
-        """Fold a finished execution's timeline into a RunResult."""
-        timeline, spans = ctx.timeline, ctx.spans
+    def _region_backend(self, region) -> str:
+        """The seam backend a NONDET region actually runs on: the
+        compiler's stamp, unless this runtime forces one."""
+        if self.seam_backend != "auto":
+            return self.seam_backend
+        return region.backend or THREADED
+
+    def _run_compiled(self, mem, host) -> RunResult:
+        """Compiled backend (DESIGN.md §15/§17): straight-line issue of
+        certified-static regions, handing off at nondet-region seams to
+        the backend the region is stamped with — the thread-free inline
+        executor for small certified seams, the persistent threaded fleet
+        for large windows. All executors share one :class:`ExecContext`
+        (``mem``, ``host``, the run's records), so ByteArena extents,
+        TieredStore tier moves, and HostPool lease accounting are exactly
+        the invariants the certifiers assumed."""
+        from .compile import NONDET, lower
+
+        mg = self.mg
+        pol = self.policy
+        prepared = False
+        if self._compiled is None:
+            # lower() prepares the policy as part of linearization; that
+            # same dispatch state then drives this run's seam executors
+            prepared = True
+            self._compiled = lower(
+                self.res, policy=pol, n_streams=self.n_streams,
+                n_transfer_streams=self.n_transfer_streams,
+                seam_threshold=getattr(self.res, "seam_threshold", None))
+        plan = self._compiled
+        n_compiled = n_interpreted = n_fused = 0
+        n_inline = n_threaded = 0
+        # split the seams by effective backend: the fleet is sized to —
+        # and threads are spun up for — ONLY the threaded-bound regions
+        # (forcing inline gives a zero-thread run); the inline executor's
+        # kernel covers the inline-bound ones. One shared context carries
+        # the ADD_INTO lock groups of every seam vertex.
+        seam_regions = [r for r in plan.regions if r.kind == NONDET]
+        threaded_members = [m for r in seam_regions
+                            if self._region_backend(r) == THREADED
+                            for m in plan.order[r.start:r.end]]
+        inline_members = [m for r in seam_regions
+                          if self._region_backend(r) == INLINE
+                          for m in plan.order[r.start:r.end]]
+        if seam_regions and not prepared:
+            # dispatch state (priorities, RNG draw) is only consumed by
+            # the seam executors — an all-static plan skips it entirely
+            pol.prepare(mg)
+        t0 = self._start()
+        ctx = self._make_ctx(mem, host, t0,
+                             threaded_members + inline_members)
+        fleet = None
+        if threaded_members:
+            fleet = ThreadedExecutor(
+                ctx, threaded_members, n_streams=self.n_streams,
+                n_transfer_streams=self.n_transfer_streams)
+        inline = InlineExecutor(ctx, inline_members) if inline_members \
+            else None
+        static = StaticExecutor(ctx, plan)
+        try:
+            if fleet is not None:
+                fleet.start()
+            for ri, region in enumerate(plan.regions):
+                if region.kind == NONDET:
+                    # seam handoff: the region's vertex subset executes
+                    # with full dispatch freedom on its backend, once the
+                    # static work it may depend on has finished. The
+                    # linearization is topological, so every
+                    # cross-region dependency points backward.
+                    static.handoff(ri)
+                    mids = plan.order[region.start:region.end]
+                    if self._region_backend(region) == INLINE:
+                        inline.run_subset(mids)
+                        n_inline += len(region)
+                    else:
+                        fleet.run_subset(mids)
+                        n_threaded += len(region)
+                    n_interpreted += len(region)
+                else:
+                    n_fused += static.run_region(region)
+                    n_compiled += len(region)
+        except RaceError as e:
+            _certified_reraise(self.res, e)
+        finally:
+            if fleet is not None:
+                fleet.close()
+        return self._finish(mem, host, ctx, t0,
+                            n_compiled=n_compiled,
+                            n_interpreted=n_interpreted,
+                            fused_dma_batches=n_fused,
+                            n_inline=n_inline, n_threaded=n_threaded)
+
+    def _finish(self, mem, host, ctx: ExecContext, t0: float,
+                **counters: int) -> RunResult:
+        """Fold a finished execution into a RunResult (both backends): the
+        device intervals of the timed vertices, host spans for the rest."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # the run's end
         makespan = time.perf_counter() - t0
-        devices = sorted({v.device for v in self.mg.vertices.values()})
-        busy = {d: 0.0 for d in devices}
+        dev_iv = ctx.device_intervals()
+        verts = self.mg.vertices
+        spans = {m: dev_iv.get(m, hs) for m, hs in ctx.host_spans.items()}
+        timeline = sorted((a, b, verts[m].device, engine_of(verts[m]),
+                           verts[m].name or str(m))
+                          for m, (a, b) in spans.items())
+        devices = sorted({v.device for v in verts.values()})
         chan = {k: 0.0 for k in TRANSFER_KINDS}
-        by_dev: dict[int, list[tuple[float, float]]] = {d: [] for d in devices}
+        compute: dict[int, list[tuple[float, float]]] = \
+            {d: [] for d in devices}
+        every: dict[int, list[tuple[float, float]]] = {d: [] for d in devices}
         for (a, b, d, eng_kind, _name) in timeline:
             if eng_kind == COMPUTE:
-                by_dev[d].append((a, b))
+                compute[d].append((a, b))
             else:
                 chan[eng_kind] += b - a
-        for d, intervals in by_dev.items():   # union of stream intervals
-            intervals.sort()
-            cur_a, cur_b = None, None
-            for a, b in intervals:
-                if cur_b is None or a > cur_b:
-                    if cur_b is not None:
-                        busy[d] += cur_b - cur_a
-                    cur_a, cur_b = a, b
-                else:
-                    cur_b = max(cur_b, b)
-            if cur_b is not None:
-                busy[d] += cur_b - cur_a
+            if eng_kind in (COMPUTE, H2D, D2H, D2D):   # the card's engines
+                every[d].append((a, b))
+        busy = {d: _union(iv) for d, iv in compute.items()}
         stall = {d: makespan - busy[d] for d in devices}
         launch: dict[str, float] = {}
         for m, secs in ctx.launch.items():
-            kind = engine_of(self.mg.vertices[m])
+            kind = engine_of(verts[m])
             launch[kind] = launch.get(kind, 0.0) + secs
         disk = getattr(host, "disk", None)
         return RunResult(
             outputs=_collect_outputs(self.tg, self.res, mem, host),
             makespan=makespan, busy=busy, stall=stall, transfer_time=chan,
             offload_bytes=host.offload_bytes, reload_bytes=host.reload_bytes,
-            timeline=sorted(timeline), spans=spans,
+            timeline=timeline, spans=spans,
             disk_spill_bytes=disk.write_bytes if disk else 0,
             disk_load_bytes=disk.read_bytes if disk else 0,
             peak_host_bytes=host.peak_resident_bytes,
             arena_bytes=getattr(mem, "nbytes", 0),
             arena_device=(str(next(iter(mem.bufs.values())).device)
                           if getattr(mem, "bufs", None) else None),
-            launch_time=launch,
-        )
+            launch_time=launch, host_spans=dict(ctx.host_spans),
+            device_busy={d: _union(iv) for d, iv in every.items()},
+            **counters)
+
+
+# --------------------------------------------------------------------------
+# directed stuck-state scheduler (liveness witness replay, DESIGN.md §14)
+# --------------------------------------------------------------------------
+class _StallProbe:
+    """Shared state between the directed workers and their watchdog."""
+
+    def __init__(self) -> None:
+        self.cond = threading.Condition()
+        self.stalled: list[Any] = []     # tags whose admission timed out
+        self.done = 0                    # workers that finished unstalled
+        self.abort = False
+
+
+class _DiskGate:
+    """A bounded disk tier reduced to its admission discipline: a unit
+    counter with the same ``try_charge`` surface as a lease, so the same
+    blocking-admission loop drives both replays."""
+
+    def __init__(self, capacity: int) -> None:
+        self.capacity = int(capacity)
+        self.used = 0
+        self._lock = threading.Lock()
+
+    def try_charge(self, n: int) -> bool:
+        with self._lock:
+            if self.used + n > self.capacity:
+                return False
+            self.used += n
+            return True
+
+    def release(self, n: int) -> None:
+        with self._lock:
+            self.used -= n
+
+
+def _blocking_charge(target: Any, n: int, tag: Any, probe: _StallProbe,
+                     deadline: float, poll_s: float = 0.002) -> bool:
+    """The blocking admission discipline the static model assumes of a
+    reserving consumer: retry ``try_charge`` until it fits or the bounded
+    timeout expires (the threaded analogue of the serve engine's deferred
+    admissions). Records the stall on timeout and returns False."""
+    while True:
+        if target.try_charge(n):
+            return True
+        with probe.cond:
+            if probe.abort or time.monotonic() >= deadline:
+                probe.stalled.append(tag)
+                probe.cond.notify_all()
+                return False
+        time.sleep(poll_s)
+
+
+def _pool_of(cfg: "_lv.PoolConfig") -> tuple[HostPool, dict[str, Lease]]:
+    pool = HostPool(cfg.capacity, policy=cfg.policy)
+    leases = {s.name: pool.lease(s.name, min_bytes=s.min_bytes,
+                                 weight=s.weight, priority=s.priority,
+                                 drains_via=s.drains_via)
+              for s in cfg.leases}
+    return pool, leases
+
+
+def _occupy_slack(cfg: "_lv.PoolConfig", leases: dict[str, Lease],
+                  plan_lease: str, guaranteed: int) -> None:
+    """Adversarial co-tenancy: every byte above the plan lease's
+    guarantee is held by the others — the configuration a full
+    revocation leaves behind, and the one the guarantee is *about*."""
+    slack = cfg.capacity - guaranteed
+    for s in cfg.leases:
+        if s.name != plan_lease and slack > 0:
+            leases[s.name].account(slack)
+            slack = 0
+
+
+def _run_directed(workers: list[Callable[[], None]], probe: _StallProbe,
+                  timeout_s: float) -> None:
+    threads = [threading.Thread(target=w, name=f"turnip-directed{i}")
+               for i, w in enumerate(workers)]
+    for th in threads:
+        th.start()
+    n = len(workers)
+    with probe.cond:
+        probe.cond.wait_for(
+            lambda: len(probe.stalled) + probe.done >= n,
+            timeout=timeout_s * 8 + 2)
+        probe.abort = True
+        probe.cond.notify_all()
+    for th in threads:
+        th.join()
+
+
+def _replay_lease_floor_stall(hazard: Any, cert: Any, mg: MemGraph,
+                              timeout_s: float) -> str:
+    from .analyze import recover_residencies
+    cfg = cert.pool
+    pool, leases = _pool_of(cfg)
+    plan = leases[hazard.lease]
+    guaranteed = int(hazard.capacity or 0)
+    _occupy_slack(cfg, leases, hazard.lease, guaranteed)
+    host, _ = recover_residencies(mg)
+    admit_units = {r.admit: r.units for r in host}
+    release_units = {r.release: r.units
+                     for r in host if r.release is not None}
+    probe = _StallProbe()
+    deadline = time.monotonic() + timeout_s
+
+    def worker() -> None:
+        for m in hazard.witness[:hazard.prefix]:
+            if m in admit_units:
+                if not _blocking_charge(plan, admit_units[m], m, probe,
+                                        deadline):
+                    return
+            elif m in release_units:
+                plan.release(release_units[m])
+        with probe.cond:
+            probe.done += 1
+            probe.cond.notify_all()
+
+    _run_directed([worker], probe, timeout_s)
+    assert probe.stalled, (
+        f"witness prefix replayed to completion without stalling — the "
+        f"lease-floor hazard did not confirm: {hazard}")
+    snap = pool.snapshot()
+    return (f"admission {probe.stalled[0]} stalled {timeout_s}s on lease "
+            f"{hazard.lease!r} with the pool static at "
+            f"{snap['used_bytes']}/{snap['capacity']} B")
+
+
+def _replay_disk_credit_stall(hazard: Any, cert: Any, mg: MemGraph,
+                              timeout_s: float) -> str:
+    from .analyze import recover_residencies
+    assert cert.disk_capacity is not None
+    gate = _DiskGate(cert.disk_capacity)
+    _, disk = recover_residencies(mg)
+    admit_units = {r.admit: r.units for r in disk}
+    release_units = {r.release: r.units
+                     for r in disk if r.release is not None}
+    probe = _StallProbe()
+    deadline = time.monotonic() + timeout_s
+
+    def worker() -> None:
+        for m in hazard.witness[:hazard.prefix + 1]:
+            if m in admit_units:
+                if not _blocking_charge(gate, admit_units[m], m, probe,
+                                        deadline):
+                    return
+            elif m in release_units:
+                gate.release(release_units[m])
+        with probe.cond:
+            probe.done += 1
+            probe.cond.notify_all()
+
+    _run_directed([worker], probe, timeout_s)
+    assert probe.stalled, (
+        f"witness prefix replayed to completion without stalling — the "
+        f"disk-credit hazard did not confirm: {hazard}")
+    return (f"spill {probe.stalled[0]} stalled {timeout_s}s with "
+            f"{gate.used}/{gate.capacity} disk unit(s) held by blobs "
+            f"whose drops are all downstream")
+
+
+def _replay_revocation_cycle(hazard: Any, cert: Any,
+                             timeout_s: float) -> str:
+    cfg = cert.pool
+    pool, leases = _pool_of(cfg)
+    # recover the drain cycle starting from the flagged lease
+    cycle = [hazard.lease]
+    while True:
+        spec = cfg.spec(cycle[-1])
+        nxt = next((t for t in spec.drains_via
+                    if cfg.spec(t) is not None), None)
+        assert nxt is not None, f"no drain edge out of {cycle[-1]!r}"
+        if nxt in cycle:
+            cycle = cycle[cycle.index(nxt):]
+            break
+        cycle.append(nxt)
+    # wedge: fill the pool across the cycle so every drain's charge must
+    # wait for room only the next drain can free
+    share = cfg.capacity // len(cycle)
+    for i, name in enumerate(cycle):
+        extra = cfg.capacity - share * len(cycle) if i == 0 else 0
+        leases[name].account(share + extra)
+    probe = _StallProbe()
+    deadline = time.monotonic() + timeout_s
+
+    def drain(name: str, nxt: str) -> Callable[[], None]:
+        def worker() -> None:
+            l = leases[name]
+            with pool.draining(l):
+                if not _blocking_charge(leases[nxt], 1, name, probe,
+                                        deadline):
+                    return
+            with probe.cond:
+                probe.done += 1
+                probe.cond.notify_all()
+        return worker
+
+    workers = [drain(name, cycle[(i + 1) % len(cycle)])
+               for i, name in enumerate(cycle)]
+    _run_directed(workers, probe, timeout_s)
+    assert len(probe.stalled) == len(cycle) and probe.done == 0, (
+        f"some drain on the cycle made progress — the revocation-cycle "
+        f"hazard did not confirm: stalled={probe.stalled} "
+        f"done={probe.done}")
+    return (f"all {len(cycle)} drains on {' -> '.join(cycle)} stalled "
+            f"{timeout_s}s with the pool full "
+            f"({pool.snapshot()['used_bytes']}/{cfg.capacity} B)")
+
+
+def _replay_atomic_stall(hazard: Any, cert: Any, timeout_s: float) -> str:
+    cfg = cert.pool
+    pool, leases = _pool_of(cfg)
+    guaranteed = int(hazard.capacity or 0)
+    _occupy_slack(cfg, leases, hazard.lease, guaranteed)
+    probe = _StallProbe()
+    deadline = time.monotonic() + timeout_s
+
+    def worker() -> None:
+        if not _blocking_charge(leases[hazard.lease], hazard.expect_units,
+                                "batch", probe, deadline):
+            return
+        with probe.cond:
+            probe.done += 1
+            probe.cond.notify_all()
+
+    _run_directed([worker], probe, timeout_s)
+    assert probe.stalled, (
+        f"the all-or-nothing batch was admitted — the atomic-admission "
+        f"hazard did not confirm: {hazard}")
+    return (f"{hazard.expect_units} B all-or-nothing batch stalled "
+            f"{timeout_s}s against a {guaranteed} B guarantee")
+
+
+def replay_stall(hazard: Any, cert: Any, mg: MemGraph | None = None, *,
+                 timeout_s: float = 0.5) -> str:
+    """Replay a liveness hazard's stuck-state witness to an *actual*
+    bounded-timeout stall: the directed scheduler executes the witness
+    prefix against a real :class:`~repro_torch.core.pool.HostPool` (or a
+    bounded disk gate) with the blocking admission discipline, and the
+    flagged admission must still be refused after ``timeout_s`` of
+    retries with the pool static — the dynamic confirmation for
+    ``witness_kind == 'stall'`` findings, the way ``run_in_order``
+    replays §13's race witnesses. Returns a one-line description of the
+    observed stall; raises AssertionError if the replay makes progress
+    instead."""
+    kind = hazard.kind
+    if kind == _lv.REVOCATION_CYCLE:
+        return _replay_revocation_cycle(hazard, cert, timeout_s)
+    if kind == _lv.ATOMIC_ADMISSION_STALL:
+        return _replay_atomic_stall(hazard, cert, timeout_s)
+    if kind == _lv.LEASE_FLOOR_STALL:
+        assert mg is not None, "lease-floor replay needs the memgraph"
+        return _replay_lease_floor_stall(hazard, cert, mg, timeout_s)
+    if kind == _lv.DISK_CREDIT_STALL:
+        assert mg is not None, "disk-credit replay needs the memgraph"
+        return _replay_disk_credit_stall(hazard, cert, mg, timeout_s)
+    raise AssertionError(f"no stall replay for hazard kind {kind!r}")

@@ -4,7 +4,13 @@ the reference's JAX modules, so it runs on the machine with the card:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+import dataclasses
 import random
+
+# one cuBLAS workspace of 4 MiB per (handle, stream), fixed before the
+# process first calls cuBLAS: the HBM bound of the C2 test counts them
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:1")
 
 import numpy as np
 import pytest
@@ -16,6 +22,8 @@ from repro_torch.core import (BuildConfig, MemgraphOOM, TaskGraph, TensorSpec,
                               build_memgraph, lockcheck)
 from repro_torch.core import ops as port_ops
 from repro_torch.core.bridge import inputs_from_reference
+from repro_torch.core.compile import NONDET, STATIC, Region, lower
+from repro_torch.core.memgraph import MemOp
 from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
 from repro_torch.core.trace import TraceConfig, trace_prefill
 from repro_torch.kernels.flash_attention.ops import (attention_limit,
@@ -850,3 +858,255 @@ def test_recurrent_apply_on_card_matches_cpu(cuda, arch):
         assert ssd_scan.launches - counts[0] == L
         assert flash_attention.launches - counts[2] == ng
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------ the compiled backend
+def _tiny_prefill(cuda, dtype="float32", frac=0.15):
+    tr = trace_prefill(ArchConfig(name="demo", family="dense", n_layers=2,
+                                  d_model=64, n_heads=4, n_kv_heads=4,
+                                  d_ff=128, vocab_size=96), seq_len=32,
+                       trace=TraceConfig(n_devices=2, head_group=2,
+                                         q_block=16, mlp_slices=2,
+                                         dtype=dtype))
+    total = sum(v.out.nbytes for v in tr.tg.vertices.values()
+                if v.device == 0)
+    cap = int(total * frac)
+    res = build_memgraph(tr.tg, BuildConfig(
+        capacity=cap, size_fn=lambda v: -(-v.out.nbytes // 256) * 256))
+    host = inputs_from_reference(tr.make_inputs(seed=1, scale=0.1),
+                                 device=cuda)
+    return tr, res, cap, host
+
+
+@pytest.mark.parametrize("seam_backend", ["auto", "inline", "threaded"])
+def test_compiled_offloaded_prefill_on_card(cuda, seam_backend):
+    """A small offloading plan under the compiled backend: the same
+    outputs as the interpreted run (within float32 rounding of the
+    streaming sums) and the plain evaluation, every vertex accounted to
+    one executor, the static part issued straight-line."""
+    tr, res, cap, host = _tiny_prefill(cuda)
+    assert res.n_offloads > 0 and res.n_reloads > 0
+    plain = eval_taskgraph(tr.tg, host, device=cuda, plain=True)
+    for policy, mode in RUNS:
+        runs = {}
+        for exec_backend in ("interpreted", "compiled"):
+            rr = TurnipRuntime(tr.tg, res, backend="bytes", policy=policy,
+                               mode=mode, seed=0, device=cuda,
+                               capacities={d: cap for d in tr.tg.devices()},
+                               exec_backend=exec_backend,
+                               seam_backend=seam_backend).run(host)
+            runs[exec_backend] = rr
+        rc = runs["compiled"]
+        assert rc.n_compiled > 0
+        assert rc.n_compiled + rc.n_interpreted == len(res.memgraph)
+        assert rc.n_inline + rc.n_threaded == rc.n_interpreted
+        for tid, want in plain.items():
+            torch.testing.assert_close(rc.outputs[tid], want, rtol=1e-4,
+                                       atol=1e-5)
+            torch.testing.assert_close(rc.outputs[tid],
+                                       runs["interpreted"].outputs[tid],
+                                       rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_slow_kernels_keep_safe_overwrite_order_compiled(cuda, monkeypatch,
+                                                         seed):
+    """The compiled twin of the C1 test: every compute op first spins ~1 ms
+    on its stream, and the static walker issues without waiting. Event
+    waits on cross-stream predecessors (safe-overwrite edges included) and
+    the seam handoff keep the outputs byte-exact under every policy."""
+    for name in ("add", "mul", "matmul", "matmul_t", "relu", "copy"):
+        fn = port_ops.OPS[name]
+
+        def slow(*xs, _fn=fn, **kw):
+            torch.cuda._sleep(2_000_000)
+            return _fn(*xs, **kw)
+        monkeypatch.setitem(port_ops.OPS, name, slow)
+    ref_tg = random_taskgraph(random.Random(seed))
+    tg = to_port(ref_tg)
+    inputs = int_inputs(ref_tg, seed, dtype=np.float32)
+    want = eval_taskgraph(tg, inputs, device="cpu")
+    host = inputs_from_reference(inputs, device=cuda)
+    for cap in (3, 5):
+        try:
+            res = build_memgraph(tg, BuildConfig(capacity=cap * 64))
+        except MemgraphOOM:
+            continue
+        for policy, mode in RUNS:
+            for seam_backend in ("auto", "inline", "threaded"):
+                rr = TurnipRuntime(tg, res, backend="bytes", policy=policy,
+                                   mode=mode, seed=seed, device=cuda,
+                                   capacities={d: cap * 64
+                                               for d in tg.devices()},
+                                   exec_backend="compiled",
+                                   seam_backend=seam_backend).run(host)
+                for tid, w in want.items():
+                    assert torch.equal(rr.outputs[tid].cpu(), w)
+
+
+def _reduce_graph(n_parts=8, shape=(2048, 2048)):
+    """x -> y = copy(x) -> part i = scale(y, i + 1) -> streaming sum: the
+    parts and the adds are not fed by a transfer, so they lower static."""
+    tg = TaskGraph()
+    x = tg.add_input(0, shape, name="x")
+    y = tg.add_compute(0, (x,), shape, op="copy", name="y")
+    parts = [tg.add_compute(0, (y,), shape, op="scale",
+                            params={"alpha": float(i + 1)}, name=f"p{i}")
+             for i in range(n_parts)]
+    tg.add_reduce(0, parts, streaming=True, name="sum")
+    return tg
+
+
+def test_add_into_group_on_two_streams_stays_exact(cuda, monkeypatch):
+    """A streaming sum whose ADD_INTO vertices the lowering spreads over
+    two compute streams: each add waits on the previous add of its lock
+    group, so no update is lost; the sum is exact (small integers in
+    float32) and two compiled runs give the same bytes."""
+    fn = port_ops.OPS["scale"]
+
+    def slow(*xs, _fn=fn, **kw):
+        torch.cuda._sleep(1_000_000)
+        return _fn(*xs, **kw)
+    monkeypatch.setitem(port_ops.OPS, "scale", slow)
+    tg = _reduce_graph()
+    res = build_memgraph(tg, BuildConfig(capacity=1 << 30))
+    plan = lower(res, policy="fixed", n_streams=2)
+    mg = res.memgraph
+    adds = [ins for ins in plan.instrs
+            if mg.vertices[ins.mid].op == MemOp.ADD_INTO]
+    assert len(adds) >= 4
+    assert all(plan.regions[ins.region].kind == STATIC for ins in adds)
+    assert len({ins.stream for ins in adds}) == 2
+    x = np.random.default_rng(0).integers(-3, 4, (2048, 2048)).astype(
+        np.float32)
+    host = inputs_from_reference({0: x}, device=cuda)
+    want = torch.from_numpy(x) * sum(range(1, 9))
+    outs = []
+    for _ in range(2):
+        rr = TurnipRuntime(tg, res, backend="bytes", policy="fixed",
+                           n_streams=2, device=cuda,
+                           capacities={0: 1 << 30},
+                           exec_backend="compiled").run(host)
+        out = next(iter(rr.outputs.values())).cpu()
+        assert torch.equal(out, want)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_seam_after_async_static_region_reads_its_last_write(cuda,
+                                                             monkeypatch):
+    """A static region of slow work (each op spins ~1 ms first) issued
+    without host waits, then a nondet region whose first vertex reads the
+    static region's last write: the handoff waits for that write, so the
+    seam reads the finished value (the chain doubles a tensor 12 times;
+    exact)."""
+    fn = port_ops.OPS["scale"]
+
+    def slow(*xs, _fn=fn, **kw):
+        torch.cuda._sleep(1_000_000)
+        return _fn(*xs, **kw)
+    monkeypatch.setitem(port_ops.OPS, "scale", slow)
+    shape = (1024, 1024)
+    tg = TaskGraph()
+    h = tg.add_input(0, shape, name="x")
+    for i in range(12):
+        h = tg.add_compute(0, (h,), shape, op="scale",
+                           params={"alpha": 2.0}, name=f"c{i}")
+    last = h
+    tg.add_compute(0, (last, last), shape, op="add", name="seam")
+    res = build_memgraph(tg, BuildConfig(capacity=1 << 31))
+    rt = TurnipRuntime(tg, res, backend="bytes", policy="fixed",
+                       device=cuda, capacities={0: 1 << 31},
+                       exec_backend="compiled", seam_backend="inline")
+    plan = lower(res, policy="fixed")
+    mg = res.memgraph
+    k = next(i for i, m in enumerate(plan.order)
+             if mg.vertices[m].name == "seam")
+    assert any(p == plan.order[k - 1] for p in mg.preds[plan.order[k]])
+    plan.regions = [Region(STATIC, 0, k),
+                    Region(NONDET, k, len(plan.order), "inline")]
+    plan.instrs = [dataclasses.replace(ins, region=int(ins.pos >= k))
+                   for ins in plan.instrs]
+    plan.verify(mg)
+    rt._compiled = plan
+    x = np.random.default_rng(0).integers(-3, 4, shape).astype(np.float32)
+    host = inputs_from_reference({0: x}, device=cuda)
+    rr = rt.run(host)
+    assert rr.n_interpreted == len(plan.order) - k and rr.n_inline > 0
+    out = next(iter(rr.outputs.values())).cpu()
+    assert torch.equal(out, torch.from_numpy(x) * 8192)
+
+
+def test_static_regions_issue_without_host_waits(cuda, monkeypatch):
+    """An all-static compiled run waits on the host at its start and its
+    end only: no event or stream synchronisation per vertex."""
+    waits = {"event": 0, "device": 0}
+    ev_sync = torch.cuda.Event.synchronize
+    dev_sync = torch.cuda.synchronize
+
+    def count_event(self):
+        waits["event"] += 1
+        return ev_sync(self)
+
+    def count_device(*a, **k):
+        waits["device"] += 1
+        return dev_sync(*a, **k)
+    tg = _reduce_graph(n_parts=4, shape=(256, 256))
+    res = build_memgraph(tg, BuildConfig(capacity=1 << 26))
+    plan = lower(res, policy="fixed")
+    assert all(r.kind == STATIC for r in plan.regions[1:])
+    x = np.ones((256, 256), np.float32)
+    host = inputs_from_reference({0: x}, device=cuda)
+    rt = TurnipRuntime(tg, res, backend="bytes", policy="fixed",
+                       device=cuda, capacities={0: 1 << 26},
+                       exec_backend="compiled", seam_backend="inline")
+    rt.run(host)                               # lowers the plan
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", count_event)
+    monkeypatch.setattr(torch.cuda, "synchronize", count_device)
+    rr = rt.run(host)
+    seam = sum(len(r) for r in plan.regions if r.kind == NONDET)
+    assert rr.n_compiled == len(plan.order) - seam
+    # the seam's own vertices wait for their events; the static ones never
+    assert waits["event"] <= seam + len(rt._compiled.regions)
+    assert waits["device"] == 2
+
+
+@pytest.mark.parametrize("exec_backend", ["interpreted", "compiled"])
+def test_event_busy_is_within_the_makespan(cuda, exec_backend):
+    """busy and the timeline come from events on the card: 0 < busy <=
+    device_busy <= makespan, every interval inside [0, makespan]."""
+    tr, res, cap, host = _tiny_prefill(cuda)
+    rr = TurnipRuntime(tr.tg, res, backend="bytes", policy="random", seed=0,
+                       device=cuda, capacities={d: cap
+                                                for d in tr.tg.devices()},
+                       exec_backend=exec_backend).run(host)
+    for d, busy in rr.busy.items():
+        assert 0 < busy <= rr.device_busy[d] <= rr.makespan
+        assert abs(rr.stall[d] - (rr.makespan - busy)) < 1e-12
+    assert len(rr.spans) == len(rr.host_spans) == len(res.memgraph)
+    for a, b, *_ in rr.timeline:
+        assert -1e-3 <= a <= b <= rr.makespan + 1e-3
+
+
+def test_placement_bound_on_a_small_plan(cuda):
+    """ROADMAP C2 on the card: the HBM a run allocates beyond what it had
+    is the arena, the returned outputs, at most one 4 MiB cuBLAS workspace
+    per (thread, compute stream) pair of the run, and ops' row scratch."""
+    tr, res, cap, host = _tiny_prefill(cuda, dtype="float16", frac=0.2)
+    ws_pairs = 2 * 5 + 1                 # fleet, static walker, inline
+    allowance = ws_pairs * 4 * 2**20 + 2**20
+    for exec_backend in ("interpreted", "compiled"):
+        for policy, mode in RUNS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            rr = TurnipRuntime(tr.tg, res, backend="bytes", policy=policy,
+                               mode=mode, seed=0, device=cuda,
+                               capacities={d: cap for d in tr.tg.devices()},
+                               exec_backend=exec_backend).run(host)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            outs = sum(t.numel() * t.element_size()
+                       for t in rr.outputs.values() if t.is_cuda)
+            assert peak <= rr.arena_bytes + outs + allowance, \
+                (exec_backend, policy, mode, peak, rr.arena_bytes, outs)

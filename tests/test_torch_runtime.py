@@ -195,9 +195,22 @@ def test_cut_safe_overwrite_edge_raises_race_error(prefill):
 
 
 def test_compiled_backend_is_not_ported_yet(prefill):
-    tr, res, _, _, _ = prefill
-    with pytest.raises(NotImplementedError, match="A10"):
-        TurnipRuntime(tr.tg, res, device="cpu", exec_backend="compiled")
+    """The compiled backend is ported now (the name predates it): it runs
+    the offloaded prefill to the interpreted backend's outputs, and an
+    unknown backend is refused."""
+    tr, res, cap, inputs, ref = prefill
+    rr = TurnipRuntime(tr.tg, res, device="cpu", backend="bytes",
+                       capacities={d: cap for d in tr.tg.devices()},
+                       exec_backend="compiled", policy="critical-path",
+                       seed=0).run(inputs_from_reference(inputs,
+                                                         device="cpu"))
+    assert rr.n_compiled > 0
+    assert rr.n_compiled + rr.n_interpreted == len(res.memgraph)
+    for tid, want in ref.items():
+        np.testing.assert_allclose(rr.outputs[tid].numpy(), want,
+                                   rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="executor backend"):
+        TurnipRuntime(tr.tg, res, device="cpu", exec_backend="jit")
 
 
 def test_entry_points_default_to_cuda(prefill):
