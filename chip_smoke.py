@@ -129,16 +129,18 @@ failure:
    card: every adapter gradient finite and within LORA_GRAD_RTOL x
    max|plain| of the port's plain evaluation on the card, each gradient
    alone; a plain gradient that is not finite (float16 overflow) fails the
-   phase. Each line prints makespan, busy and stall from events, offload
-   and reload bytes, rmsnorm launches (asserted: one per rmsnorm vertex of
-   the forward and the re-traced backward) and ``rmsnorm_bwd``'s device
-   time (plain torch in float64, as the reference op).
+   phase. Each line prints makespan, busy and stall on the host's clock
+   (``RunResult``'s spans), offload and reload bytes and rmsnorm launches
+   (asserted: one per rmsnorm vertex of the forward and the re-traced
+   backward); then ``rmsnorm_bwd``'s device time at its shapes (plain
+   torch in float64, as the reference op; CUDA events).
 9. The simulator against the card (ROADMAP A7): an H100 ``HardwareModel``
    measured here (pinned 256 MiB copies each way, a 4 KiB copy's
    latency, an on-card copy's rate, an empty launch, the prefill's largest
    matmul vertex), printed; then for the prefill and both LoRA plans, in
    ``nondet`` and ``fixed``, the simulated makespan beside the measured
-   event busy time and makespan of both backends. Reported, not asserted.
+   makespan of both backends and, with ``--profile``, beside the card's
+   busy time in the profiled runs. Reported, not asserted.
 
 Placement (ROADMAP C2): every prefill and LoRA run asserts that the HBM it
 allocates beyond what was allocated before it (peak
@@ -159,13 +161,18 @@ unless every moe_gmm launch went to the wgmma instance
 (``launches_wgmma``; ``launches_mma`` is the instance for views TMA
 cannot read). The build
 phase prints each kernel function's registers and spills (``ptxas -v``). ``--profile`` adds one more run
-of each path (the prefill under policy ``fixed``, interpreted and
-compiled, LoRA at T=2048 compiled, the serving paths under
-``critical-path``, one ``apply`` of each recurrent model) under
-``torch.profiler`` and prints the card's busy time (the union of its
-kernel and copy intervals), its idle share of the run's wall time, and the
-device time by kernel name; for a runtime run, beside the busy time its
-own timing events give.
+of each path (the prefill under policy ``fixed`` in both modes,
+interpreted and compiled, LoRA at T=2048 compiled in both modes, the
+serving paths under ``critical-path``, one ``apply`` of each recurrent
+model) under ``torch.profiler`` and prints the card's busy time (the union
+of its kernel and copy intervals), its idle share of the run's wall time,
+and the device time by kernel name; for a runtime run, beside the busy
+time of its host spans.
+
+``python3 chip_smoke.py --ab-prefill OTHER_ROOT`` runs nothing of the
+above: it times the interpreted prefill of this checkout's port against
+another checkout's (``ab_prefill``), for example the parent commit
+unpacked with ``git archive`` under ``build/``.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
@@ -191,14 +198,18 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+# an ab_prefill worker (``--ab-worker SRC ...``) runs the port found in SRC
+SRC = (sys.argv[sys.argv.index("--ab-worker") + 1]
+       if "--ab-worker" in sys.argv else os.path.join(ROOT, "src"))
+sys.path.insert(0, SRC)
 
 # one 4 MiB cuBLAS workspace per (handle, stream), fixed before torch first
 # calls cuBLAS, so the placement bound can count them (cuBLASLt adds 1 MiB
-# per pair where it runs)
+# per pair where it runs); an ab_prefill worker may keep cuBLAS's default
 CUBLAS_WS_BYTES = 4 * 2**20
 CUBLASLT_WS_BYTES = 2**20
-os.environ["CUBLAS_WORKSPACE_CONFIG"] = f":{CUBLAS_WS_BYTES // 1024}:1"
+if "--default-workspace" not in sys.argv:
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = f":{CUBLAS_WS_BYTES // 1024}:1"
 N_STREAMS = 5                      # TurnipRuntime's compute streams
 # (thread, compute stream) pairs a run can form: the fleet's threads, the
 # static walker's one thread on the N_STREAMS streams, the inline executor
@@ -1222,11 +1233,13 @@ def build_main_path(*, arch=None, seq_len=MAIN_SEQ, n_layers=MAIN_LAYERS,
     raise RuntimeError("no budget makes the plan offload")
 
 
-def profile_run(torch, label: str, run) -> None:
+def profile_run(torch, label: str, run) -> float | None:
     """One run under torch.profiler: the card's busy time and idle share
     over the run's wall time, and device time by kernel name. ``run``
     returns the wall time in seconds, or a runtime's RunResult, whose
-    event-timed busy time is then printed beside the profiler's."""
+    host-span busy time is then printed beside the profiler's. Returns
+    the card's busy time in ms (None when the profiler saw no device
+    event)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1245,7 +1258,7 @@ def profile_run(torch, label: str, run) -> None:
     if not spans:
         print(f"profile {label}: no device events recorded (device busy "
               "time not measured)", flush=True)
-        return
+        return None
     spans.sort()
     busy_us, cur_a, cur_b = 0.0, None, None
     for a, b in spans:
@@ -1262,16 +1275,14 @@ def profile_run(torch, label: str, run) -> None:
           f"device_idle_share_of_wall {1 - busy_us / 1e3 / (wall_s * 1e3):.3f} "
           f"device_events {len(spans)}", flush=True)
     if rr is not None:
-        ev = rr.device_busy[0] * 1e3
-        print(f"profile {label}: events device_busy_ms {ev:.2f} "
-              f"(compute busy_ms {rr.busy[0] * 1e3:.2f}) against the "
-              f"profiler's {busy_us / 1e3:.2f}: ratio "
-              f"{ev / (busy_us / 1e3):.3f}, within 10% "
-              f"{abs(ev / (busy_us / 1e3) - 1) <= 0.10}", flush=True)
+        print(f"profile {label}: host_busy_ms {rr.busy[0] * 1e3:.2f} (the "
+              f"compute vertices' host spans) against the card's "
+              f"{busy_us / 1e3:.2f}", flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (ms, n) in top:
         print(f"profile {label}: {ms:9.3f} ms {n:5d}x {name[:100]}",
               flush=True)
+    return busy_us / 1e3
 
 
 def placement(torch, base: int, rr) -> str:
@@ -1328,12 +1339,10 @@ def plan_runs(torch, device, tr, res, cap, inputs, *, label: str,
                                seed=0, device=device, exec_backend=backend)
             rr, n, mem = measured(rt)
             desc = check(rr, out.get(("interpreted", policy, mode)))
-            busy, stall = rr.busy[0], rr.stall[0]
             print(f"{label} {backend} policy={policy} mode={mode}: "
-                  f"makespan_ms {rr.makespan * 1e3:.2f} busy_ms "
-                  f"{busy * 1e3:.2f} stall_ms {stall * 1e3:.2f} idle_share "
-                  f"{stall / rr.makespan:.3f} device_busy_ms "
-                  f"{rr.device_busy[0] * 1e3:.2f} offload_bytes "
+                  f"makespan_ms {rr.makespan * 1e3:.2f} host_busy_ms "
+                  f"{rr.busy[0] * 1e3:.2f} host_stall_ms "
+                  f"{rr.stall[0] * 1e3:.2f} offload_bytes "
                   f"{rr.offload_bytes} reload_bytes {rr.reload_bytes} "
                   f"h2d_ms {rr.transfer_time['h2d'] * 1e3:.2f} d2h_ms "
                   f"{rr.transfer_time['d2h'] * 1e3:.2f} compute_launch_ms "
@@ -1352,10 +1361,12 @@ def plan_runs(torch, device, tr, res, cap, inputs, *, label: str,
 
 
 def run_main_path(torch, device, tr, res, cap, inputs, *, n_rms: int,
-                  profile: bool = False) -> tuple[dict, dict]:
-    """Warm-up plus the policy runs under both backends (plan_runs).
-    Returns the launches of each kernel over the measured runs, and the
-    runs."""
+                  profile: dict | None = None) -> tuple[dict, dict]:
+    """Warm-up plus the policy runs under both backends (plan_runs). With
+    ``profile`` (a dict), one profiled run per backend and mode under
+    policy ``fixed``, whose device busy times are added to it by
+    (backend, mode). Returns the launches of each kernel over the
+    measured runs, and the runs."""
     from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
@@ -1401,11 +1412,12 @@ def run_main_path(torch, device, tr, res, cap, inputs, *, n_rms: int,
     runs = plan_runs(torch, device, tr, res, cap, inputs, label="prefill",
                      n_rms=n_rms, check=check)
     launches = {"rmsnorm": rmsnorm.launches}
-    if profile:
+    if profile is not None:
         for backend in EXEC_BACKENDS:
-            profile_run(torch, f"prefill {backend} policy=fixed",
-                        lambda: runtime("fixed", "nondet", backend).run(
-                            inputs))
+            for mode in ("nondet", "fixed"):
+                profile[(backend, mode)] = profile_run(
+                    torch, f"prefill {backend} policy=fixed mode={mode}",
+                    lambda: runtime("fixed", mode, backend).run(inputs))
     return launches, runs
 
 
@@ -1437,11 +1449,14 @@ def build_lora_path(seq_len: int, *, arch=None, n_layers=LORA_LAYERS,
 
 
 def run_lora_path(torch, device, tr, res, cap, inputs, *,
-                  profile: bool = False, pair_fusion: bool = False) -> dict:
+                  profile: dict | None = None) -> dict:
     """The LoRA plan's policy runs under both backends, each adapter
     gradient held against the port's plain evaluation (LORA_GRAD_RTOL,
-    each gradient alone); with ``pair_fusion``, pair_fusion_effect.
-    Returns the runs."""
+    each gradient alone), and ``rmsnorm_bwd``'s device time at its shapes
+    (CUDA events, one vertex timed, times the vertices). With ``profile``
+    (a dict), one profiled compiled run per mode under policy ``fixed``,
+    whose device busy times are added to it by (backend, mode). Returns
+    the runs."""
     from repro_torch.core.runtime import TurnipRuntime, eval_taskgraph
 
     t = time.perf_counter()
@@ -1475,10 +1490,8 @@ def run_lora_path(torch, device, tr, res, cap, inputs, *,
             assert err <= LORA_GRAD_RTOL * scales[tid], \
                 (f"grad {name}: max|run - plain| {err:.3g} > "
                  f"{LORA_GRAD_RTOL:g} x {scales[tid]:.3g}")
-        bwd_ms = sum(rr.spans[m][1] - rr.spans[m][0] for m in bwd) * 1e3
         return (f"grads {len(grads)} max_err/max|plain| {worst:.3g} "
-                f"(tol {LORA_GRAD_RTOL:g}) rmsnorm_bwd_ms {bwd_ms:.2f} "
-                f"({len(bwd)} vertices)")
+                f"(tol {LORA_GRAD_RTOL:g})")
 
     t = time.perf_counter()
     TurnipRuntime(tr.tg, res, backend="bytes", capacities={0: cap},
@@ -1486,73 +1499,22 @@ def run_lora_path(torch, device, tr, res, cap, inputs, *,
     _phase("LoRA warm-up run", t)
     runs = plan_runs(torch, device, tr, res, cap, inputs,
                      label=f"lora T={T}", n_rms=n_rms, check=check)
-    if pair_fusion:
-        pair_fusion_effect(torch, device, tr, res, cap, inputs, check)
-    if profile:
-        profile_run(torch, "lora compiled policy=fixed",
-                    lambda: TurnipRuntime(
-                        tr.tg, res, backend="bytes", capacities={0: cap},
-                        policy="fixed", seed=0, device=device,
-                        exec_backend="compiled").run(inputs))
+    if device.type == "cuda" and bwd:
+        v = tr.tg.vertices[mg.vertices[bwd[0]].src_tid]
+        one_ms = vertex_ms(torch, device, tr.tg, v, 10)
+        print(f"lora T={T}: rmsnorm_bwd device_ms {one_ms:.4f} a vertex "
+              f"({[tuple(tr.tg.vertices[i].out.shape) for i in v.inputs]} "
+              f"float64 inside), {len(bwd)} vertices: "
+              f"{one_ms * len(bwd):.3f} ms a run", flush=True)
+    if profile is not None:
+        for mode in ("nondet", "fixed"):
+            profile[("compiled", mode)] = profile_run(
+                torch, f"lora T={T} compiled policy=fixed mode={mode}",
+                lambda: TurnipRuntime(
+                    tr.tg, res, backend="bytes", capacities={0: cap},
+                    policy="fixed", mode=mode, seed=0, device=device,
+                    exec_backend="compiled").run(inputs))
     return runs
-
-
-def pair_fusion_effect(torch, device, tr, res, cap, inputs, check) -> None:
-    """What the reference's lowering does on the card when the plan is
-    liveness-certified: it fuses runs of H2D and D2H copies into one batch,
-    which the static walker issues on the head's one copy stream, so both
-    directions share it. The certified plan compiled under policy
-    ``random`` as lowered ("paired"), and the same plan with every mixed
-    batch split into its single-direction runs ("split"; each direction on
-    its own stream), in turns (split, paired, paired, split): makespan,
-    copy time and fused batches."""
-    import copy
-    import dataclasses as dc
-
-    from repro_torch.core import certify_progress, default_pool_config
-    from repro_torch.core.compile import lower
-    from repro_torch.core.dispatch import engine_key
-    from repro_torch.core.runtime import TurnipRuntime
-
-    lcert = certify_progress(res.memgraph, default_pool_config(None))
-    if not lcert.ok:
-        print(f"pair fusion: the plan is not liveness-certified "
-              f"({len(lcert.hazards)} hazards); nothing to time", flush=True)
-        return
-    certified = copy.copy(res)
-    certified.liveness_certificate = lcert
-    mg = res.memgraph
-    rt = TurnipRuntime(tr.tg, certified, backend="bytes",
-                       capacities={0: cap}, policy="random", seed=0,
-                       device=device, exec_backend="compiled")
-    paired = lower(certified, policy=rt.policy)
-    kind = [engine_key(mg.vertices[m]) for m in paired.order]
-    split, mixed = [], 0
-    for a, b in paired.batches:
-        if len({kind[i] for i in range(a, b)}) == 1:
-            split.append((a, b))
-            continue
-        mixed += 1
-        i = a
-        while i < b:
-            j = i + 1
-            while j < b and kind[j] == kind[i]:
-                j += 1
-            if j - i >= 2:
-                split.append((i, j))
-            i = j
-    plans = {"paired": paired, "split": dc.replace(paired, batches=split)}
-    plans["split"].verify(mg)
-    for name in ("split", "paired", "paired", "split"):
-        rt._compiled = plans[name]
-        rr = rt.run(inputs)
-        desc = check(rr, None)
-        print(f"pair fusion {name}: makespan_ms {rr.makespan * 1e3:.2f} "
-              f"h2d_ms {rr.transfer_time['h2d'] * 1e3:.2f} d2h_ms "
-              f"{rr.transfer_time['d2h'] * 1e3:.2f} batches "
-              f"{len(plans[name].batches)} (h2d+d2h batches "
-              f"{mixed if name == 'paired' else 0}) {counters(rr)} {desc}",
-              flush=True)
 
 
 def _event_ms(torch, fn, reps: int) -> float:
@@ -1569,6 +1531,21 @@ def _event_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def vertex_ms(torch, device, tg, v, reps: int) -> float:
+    """Median CUDA-event time of task vertex ``v``'s op at its shapes, on
+    operands drawn from a seeded generator, written into an output of its
+    own (one untimed call first)."""
+    from repro_torch.core.ops import get_op
+    gen = torch.Generator(device=device).manual_seed(0)
+    vals = [torch.randn(tg.vertices[i].out.shape, generator=gen,
+                        device=device).to(tg.vertices[i].out.torch_dtype)
+            for i in v.inputs]
+    out = torch.empty(v.out.shape, dtype=v.out.torch_dtype, device=device)
+    fn = get_op(v.op)
+    fn(*vals, out=out, **v.params)
+    return _event_ms(torch, lambda: fn(*vals, out=out, **v.params), reps)
+
+
 def measure_hardware(torch, device, tg):
     """An H100 HardwareModel measured on this card: h2d and d2h rates of a
     pinned 256 MiB copy, the time of a 4 KiB pinned copy (dma_latency),
@@ -1578,7 +1555,6 @@ def measure_hardware(torch, device, tg):
     of the largest-FLOP compute vertex of ``tg`` at its shapes (flops).
     d2d_bw, disk and NIC keep the defaults: one card has no second device,
     and the smoke moves nothing over disk or a NIC."""
-    from repro_torch.core.ops import get_op
     from repro_torch.core.simulate import HardwareModel
 
     big = 256 * 2**20
@@ -1596,14 +1572,7 @@ def measure_hardware(torch, device, tg):
     empty_ms = _event_ms(torch, lambda: torch.cuda._sleep(0), 100)
     v = max((v for v in tg.vertices.values() if v.kind.value == "compute"),
             key=lambda v: v.flops)
-    gen = torch.Generator(device=device).manual_seed(0)
-    vals = [torch.randn(tg.vertices[i].out.shape, generator=gen,
-                        device=device).to(tg.vertices[i].out.torch_dtype)
-            for i in v.inputs]
-    out = torch.empty(v.out.shape, dtype=v.out.torch_dtype, device=device)
-    fn = get_op(v.op)
-    fn(*vals, out=out, **v.params)
-    mm_ms = _event_ms(torch, lambda: fn(*vals, out=out, **v.params), 30)
+    mm_ms = vertex_ms(torch, device, tg, v, 30)
     hw = HardwareModel(flops=v.flops / (mm_ms / 1e3),
                        hbm_bw=2 * 2**30 / (hbm_ms / 1e3),
                        h2d_bw=big / (h2d_ms / 1e3),
@@ -1619,10 +1588,13 @@ def measure_hardware(torch, device, tg):
     return hw
 
 
-def sim_vs_measured(label: str, res, hw, runs: dict) -> None:
+def sim_vs_measured(label: str, res, hw, runs: dict,
+                    profiled: dict) -> None:
     """The simulator's makespan of ``res`` under ``hw`` beside the measured
     runs of the same dispatch (policy ``fixed``; ``nondet`` and ``fixed``
-    mode) under both backends. Reported, not asserted."""
+    mode) under both backends, and beside the card's busy time where the
+    profiler measured a run of it (``profiled``, by (backend, mode);
+    ``--profile``). Reported, not asserted."""
     from repro_torch.core.simulate import simulate
     for mode in ("nondet", "fixed"):
         sim = simulate(res.memgraph, hw, mode=mode, policy="fixed")
@@ -1632,10 +1604,11 @@ def sim_vs_measured(label: str, res, hw, runs: dict) -> None:
         for backend in EXEC_BACKENDS:
             rr = runs[(backend, "fixed", mode)]
             line += (f" | {backend}: makespan_ms {rr.makespan * 1e3:.2f} "
-                     f"busy_ms {rr.busy[0] * 1e3:.2f} device_busy_ms "
-                     f"{rr.device_busy[0] * 1e3:.2f} sim/makespan "
-                     f"{sim.makespan / rr.makespan:.4f} sim/device_busy "
-                     f"{sim.makespan / rr.device_busy[0]:.4f}")
+                     f"sim/makespan {sim.makespan / rr.makespan:.4f}")
+            busy = profiled.get((backend, mode))
+            if busy:
+                line += (f" profiled_device_busy_ms {busy:.2f} "
+                         f"sim/device_busy {sim.makespan * 1e3 / busy:.4f}")
         print(line, flush=True)
 
 
@@ -1852,11 +1825,104 @@ def decode_check(torch, device, arch) -> None:
     assert not mismatched, f"argmax differs at positions {mismatched}"
     del model, params, full, cache
 
+AB_ROUNDS = 5
+# (name, which checkout, cuBLAS's default workspace): this tree as the
+# smoke runs it, the other tree as its own smoke ran (no workspace set),
+# and this tree with the default workspace, which tells the two apart
+AB_VARIANTS = (("other", True, True), ("tree", False, False),
+               ("tree-default-ws", False, True))
+
+
+def ab_prefill(other_root: str, rounds: int = AB_ROUNDS) -> int:
+    """The interpreted prefill of this checkout's port against another
+    checkout's (``other_root``), in separate processes taken in turns:
+    AB_VARIANTS in order, then in reverse, ``rounds`` times. The inputs
+    are drawn once here (``make_inputs(seed=0)``) and saved under
+    ``build/ab_inputs``. Each worker (``ab_worker``) plans the prefill with
+    its own port, loads those inputs, runs one warm-up and the POLICY_RUNS
+    once each under the interpreted backend, checks the logits are finite
+    and prints the makespans. The medians by variant and policy come
+    last."""
+    other_src = os.path.join(os.path.abspath(other_root), "src")
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        raise SystemExit(f"no port under {other_src}")
+    tr, _, _ = build_main_path()
+    inputs_dir = os.path.join(ROOT, "build", "ab_inputs")
+    os.makedirs(inputs_dir, exist_ok=True)
+    for tid, a in tr.make_inputs(seed=0).items():
+        np.save(os.path.join(inputs_dir, f"{tid}.npy"), a)
+    del tr
+    seen: dict[str, dict[str, list[float]]] = {}
+    for r in range(rounds):
+        order = AB_VARIANTS if r % 2 == 0 else AB_VARIANTS[::-1]
+        for name, other, default_ws in order:
+            cmd = [sys.executable, os.path.abspath(__file__), "--ab-worker",
+                   other_src if other else os.path.join(ROOT, "src"),
+                   inputs_dir] + (["--default-workspace"] if default_ws
+                                  else [])
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("CUBLAS_WORKSPACE_CONFIG", "PYTHONPATH")}
+            got = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, cwd=ROOT, timeout=600)
+            lines = [ln for ln in got.stdout.splitlines()
+                     if ln.startswith("AB ")]
+            if got.returncode != 0 or not lines:
+                print(got.stdout[-3000:], got.stderr[-3000:], flush=True)
+                raise RuntimeError(f"ab worker {name} failed "
+                                   f"(rc {got.returncode})")
+            got = json.loads(lines[-1][3:])
+            ms = got["makespan_ms"]
+            print(f"ab round {r} {name} ({got['port']}): " + " ".join(
+                f"{k} {v:.2f}" for k, v in ms.items()), flush=True)
+            for k, v in ms.items():
+                seen.setdefault(name, {}).setdefault(k, []).append(v)
+    for name, by_run in seen.items():
+        print(f"ab median {name}: " + " ".join(
+            f"{k} {statistics.median(v):.2f}" for k, v in by_run.items()),
+            flush=True)
+    return 0
+
+
+def ab_worker(inputs_dir: str) -> int:
+    """One ab_prefill process: the port on ``sys.path`` (SRC) plans and
+    runs the interpreted prefill on the saved inputs."""
+    import repro_torch.core
+    import torch
+    from repro_torch.core.bridge import inputs_from_reference
+    from repro_torch.core.runtime import TurnipRuntime
+
+    device = torch.device("cuda", 0)
+    tr, res, cap = build_main_path()
+    arrays = {int(f[:-4]): np.load(os.path.join(inputs_dir, f))
+              for f in os.listdir(inputs_dir) if f.endswith(".npy")}
+    inputs = inputs_from_reference(arrays, device=device)
+    L = tr.meta["logits"]
+
+    def run(policy, mode):
+        return TurnipRuntime(tr.tg, res, backend="bytes", capacities={0: cap},
+                             policy=policy, mode=mode, seed=0,
+                             device=device).run(inputs)
+
+    run("random", "nondet")                    # warm-up: pools, handles
+    ms = {}
+    for policy, mode in POLICY_RUNS:
+        rr = run(policy, mode)
+        assert bool(torch.isfinite(rr.outputs[L]).all()), "logits not finite"
+        ms[f"{policy}/{mode}"] = rr.makespan * 1e3
+    port = os.path.dirname(os.path.dirname(repro_torch.core.__file__))
+    print("AB " + json.dumps({"port": port, "makespan_ms": ms}), flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if "--ab-worker" in argv:
+        return ab_worker(argv[argv.index("--ab-worker") + 2])
+    if "--ab-prefill" in argv:
+        return ab_prefill(argv[argv.index("--ab-prefill") + 1])
     from repro_torch.configs import get_arch
     from repro_torch.core.bridge import inputs_from_reference
     from repro_torch.kernels import build
@@ -1904,13 +1970,14 @@ def main(argv: list[str]) -> int:
     _phase("hardware model", t)
 
     t = time.perf_counter()
+    profiled = {} if "--profile" in argv else None
     launches, runs = run_main_path(torch, device, tr, res, cap, inputs,
                                    n_rms=2 * MAIN_LAYERS + 1,
-                                   profile="--profile" in argv)
+                                   profile=profiled)
     _phase("prefill path", t)
     if launches["rmsnorm"] == 0:
         raise AssertionError("the prefill path launched no rmsnorm kernel")
-    sims = [("prefill", res, runs)]
+    sims = [("prefill", res, runs, profiled or {})]
     del inputs, tr
 
     for T in LORA_TOKENS:
@@ -1926,16 +1993,16 @@ def main(argv: list[str]) -> int:
               f" B pinned inputs", flush=True)
         _phase(f"LoRA T={T} trace, plan and inputs", t)
         t = time.perf_counter()
+        lprofiled = {} if "--profile" in argv and T == 2048 else None
         lruns = run_lora_path(torch, device, ltr, lres, lcap, linputs,
-                              profile="--profile" in argv and T == 2048,
-                              pair_fusion=T == 2048)
+                              profile=lprofiled)
         _phase(f"LoRA T={T} path", t)
-        sims.append((f"lora T={T}", lres, lruns))
+        sims.append((f"lora T={T}", lres, lruns, lprofiled or {}))
         del ltr, linputs
         gc.collect()
         torch.cuda.empty_cache()
-    for label, plan_res, plan_runs_ in sims:
-        sim_vs_measured(label, plan_res, hw, plan_runs_)
+    for label, plan_res, plan_runs_, busy in sims:
+        sim_vs_measured(label, plan_res, hw, plan_runs_, busy)
     del sims, runs, res
     gc.collect()
     torch.cuda.empty_cache()

@@ -45,20 +45,14 @@ spinning on a CPU core. The static walker keeps the same edges on the
 card with event waits instead of host waits. On the CPU there are no
 streams: an op's completion is its return, as in the reference.
 
-**What a vertex's interval is.** On CUDA every vertex's work is bracketed
-by two timing events recorded on its stream (:class:`ExecContext`
-``events``): the start just before its first launch, the end after its
-last. The run's timeline, ``busy`` and ``stall`` are built from those
-intervals after the run, relative to one start event (``RunResult``).
-An interval is the stream's time from reaching the start event to
-finishing the vertex's work. Where the stream is idle when the start is
-recorded, the start fires at once, so the interval also holds the host's
-time to issue the vertex's launches (Python dispatch, and the wait for
-the interpreter lock between them); only where the host issues ahead of
-the card is it the card's time alone. The host's own span of each vertex
-— from its pick to its completion — is kept apart (``host_spans``,
-``launch``). Host-side vertices (the disk engine) and CPU runs have host
-intervals only.
+**What a vertex's span is.** A span is host time: from the vertex's pick
+until the host knew it complete (:class:`ExecContext` ``spans``; for the
+static walker, until its launches returned), and ``launch`` is the part
+of it spent launching. The run's timeline, ``busy`` and ``stall`` are
+built from the spans (``RunResult``). On CUDA a span therefore holds the
+host's issue time and, for the interpreters, the wait for the card: it
+bounds the card's time for the vertex from above, and a profiler's
+kernel intervals are the card's own.
 
 **Pinned host memory.** Host tensors are pinned and come from torch's
 caching host allocator, which does not hand a block out again until the
@@ -148,32 +142,21 @@ def stream_for(device: torch.device, engine: str, logical: int,
         return st
 
 
-def _timing_event() -> "torch.cuda.Event":
-    return torch.cuda.Event(enable_timing=True, blocking=True)
-
-
 # --------------------------------------------------------------------------
 # vertex execution (shared by every backend and the reference interpreter)
 # --------------------------------------------------------------------------
 def _exec_vertex(v: MemVertex, mg: MemGraph, tg: TaskGraph, mem: Any,
-                 host: HostStore,
-                 mark: Callable[[], None] | None = None) -> None:
+                 host: HostStore) -> None:
     """Launch one vertex's work on the current stream. Values are device
     tensors read from, and written into, the memory backend ``mem``; an op
     writes straight into its planned extent where the backend has one
-    (:meth:`ByteArena.dest`). ``mark`` is called just before the first
-    launch of the vertex's work (after its operands were looked up), to
-    start its timed interval there."""
+    (:meth:`ByteArena.dest`)."""
     if v.op in (MemOp.COMPUTE, MemOp.TRANSFER):
         vals = [mem.read(mg.vertices[m].loc) for m in v.operands]
         fn = get_op(v.op_name or ("copy" if v.op == MemOp.TRANSFER else ""))
         dest = mem.dest(v.loc, tg.vertices[v.src_tid].out)
-        if mark is not None:
-            mark()
         mem.write(v.loc, fn(*vals, out=dest, **v.params))
         return
-    if mark is not None:
-        mark()
     if v.op == MemOp.INPUT:
         mem.write(v.loc, host.get_input(v.src_tid))       # h2d copy
     elif v.op == MemOp.OFFLOAD:
@@ -201,7 +184,7 @@ def _exec_vertex(v: MemVertex, mg: MemGraph, tg: TaskGraph, mem: Any,
 class ExecContext:
     """Everything a backend needs to execute vertices of one run: the
     plan's graphs, the shared memory/store tiers, the dispatch policy,
-    and the run-wide interval records. One context is shared by every
+    and the run-wide span records. One context is shared by every
     backend of a run, so ByteArena extents, TieredStore tier moves, and
     HostPool lease accounting are exactly the invariants the certifiers
     assumed — regardless of which backend touches them."""
@@ -218,16 +201,11 @@ class ExecContext:
     # mid -> host (start, end) seconds since t0: from the vertex's pick
     # until its completion was known to the host (for the static walker:
     # until its launch returned)
-    host_spans: dict[int, tuple[float, float]] = dataclasses.field(
+    spans: dict[int, tuple[float, float]] = dataclasses.field(
         default_factory=dict)
     # mid -> host seconds from a vertex's start until its launch returned
-    # (the rest of its host span is the wait for the card)
+    # (the rest of its span is the wait for the card)
     launch: dict[int, float] = dataclasses.field(default_factory=dict)
-    # mid -> (start, end) timing events around the vertex's work on its
-    # stream (CUDA); read after the run against t0_event
-    events: dict[int, tuple[Any, Any]] = dataclasses.field(
-        default_factory=dict)
-    t0_event: Any = None
     # §B write-protected sum-into: one lock per ADD_INTO lock group
     locks: dict[tuple[int, int], threading.Lock] = dataclasses.field(
         default_factory=dict)
@@ -243,28 +221,14 @@ class ExecContext:
             g = mg.vertices[m].lock_group
             if g is not None:
                 locks.setdefault(g, threading.Lock())
-        ctx = ExecContext(mg=mg, tg=tg, mem=mem, host=host, policy=policy,
-                          mode=mode, latency=latency, t0=t0, device=device,
-                          locks=locks)
-        if device.type == "cuda":
-            ctx.t0_event = _timing_event()
-            ctx.t0_event.record(torch.cuda.current_stream(device))
-        return ctx
+        return ExecContext(mg=mg, tg=tg, mem=mem, host=host, policy=policy,
+                           mode=mode, latency=latency, t0=t0, device=device,
+                           locks=locks)
 
     def stream(self, engine: str, logical: int = 0,
                index: int = 0) -> "torch.cuda.Stream | None":
         """This run's stream for (engine, logical device, stream id)."""
         return stream_for(self.device, engine, logical, index)
-
-    def device_intervals(self) -> dict[int, tuple[float, float]]:
-        """mid -> (start, end) seconds since the run's start event, of
-        every vertex whose work was timed on a stream. Call after the
-        run's work has finished on the card."""
-        if self.t0_event is None:
-            return {}
-        z = self.t0_event
-        return {m: (z.elapsed_time(a) / 1e3, z.elapsed_time(b) / 1e3)
-                for m, (a, b) in self.events.items()}
 
 
 def _exec_complete(ctx: ExecContext, v: MemVertex,
@@ -276,23 +240,21 @@ def _exec_complete(ctx: ExecContext, v: MemVertex,
     if stream is None:
         _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host)
         return time.perf_counter()
-    start, done = _timing_event(), _timing_event()
     with torch.cuda.stream(stream):
-        _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host,
-                     mark=lambda: start.record(stream))
+        _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host)
+        done = torch.cuda.Event(blocking=True)
         done.record(stream)
     launched = time.perf_counter()
     done.synchronize()
-    ctx.events[v.mid] = (start, done)
     return launched
 
 
 def run_vertex(ctx: ExecContext, m: int,
                stream: "torch.cuda.Stream | None" = None) -> None:
     """Execute one vertex with the run's latency model and ADD_INTO lock
-    discipline, recording its host span (and, on ``stream``, its timed
-    device interval). Shared by the inline and threaded backends. Returns
-    once the vertex's work has finished."""
+    discipline, recording its span. Shared by the inline and threaded
+    backends. Returns once the vertex's work has finished (on ``stream``,
+    when given)."""
     v = ctx.mg.vertices[m]
     t_start = time.perf_counter() - ctx.t0
     if ctx.latency is not None:
@@ -308,7 +270,7 @@ def run_vertex(ctx: ExecContext, m: int,
             launched = _exec_complete(ctx, v, stream)
     else:
         launched = _exec_complete(ctx, v, stream)
-    ctx.host_spans[m] = (t_start, time.perf_counter() - ctx.t0)
+    ctx.spans[m] = (t_start, time.perf_counter() - ctx.t0)
     ctx.launch[m] = launched - ctx.t0 - t_start
 
 
@@ -663,8 +625,11 @@ class StaticExecutor:
     completion. On CUDA the walker never waits for a vertex:
 
     * every instruction is issued on the stream its (engine, device,
-      stream id) names — a fused batch's members on their head's — its
-      work bracketed by two timing events;
+      stream id) names — a fused batch's members on their head's;
+    * an end event is recorded after an instruction's work only where
+      something waits for it (``needs_end``, from the lowering): a
+      successor on another stream, a seam, a later add of its lock group
+      (every grouped ADD_INTO), a host-side effect (every copy);
     * before issuing, that stream waits on the end event of every memgraph
       predecessor that was issued on another stream of a static region
       (``waits``, taken from the lowering; a predecessor in a nondet
@@ -743,6 +708,18 @@ class StaticExecutor:
                     groups.add(v.lock_group)
             self.seam_preds[ri] = tuple(sorted(preds))
             self.seam_groups[ri] = tuple(sorted(groups))
+        # the instructions whose end event something waits for
+        self.needs_end: set[int] = set()
+        for w in self.waits:
+            self.needs_end.update(w)
+        for preds in self.seam_preds.values():
+            self.needs_end.update(preds)
+        for ins in instrs:                      # copies and grouped adds
+            v = mg.vertices[ins.mid]
+            if on_card(ins.mid) and (
+                    lanes[ins.pos][0] in _COPY_KINDS or
+                    (v.op == MemOp.ADD_INTO and v.lock_group is not None)):
+                self.needs_end.add(ins.mid)
         # run state: end events, the last copy per copy stream, the last
         # static ADD_INTO per lock group
         self.ends: dict[int, Any] = {}
@@ -799,17 +776,16 @@ class StaticExecutor:
             stream = ctx.stream(*lane)
             for p in self.waits[i]:
                 stream.wait_event(self.ends[p])
-            start, end = _timing_event(), _timing_event()
             with torch.cuda.stream(stream):
-                _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host,
-                             mark=lambda: start.record(stream))
+                _exec_vertex(v, ctx.mg, ctx.tg, ctx.mem, ctx.host)
+            if ins.mid in self.needs_end:
+                end = torch.cuda.Event(blocking=True)
                 end.record(stream)
-            self.ends[ins.mid] = end
-            ctx.events[ins.mid] = (start, end)
-            if lane[0] in _COPY_KINDS:
-                self.last_copy[lane] = end
+                self.ends[ins.mid] = end
+                if lane[0] in _COPY_KINDS:
+                    self.last_copy[lane] = end
             if v.op == MemOp.ADD_INTO and v.lock_group is not None:
                 self.group_last[v.lock_group] = ins.mid
         t_end = time.perf_counter() - ctx.t0
-        ctx.host_spans[ins.mid] = (t_start, t_end)
+        ctx.spans[ins.mid] = (t_start, t_end)
         ctx.launch[ins.mid] = t_end - t_start

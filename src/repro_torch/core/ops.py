@@ -31,6 +31,7 @@ port's reference evaluation runs without the kernels.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import torch
@@ -196,15 +197,27 @@ def _mask_fill(dtype: torch.dtype) -> float:
 # device — the only scratch ``scores`` allocates
 MASK_BLOCK = 128
 _TRI: dict[torch.device, torch.Tensor] = {}
+_TRI_LOCK = threading.Lock()
 
 
 def _upper_tri(device: torch.device) -> torch.Tensor:
-    """[b, b] bool, True where column >= row."""
+    """[b, b] bool, True where column >= row.
+
+    The tile is shared by every stream of the device, so it is published
+    only once its fill has finished: on CUDA the building stream is
+    synchronised before the tile enters :data:`_TRI`. Otherwise a vertex
+    on another stream could read it before the fill had run."""
     tri = _TRI.get(device)
-    if tri is None:
-        b = MASK_BLOCK
-        tri = torch.ones(b, b, dtype=torch.bool, device=device).triu_()
-        _TRI[device] = tri
+    if tri is not None:
+        return tri
+    with _TRI_LOCK:
+        tri = _TRI.get(device)
+        if tri is None:
+            b = MASK_BLOCK
+            tri = torch.ones(b, b, dtype=torch.bool, device=device).triu_()
+            if tri.is_cuda:
+                torch.cuda.current_stream(tri.device).synchronize()
+            _TRI[device] = tri
     return tri
 
 

@@ -55,8 +55,8 @@ from . import liveness as _lv
 from .bridge import host_tensor
 from .build import BuildResult
 from .device import resolve_device
-from .dispatch import (COMPUTE, D2D, D2H, H2D, DispatchPolicy,
-                       TRANSFER_KINDS, engine_of, get_policy)
+from .dispatch import (COMPUTE, DispatchPolicy, TRANSFER_KINDS, engine_of,
+                       get_policy)
 from .executor import (INLINE, THREADED, ExecContext, InlineExecutor,
                        StaticExecutor, ThreadedExecutor, _exec_vertex)
 from .memgraph import Loc, MemGraph, MemOp, MemVertex, RaceError
@@ -312,20 +312,15 @@ def _certified_reraise(res: BuildResult, err: RaceError) -> None:
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class RunResult:
-    """One run's outputs and measurements. On CUDA ``timeline``, ``spans``,
-    ``busy``, ``stall``, ``device_busy`` and ``transfer_time`` come from
-    the timing events around each vertex's work on its stream (seconds
-    since the run's start event; :mod:`~repro_torch.core.executor` says
-    what an interval holds). They cover the stream from the vertex's
-    first launch to the end of its work, so where the host issues slower
-    than the card runs they also hold the host's issue time: ``busy``
-    bounds the card's compute-busy time from above, and a profiler's
-    kernel intervals are the card's own. ``stall`` is the makespan less
-    ``busy``. Host-side vertices (the disk engine), and every vertex of a
-    CPU run, have their host spans there instead. ``host_spans`` and
-    ``launch_time`` are the host's side: when a vertex was picked and
-    when the host knew it complete (for the static walker: when its
-    launch returned), and the seconds spent launching."""
+    """One run's outputs and measurements. ``timeline``, ``spans``,
+    ``busy``, ``stall`` and ``transfer_time`` are host time (seconds since
+    the run's start): a vertex's span runs from its pick until the host
+    knew it complete (for the static walker: until its launches
+    returned; :mod:`~repro_torch.core.executor` says what a span holds).
+    On CUDA they hold the host's issue time as well as the card's work,
+    so ``busy`` is not the card's busy time: a profiler's kernel
+    intervals are. ``stall`` is the makespan less ``busy``;
+    ``launch_time`` is the part of the spans spent launching."""
 
     outputs: dict[int, torch.Tensor]
     makespan: float                      # host clock, start to last sync
@@ -342,15 +337,8 @@ class RunResult:
     arena_bytes: int = 0                 # ByteArena buffers (0 for slots)
     arena_device: str | None = None      # where the ByteArena lived
     # per engine class: host seconds spent launching vertices, the part of
-    # the host spans that is not waiting for the card
+    # the spans that is not waiting for the card
     launch_time: dict[str, float] = dataclasses.field(default_factory=dict)
-    # mid -> (pick, known complete) on the host clock, seconds since start
-    host_spans: dict[int, tuple[float, float]] = dataclasses.field(
-        default_factory=dict)
-    # per device: the union of the card's engines' intervals (compute and
-    # copies), the events' counterpart of a profiler's busy time (holding
-    # host issue time too, as above)
-    device_busy: dict[int, float] = dataclasses.field(default_factory=dict)
     # compiled-backend counters (DESIGN.md §15): vertices executed by the
     # straight-line compiled program vs handed to the interpreter at
     # nondet-region seams, and fused DMA submissions issued. All zero
@@ -635,14 +623,12 @@ class TurnipRuntime:
 
     def _finish(self, mem, host, ctx: ExecContext, t0: float,
                 **counters: int) -> RunResult:
-        """Fold a finished execution into a RunResult (both backends): the
-        device intervals of the timed vertices, host spans for the rest."""
+        """Fold a finished execution into a RunResult (both backends)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # the run's end
         makespan = time.perf_counter() - t0
-        dev_iv = ctx.device_intervals()
         verts = self.mg.vertices
-        spans = {m: dev_iv.get(m, hs) for m, hs in ctx.host_spans.items()}
+        spans = ctx.spans
         timeline = sorted((a, b, verts[m].device, engine_of(verts[m]),
                            verts[m].name or str(m))
                           for m, (a, b) in spans.items())
@@ -650,14 +636,11 @@ class TurnipRuntime:
         chan = {k: 0.0 for k in TRANSFER_KINDS}
         compute: dict[int, list[tuple[float, float]]] = \
             {d: [] for d in devices}
-        every: dict[int, list[tuple[float, float]]] = {d: [] for d in devices}
         for (a, b, d, eng_kind, _name) in timeline:
             if eng_kind == COMPUTE:
                 compute[d].append((a, b))
             else:
                 chan[eng_kind] += b - a
-            if eng_kind in (COMPUTE, H2D, D2H, D2D):   # the card's engines
-                every[d].append((a, b))
         busy = {d: _union(iv) for d, iv in compute.items()}
         stall = {d: makespan - busy[d] for d in devices}
         launch: dict[str, float] = {}
@@ -676,9 +659,7 @@ class TurnipRuntime:
             arena_bytes=getattr(mem, "nbytes", 0),
             arena_device=(str(next(iter(mem.bufs.values())).device)
                           if getattr(mem, "bufs", None) else None),
-            launch_time=launch, host_spans=dict(ctx.host_spans),
-            device_busy={d: _union(iv) for d, iv in every.items()},
-            **counters)
+            launch_time=launch, **counters)
 
 
 # --------------------------------------------------------------------------

@@ -281,7 +281,7 @@ def test_backend_flows_from_build_config():
     assert rr.n_compiled == len(res.memgraph) and rr.n_interpreted == 0
     assert rr.fused_dma_batches == 0
     _runs_equal(rr.outputs, eval_taskgraph(tg, inputs, device="cpu"))
-    assert len(rr.host_spans) == len(rr.spans) == len(res.memgraph)
+    assert len(rr.spans) == len(res.memgraph)
     with pytest.raises(ValueError, match="backend"):
         TurnipRuntime(tg, res, device="cpu", exec_backend="jit")
     with pytest.raises(ValueError, match="seam backend"):

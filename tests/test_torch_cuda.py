@@ -861,11 +861,11 @@ def test_recurrent_apply_on_card_matches_cpu(cuda, arch):
 
 
 # ------------------------------------------------ the compiled backend
-def _tiny_prefill(cuda, dtype="float32", frac=0.15):
+def _tiny_prefill(cuda, dtype="float32", frac=0.15, n_devices=2):
     tr = trace_prefill(ArchConfig(name="demo", family="dense", n_layers=2,
                                   d_model=64, n_heads=4, n_kv_heads=4,
                                   d_ff=128, vocab_size=96), seq_len=32,
-                       trace=TraceConfig(n_devices=2, head_group=2,
+                       trace=TraceConfig(n_devices=n_devices, head_group=2,
                                          q_block=16, mlp_slices=2,
                                          dtype=dtype))
     total = sum(v.out.nbytes for v in tr.tg.vertices.values()
@@ -906,6 +906,51 @@ def test_compiled_offloaded_prefill_on_card(cuda, seam_backend):
             torch.testing.assert_close(rc.outputs[tid],
                                        runs["interpreted"].outputs[tid],
                                        rtol=1e-4, atol=1e-5)
+
+
+def test_causal_tile_is_complete_before_another_stream_reads_it(cuda,
+                                                                monkeypatch):
+    """The causal mask's shared tile is built on one stream and read on
+    others: it is published only once its fill has finished. The building
+    stream is held busy first, so a tile published before its fill would
+    be read as the zeros of the block it reuses."""
+    monkeypatch.setattr(port_ops, "_TRI", {})
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    n = port_ops.MASK_BLOCK
+    with torch.cuda.stream(a):
+        junk = torch.zeros(n, n, dtype=torch.bool, device=cuda)
+        del junk                      # its block is the tile's next
+        torch.cuda._sleep(200_000_000)
+        tri = port_ops._upper_tri(cuda)
+    with torch.cuda.stream(b):
+        seen = tri.clone()
+    b.synchronize()
+    want = torch.ones(n, n, dtype=torch.bool).triu_()
+    assert torch.equal(seen.cpu(), want)
+
+
+def test_compiled_causal_prefill_with_a_fresh_mask_tile(cuda, monkeypatch):
+    """A process's first causal scores under the compiled backend: the
+    first two scores vertices are static on two compute streams, the
+    mask tile is not built yet, and the logits match the plain
+    evaluation (run after, so it cannot build the tile first)."""
+    monkeypatch.setattr(port_ops, "_TRI", {})
+    tr, res, cap, host = _tiny_prefill(cuda, frac=1.0, n_devices=1)
+    rt = TurnipRuntime(tr.tg, res, backend="bytes", policy="transfer-first",
+                       seed=0, device=cuda, capacities={0: cap},
+                       exec_backend="compiled")
+    plan = lower(res, policy=rt.policy)
+    mg = res.memgraph
+    first = [ins for ins in plan.instrs
+             if mg.vertices[ins.mid].op_name == "scores"][:2]
+    assert all(plan.regions[ins.region].kind == STATIC for ins in first)
+    assert first[0].stream != first[1].stream
+    rr = rt.run(host)
+    assert port_ops._TRI
+    plain = eval_taskgraph(tr.tg, host, device=cuda, plain=True)
+    for tid, want in plain.items():
+        torch.testing.assert_close(rr.outputs[tid], want, rtol=1e-4,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -1072,18 +1117,18 @@ def test_static_regions_issue_without_host_waits(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("exec_backend", ["interpreted", "compiled"])
-def test_event_busy_is_within_the_makespan(cuda, exec_backend):
-    """busy and the timeline come from events on the card: 0 < busy <=
-    device_busy <= makespan, every interval inside [0, makespan]."""
+def test_busy_is_within_the_makespan(cuda, exec_backend):
+    """busy and the timeline are host spans of the run: 0 < busy <=
+    makespan, stall is the rest, every span inside [0, makespan]."""
     tr, res, cap, host = _tiny_prefill(cuda)
     rr = TurnipRuntime(tr.tg, res, backend="bytes", policy="random", seed=0,
                        device=cuda, capacities={d: cap
                                                 for d in tr.tg.devices()},
                        exec_backend=exec_backend).run(host)
     for d, busy in rr.busy.items():
-        assert 0 < busy <= rr.device_busy[d] <= rr.makespan
+        assert 0 < busy <= rr.makespan
         assert abs(rr.stall[d] - (rr.makespan - busy)) < 1e-12
-    assert len(rr.spans) == len(rr.host_spans) == len(res.memgraph)
+    assert len(rr.spans) == len(res.memgraph)
     for a, b, *_ in rr.timeline:
         assert -1e-3 <= a <= b <= rr.makespan + 1e-3
 
