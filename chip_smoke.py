@@ -132,8 +132,9 @@ failure:
    phase. Each line prints makespan, busy and stall on the host's clock
    (``RunResult``'s spans), offload and reload bytes and rmsnorm launches
    (asserted: one per rmsnorm vertex of the forward and the re-traced
-   backward); then ``rmsnorm_bwd``'s device time at its shapes (plain
-   torch in float64, as the reference op; CUDA events).
+   backward, and one rmsnorm_bwd launch per ``rmsnorm_bwd`` vertex: the
+   op runs the backward kernel on the card since slice 9); then
+   ``rmsnorm_bwd``'s device time at its shapes (CUDA events).
 9. The simulator against the card (ROADMAP A7): an H100 ``HardwareModel``
    measured here (pinned 256 MiB copies each way, a 4 KiB copy's
    latency, an on-card copy's rate, an empty launch, the prefill's largest
@@ -141,6 +142,91 @@ failure:
    ``nondet`` and ``fixed``, the simulated makespan beside the measured
    makespan of both backends and, with ``--profile``, beside the card's
    busy time in the profiled runs. Reported, not asserted.
+
+10. Training (slice 9, ROADMAP A11b), after 9 and before the serving
+   path (4), its models freed before serving builds its own. The rules
+   were fixed here before the phase first ran on the card.
+   a. Kernel lines. ``rmsnorm_bwd`` at the supervised run's shape
+      (RMS_BWD_MAIN, [4 x 4096, 4096] bfloat16, with and without dγ;
+      timed) and on the rmsnorm sweep in three dtypes: dx within
+      KERNEL_TOL of ``rmsnorm_bwd_plain``, dγ (a sum over rows) within
+      KERNEL_TOL plus 2e-6 of the sum of its terms' magnitudes. The flash
+      backward at the training shapes (FLASH_BWD_MAIN: 4 and 1 x 4096, 32
+      heads of 128, causal, bfloat16; timed) and on FLASH_BWD_SWEEP (the
+      reference sweep, GQA 2 and 4, q_offset 192 and 512, head size 112)
+      in float32, bfloat16 and float16: dQ, dK, dV within
+      ``gradient_limit`` (two units in the last place of |plain| plus
+      2^-8 of the row's rms, the forward's rule, plus 2^-12 of the
+      tensor's rms for rows whose exact gradient vanishes) of
+      ``flash_attention_bwd_plain``, which computes its own log-sum-exp
+      and materialises the scores one KV head at a time; the forward's
+      lse within 1e-5 of the plain one. Library times: ``F.rms_norm``
+      forward + backward through autograd, and the backward of
+      ``F.scaled_dot_product_attention`` through autograd (yardsticks the
+      port never calls). Bounds as phase 2's, the backward's operations
+      2.5 times the forward's (five products).
+   b. Gradient check: llama-7b with LoRA, 32 layers, 1 x 4096 tokens
+      (``SyntheticLMStream``, seed 0), base weights from
+      ``torch.Generator(0)`` on the card, adapters from ``lora_init``
+      (generator 1) with B redrawn as 0.01 N(0, 1) (with B = 0, dA is
+      0). The oracle is the same step with ``layers.rmsnorm`` and
+      ``layers.blockwise_attention`` swapped for their plain versions,
+      forward and backward (``plain_layers``), under remat='full'. The
+      rule is two-dtype (``grad_check``):
+      - float32 (the same weights upcast): the kernels' step against the
+        oracle, every adapter gradient finite and within TRAIN_F32_RTOL =
+        1e-3 x max|plain| (2e-2 until its first two readings, 1.23e-5 and
+        7.22e-6, set it), each alone, and the loss within
+        TRAIN_LOSS_RTOL = 1e-3 (relative). The oracle is the float32
+        truth of the next rule. This leg runs the kernels' float32
+        instances; the bfloat16 ones are held tightly only by the kernel
+        lines of a, and at the model level by the next rule.
+      - bfloat16, the training dtype, under each of remat None, 'full',
+        'dots' and 'offload': the loss within 1e-3 of the truth's; each
+        adapter gradient's max error against the truth at most
+        BF16_VS_PLAIN = 2 times the plain bfloat16 oracle's (one bf16
+        rounding, 2^-8 of max|truth|, at least); the modes against
+        remat=None by the 2e-2 rule, byte equality printed.
+      The rule first fixed here held the bfloat16 step to the bfloat16
+      oracle by 2e-2 alone. Its first run failed (layers/attn/wk/A:
+      2.69e-5 > 0.02 x 9.77e-4), and the float32 truth shows why: the
+      plain bfloat16 oracle itself is 0.022-0.040 of max|truth| away from
+      it, leaf by leaf, while the kernels in float32 are within 1.3e-5 of
+      it (PERF.md §6). At 32 layers of random bf16 weights no
+      implementation meets 2e-2 against another, so the slice's bfloat16
+      2e-2 criterion is not met as it was written; the float32 rule is
+      where a kernel fault shows apart from rounding (ROADMAP C11 does
+      the same for decode).
+      Each line prints step time, peak allocated bytes, the offloaded and
+      reloaded bytes ('offload', asserted: every layer's input once), and
+      the launches of rmsnorm, rmsnorm_bwd, flash_attention and
+      flash_attention_bwd, asserted (``expected_train_launches``): forward
+      2L + 1 and L, the same again for the recomputed layers under every
+      remat mode; backward 2L rmsnorm_bwd (the first layer's input norm has
+      no gradient path: the embedding is frozen), one device launch each
+      (no dγ: the gains are frozen), and L flash backward, three device
+      launches each (the wrappers' ``kernel_launches``).
+   c. The supervised run, the slice's main path: ``repro_torch.launch.
+      train``'s ``parse_args``, ``setup`` and ``run`` with ``--arch
+      llama-7b --lora --remat offload --batch 4 --seq 4096 --steps 6
+      --save-every 2``, checkpoints in a temporary directory. A step_fn
+      wrapper raises once before step 5 (right after the checkpoint of
+      step 4) and once before step 6: step 5 has run, and the wrapper
+      first overwrites the live adapters and optimizer state with NaN, so
+      only a restore of step 4 from the disk and a replay of step 5 give
+      the right bytes. The Supervisor restores step 4 both times and goes
+      on; the final adapters and optimizer state must be byte-equal to an
+      uninterrupted 6-step run's. Losses printed per step run; launches
+      and offloaded bytes asserted per step run. Then one loss-and-gradient step under
+      remat='full' and one under 'offload' at the same shape: step time
+      and peak allocated bytes. ``--profile`` adds a profiled 'offload'
+      step: device time of the d2h and h2d copies, and how many overlap a
+      kernel.
+   d. Full-parameter step: llama-7b width, 4 of 32 layers, bfloat16,
+      AdamW (lr 1e-3), 2 x 2048 tokens: every leaf's gradient by b's
+      two-dtype rule (remat None), dγ through rmsnorm_bwd (2L + 1 calls a
+      step, two device launches each), then 3 steps on that batch, the
+      loss falling at each.
 
 Placement (ROADMAP C2): every prefill and LoRA run asserts that the HBM it
 allocates beyond what was allocated before it (peak
@@ -179,7 +265,9 @@ The line before the last is ``{"kernels": [...]}``, one record per kernel
 serving path, which runs all three, flash's and moe_gmm's also by
 instance; of ssd_scan on zamba2-7b's timed ``apply`` runs and of wkv6 on
 rwkv6-7b's, one per call, each with its device launches, three per call,
-as ``kernel_launches``); the last line is ``{"ok": true, "device":
+as ``kernel_launches``; of rmsnorm_bwd and flash_attention_bwd on the
+supervised training run, each with its wrapper's device launches as
+``kernel_launches``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -320,6 +408,39 @@ RECURRENT_TOKENS = (2, 8192)   # apply's batch, numpy seed 0
 RECURRENT_TIMED = 3            # timed apply runs after one warm-up
 DECODE_CHECK = (2, 150)        # rows x tokens: 150 is no multiple of 128/32
 DECODE_MAX_LEN = 160
+
+# training (phase 10): llama-7b at full width and depth, bfloat16
+TRAIN_ARCH = "llama-7b"
+RMS_BWD_MAIN = (4 * 4096, 4096)        # the supervised run's norms, bf16
+# (B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset): the supervised run's and
+# the gradient check's attention, then the reference sweep (FLASH_SWEEP:
+# GQA 2, q_offset 192 and 512), GQA 4 and head size 112
+FLASH_BWD_MAIN = [("train-4x4096", (4, 4096, 4096, 32, 32, 128, True, 0)),
+                  ("train-1x4096", (1, 4096, 4096, 32, 32, 128, True, 0))]
+FLASH_BWD_SWEEP = FLASH_SWEEP + [
+    ("gqa-4", (1, 512, 512, 32, 8, 128, True, 0)),
+    ("head-112", (1, 100, 130, 4, 4, 112, True, 30))]
+GRAD_CHECK = (1, 4096)                 # batch x sequence of the check
+REMAT_ORDER = (None, "full", "dots", "offload")
+LORA_B_SCALE = 0.01                    # the check's B ~ 0.01 N(0, 1)
+# the training loss against the plain oracle, relative: bf16 activations
+# through 32 layers, two orders of summation
+TRAIN_LOSS_RTOL = 1e-3
+# float32 gradients against the plain float32 oracle, relative to each
+# leaf's max|plain|: readings 1.23e-5 (32 LoRA layers) and 7.22e-6 (4
+# full-parameter layers) on an H100; a kernel a few tenths of a percent
+# off fails it
+TRAIN_F32_RTOL = 1e-3
+# bfloat16 gradients: each leaf's max error against the float32 truth at
+# most this many times the plain bfloat16 oracle's (phase 10b)
+BF16_VS_PLAIN = 2.0
+BF16_ULP = 2.0 ** -8          # its floor: one bfloat16 rounding
+# faults: before step 5, right after the checkpoint of step 4; before
+# step 6, when step 5 has run and the live state (poisoned first) is no
+# checkpoint's, so that only a restore from the disk and a replay of step
+# 5 give the uninterrupted run's bytes
+SUPERVISED = dict(batch=4, seq=4096, steps=6, save_every=2, faults=(5, 6))
+FULL_PARAM = dict(layers=4, batch=2, seq=2048, steps=3, lr=1e-3)
 
 
 def reset_launches(fn) -> None:
@@ -1308,18 +1429,19 @@ def counters(rr) -> str:
 
 
 def plan_runs(torch, device, tr, res, cap, inputs, *, label: str,
-              n_rms: int, check, runs=POLICY_RUNS) -> dict:
+              n_rms: int, check, runs=POLICY_RUNS, n_rms_bwd: int = 0) -> dict:
     """The policy runs of one plan under both executor backends, each with
-    its placement bound (C2) and rmsnorm launches asserted and its outputs
+    its placement bound (C2) and rmsnorm (and rmsnorm_bwd) launches
+    asserted and its outputs
     held by ``check(rr, interpreted_rr_of_the_same_policy)``, which
     returns a description. One compiled policy (TWICE_POLICY) runs twice:
     whether the two runs give the same bytes is printed. Returns the runs
     by (backend, policy, mode)."""
     from repro_torch.core.runtime import TurnipRuntime
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
 
     def measured(rt):
-        before = rmsnorm.launches
+        before, before_bwd = rmsnorm.launches, rmsnorm_bwd.launches
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1329,6 +1451,9 @@ def plan_runs(torch, device, tr, res, cap, inputs, *, label: str,
         n = rmsnorm.launches - before
         assert n == n_rms or device.type != "cuda", \
             f"rmsnorm launched {n} times, expected {n_rms}"
+        n_bwd = rmsnorm_bwd.launches - before_bwd
+        assert n_bwd == n_rms_bwd or device.type != "cuda", \
+            f"rmsnorm_bwd launched {n_bwd} times, expected {n_rms_bwd}"
         return rr, n, mem
 
     out = {}
@@ -1498,13 +1623,14 @@ def run_lora_path(torch, device, tr, res, cap, inputs, *,
                   policy="random", seed=0, device=device).run(inputs)
     _phase("LoRA warm-up run", t)
     runs = plan_runs(torch, device, tr, res, cap, inputs,
-                     label=f"lora T={T}", n_rms=n_rms, check=check)
+                     label=f"lora T={T}", n_rms=n_rms, check=check,
+                     n_rms_bwd=len(bwd))
     if device.type == "cuda" and bwd:
         v = tr.tg.vertices[mg.vertices[bwd[0]].src_tid]
         one_ms = vertex_ms(torch, device, tr.tg, v, 10)
         print(f"lora T={T}: rmsnorm_bwd device_ms {one_ms:.4f} a vertex "
               f"({[tuple(tr.tg.vertices[i].out.shape) for i in v.inputs]} "
-              f"float64 inside), {len(bwd)} vertices: "
+              f"{v.out.dtype}, the backward kernel), {len(bwd)} vertices: "
               f"{one_ms * len(bwd):.3f} ms a run", flush=True)
     if profile is not None:
         for mode in ("nondet", "fixed"):
@@ -1914,6 +2040,716 @@ def ab_worker(inputs_dir: str) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# training (slice 9, ROADMAP A11b)
+# --------------------------------------------------------------------------
+def train_ops_bwd(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
+    """The attention backward's operations: five products (recomputed
+    scores, dP, dV, dK, dQ) where the forward has two, 2.5 x flash_ops."""
+    return 5 * flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) // 2
+
+
+def flash_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+                       itemsize) -> tuple[float, str]:
+    """Least time for the attention backward: q, o, dO, k, v and the f32
+    log-sum-exp read once, dQ, dK, dV written once; train_ops_bwd at the
+    peak rate of the type."""
+    ops = train_ops_bwd(B, Sq, Skv, Hq, Dh, causal, q_offset)
+    t_ops = ops / (F32_FLOPS if itemsize == 4 else F16_FLOPS)
+    q_elems, kv_elems = B * Sq * Hq * Dh, B * Skv * Hkv * Dh
+    t_bytes = ((4 * q_elems + 4 * kv_elems) * itemsize + 4 * B * Hq * Sq) \
+        / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_bwd_bound_ms(n_rows: int, d: int, itemsize: int,
+                         dg: bool) -> tuple[float, str]:
+    """Least time for rmsnorm's VJP: x, dy and g read once, dx (and dg)
+    written once; 8 f32 operations per element (two sums, the dx formula;
+    three more for dg)."""
+    t_bytes = (3 * n_rows * d + (2 if dg else 1) * d) * itemsize \
+        / HBM_BYTES_PER_S
+    t_ops = (11 if dg else 8) * n_rows * d / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_bwd_phase(torch, device) -> dict:
+    """rmsnorm_bwd against rmsnorm_bwd_plain at the training shape
+    (RMS_BWD_MAIN, bfloat16, with and without dγ; timed) and on
+    tests/test_kernels.py's rmsnorm sweep in three dtypes. dx within
+    KERNEL_TOL; dγ, a sum over rows in another order, within KERNEL_TOL
+    plus 2e-6 of the sum of its terms' magnitudes. Returns the record of
+    the training path's call (no dγ: LoRA freezes the gains), with the
+    dγ variant's times beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+    cases = [(RMS_BWD_MAIN, torch.bfloat16, True)]
+    for shape in [(7, 128), (3, 33, 256), (1, 512)]:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            cases.append((shape, dt, False))
+    rec = {}
+    for shape, dt, timed in cases:
+        x, dy = (torch.randn(shape, generator=gen, device=device).to(dt)
+                 for _ in range(2))
+        g = torch.randn(shape[-1:], generator=gen, device=device).to(dt)
+        name = str(dt).removeprefix("torch.")
+        atol, rtol = KERNEL_TOL[name]
+        for need_dg in (False, True):
+            dx, dg = rmsnorm_bwd(x, g, dy, need_dg=need_dg)
+            torch.cuda.synchronize()
+            pdx, pdg = rmsnorm_bwd_plain(x, g, dy, need_dg=need_dg)
+            err = (dx.float() - pdx.float()).abs()
+            max_err = err.max().item()
+            ok = bool((err <= atol + rtol * pdx.float().abs()).all())
+            line = (f"kernel rmsnorm_bwd {'x'.join(map(str, shape))} {name} "
+                    f"dg={need_dg}: dx max_abs_err {max_err:.3g} (tol "
+                    f"{atol:g} + {rtol:g}*|plain|)")
+            if need_dg:
+                xf = x.float()
+                terms = (dy.float() * xf * torch.rsqrt(
+                    xf.square().mean(-1, keepdim=True) + 1e-6)
+                         ).reshape(-1, shape[-1])
+                lim = atol + rtol * pdg.float().abs() + \
+                    2e-6 * terms.abs().sum(0)
+                gerr = (dg.float() - pdg.float()).abs()
+                ok = ok and bool((gerr <= lim).all())
+                line += f" dg max err/limit {(gerr / lim).max().item():.3g}"
+                del terms, xf
+            line += f" ok={ok}"
+            if timed:
+                k_ms = _median_ms(lambda: rmsnorm_bwd(
+                    x, g, dy, need_dg=need_dg, out=dx), torch, flush)
+                p_ms = _median_ms(lambda: rmsnorm_bwd_plain(
+                    x, g, dy, need_dg=need_dg), torch, flush, reps=10)
+                xr = x.detach().requires_grad_()
+                gr = g.detach().requires_grad_(need_dg)
+                lib_ms = _median_ms(lambda: torch.autograd.grad(
+                    F.rms_norm(xr, (shape[-1],), weight=gr, eps=1e-6),
+                    [xr, gr] if need_dg else [xr], dy), torch, flush)
+                bound_ms, bound_by = rmsnorm_bwd_bound_ms(
+                    x.numel() // shape[-1], shape[-1], x.element_size(),
+                    need_dg)
+                line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                         f"library_ms {lib_ms:.4f} (F.rms_norm forward + "
+                         f"backward) bound_ms {bound_ms:.4f} ({bound_by})")
+                key = "" if not need_dg else "dg_"
+                rec.update({f"{key}max_abs_err": max_err, f"{key}ms": k_ms,
+                            f"{key}plain_ms": p_ms,
+                            f"{key}bound_ms": bound_ms,
+                            f"{key}bound_by": bound_by,
+                            f"{key}library_ms": lib_ms})
+            print(line, flush=True)
+            if not ok:
+                raise AssertionError(f"rmsnorm_bwd disagrees with its plain "
+                                     f"version at {shape} {name} "
+                                     f"dg={need_dg}")
+            del dx, dg, pdx, pdg, err
+    del flush
+    return rec
+
+
+def flash_bwd_phase(torch, device) -> dict:
+    """flash_attention_bwd against flash_attention_bwd_plain (which
+    computes its own log-sum-exp, one KV head at a time) at the training
+    shapes (FLASH_BWD_MAIN, bfloat16, timed beside the backward of
+    F.scaled_dot_product_attention through autograd, and the forward kernel
+    timed without and with its log-sum-exp output) and on FLASH_BWD_SWEEP
+    in three dtypes: dQ, dK, dV within gradient_limit, the forward's lse
+    within 1e-5 of the plain one. Returns the record of the supervised
+    run's shape (the first)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        gradient_limit, lse_plain)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+    cases = [(lbl, shp, torch.bfloat16, True) for lbl, shp in FLASH_BWD_MAIN]
+    for lbl, shp in FLASH_BWD_SWEEP:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            cases.append((lbl, shp, dt, False))
+    main = None
+    for lbl, (B, Sq, Skv, Hq, Hkv, Dh, causal, off), dt, timed in cases:
+        q, do = (torch.randn(B, Sq, Hq, Dh, generator=gen, device=device)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn(B, Skv, Hkv, Dh, generator=gen, device=device)
+                .to(dt) for _ in range(2))
+        lse = torch.empty(B, Hq, Sq, device=device)
+        o = flash_attention(q, k, v, causal=causal, q_offset=off, lse=lse)
+        lse_err = (lse - lse_plain(q, k, causal, off)).abs().max().item() \
+            if not timed else float("nan")
+        got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                  q_offset=off)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         q_offset=off)
+        name = str(dt).removeprefix("torch.")
+        max_err, ratio = 0.0, 0.0
+        for a, b in zip(got, want):
+            e = (a.float() - b.float()).abs()
+            max_err = max(max_err, e.max().item())
+            ratio = max(ratio, (e / gradient_limit(b, name)).max().item())
+            del e
+        ok = ratio <= 1.0 and not lse_err > 1e-5
+        shape = (f"{B}x{Sq}x{Skv} h{Hq}/{Hkv} d{Dh} causal={causal} "
+                 f"q_offset={off}")
+        line = (f"kernel flash_attention_bwd {lbl} {shape} {name}: "
+                f"max_abs_err {max_err:.3g} max err/limit {ratio:.3g} "
+                f"(gradient_limit) lse_err {lse_err:.3g} ok={ok}")
+        del want
+        if timed:
+            fwd_ms = _median_ms(lambda: flash_attention(
+                q, k, v, causal=causal, q_offset=off, out=o), torch, flush,
+                reps=10)
+            fwd_lse_ms = _median_ms(lambda: flash_attention(
+                q, k, v, causal=causal, q_offset=off, out=o, lse=lse), torch,
+                flush, reps=10)
+            k_ms = _median_ms(lambda: flash_attention_bwd(
+                q, k, v, o, do, lse, causal=causal, q_offset=off), torch,
+                flush, reps=10)
+            p_ms = _median_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, do, causal=causal, q_offset=off), torch, flush,
+                reps=3)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                enable_gqa=Hq != Hkv)
+            dot = do.transpose(1, 2)
+            lib_ms = _median_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True), torch, flush,
+                reps=10)
+            del ot, qt, kt, vt
+            bound_ms, bound_by = flash_bwd_bound_ms(
+                B, Sq, Skv, Hq, Hkv, Dh, causal, off, q.element_size())
+            line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
+                     f"{lib_ms:.4f} (SDPA backward) bound_ms {bound_ms:.4f} "
+                     f"({bound_by}) forward_ms {fwd_ms:.4f} with lse "
+                     f"{fwd_lse_ms:.4f} "
+                     + rate(train_ops_bwd(B, Sq, Skv, Hq, Dh, causal, off),
+                            k_ms, bound_ms))
+            if main is None:
+                main = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=lib_ms)
+        print(line, flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd disagrees with its "
+                                 f"plain version at {lbl} {name}")
+        del q, k, v, o, do, lse, got
+    del flush
+    return main
+
+
+def _train_launches() -> dict:
+    """The launch counts of the four kernels a dense training step runs,
+    and the device launches of the two backward wrappers (``_kernel``)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
+    return {"rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches,
+            "rmsnorm_bwd_kernel": rmsnorm_bwd.kernel_launches,
+            "flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_bwd_kernel": flash_attention_bwd.kernel_launches}
+
+
+def _reset_train_launches() -> None:
+    """Zero the training kernels' launch counts and the offload's byte
+    counts."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
+    from repro_torch.models.offload import reset_moved
+    for fn in (flash_attention, flash_attention_bwd, rmsnorm, rmsnorm_bwd):
+        reset_launches(fn)
+    reset_moved()
+
+
+def expected_train_launches(n_layers: int, remat, *, frozen_base: bool
+                            ) -> dict:
+    """Launches of one dense forward + backward: the forward's 2L + 1
+    rmsnorm and L flash launches, once more for each layer (2L, L) when the
+    backward recomputes it (every remat mode); one rmsnorm_bwd per norm on
+    a gradient path (all but the first layer's input norm when the
+    embedding is frozen, as under LoRA), one device launch each, two when
+    its gain takes a gradient (not under LoRA: the base is frozen); one
+    flash_attention_bwd a layer, three device launches each."""
+    L = n_layers
+    again = 0 if remat is None else 1
+    n_bwd = 2 * L + 1 - (1 if frozen_base else 0)
+    return {"rmsnorm": 2 * L + 1 + again * 2 * L,
+            "rmsnorm_bwd": n_bwd,
+            "rmsnorm_bwd_kernel": n_bwd * (1 if frozen_base else 2),
+            "flash_attention": L + again * L,
+            "flash_attention_bwd": L,
+            "flash_attention_bwd_kernel": 3 * L}
+
+
+def _check_offload(cfg, batch: int, seq: int, steps: int = 1) -> dict:
+    """remat='offload' moved every layer's input out and back once a step
+    since the last ``_reset_train_launches``; returns the byte counts."""
+    from repro_torch.models.offload import moved
+    itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[cfg.dtype]
+    want = steps * cfg.n_layers * batch * seq * cfg.d_model * itemsize
+    got = dict(moved)
+    assert got == {"offloaded": want, "reloaded": want}, \
+        f"offload moved {got}, expected {want} B each way"
+    return got
+
+
+def _check_launches(label: str, got: dict, want: dict, steps: int = 1) -> None:
+    want = {k: v * steps for k, v in want.items()}
+    assert got == want, f"{label}: launches {got}, expected {want}"
+
+
+@contextlib.contextmanager
+def plain_layers():
+    """layers.rmsnorm and layers.blockwise_attention swapped for their
+    plain versions, forward and backward (the oracle of the training
+    checks): ``rmsnorm_plain`` with ``rmsnorm_bwd_plain``, and
+    ``flash_attention_plain`` with ``flash_attention_bwd_plain`` (which
+    recomputes the scores and takes Di from the forward's output), the
+    formulas the kernels compute, in plain torch; no kernel runs."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.rmsnorm.ops import (rmsnorm_bwd_plain,
+                                                 rmsnorm_plain)
+    from repro_torch.models import layers
+
+    class PlainRMS(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, g, eps):
+            ctx.save_for_backward(x, g)
+            ctx.eps = eps
+            return rmsnorm_plain(x, g, eps=eps)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, g = ctx.saved_tensors
+            dx, dg = rmsnorm_bwd_plain(x, g, dy, eps=ctx.eps,
+                                       need_dg=ctx.needs_input_grad[1])
+            return dx, dg, None
+
+    class PlainAttn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, q_offset):
+            o = flash_attention_plain(q, k, v, causal=causal,
+                                      q_offset=q_offset)
+            ctx.save_for_backward(q, k, v, o)
+            ctx.causal, ctx.q_offset = causal, q_offset
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o = ctx.saved_tensors
+            return (*flash_attention_bwd_plain(
+                q, k, v, o, do.contiguous(), causal=ctx.causal,
+                q_offset=ctx.q_offset), None, None)
+
+    saved = layers.rmsnorm, layers.blockwise_attention
+
+    def rms(x, gamma, eps=1e-6):
+        return saved[0](x, None, eps) if gamma is None else \
+            PlainRMS.apply(x, gamma, eps)
+
+    def attn(q, k, v, *, causal, q_offset=0, block_kv=1024):
+        return PlainAttn.apply(q, k, v, causal, int(q_offset))
+    layers.rmsnorm, layers.blockwise_attention = rms, attn
+    try:
+        yield
+    finally:
+        layers.rmsnorm, layers.blockwise_attention = saved
+
+
+def _grad_rule(label: str, got: dict, want: dict, rtol: float) -> float:
+    """Every gradient leaf finite and within rtol x max|want| of ``want``,
+    each leaf alone; returns the worst ratio err / max|want|."""
+    from repro_torch.train.tree import flatten
+    w = dict(flatten(want))
+    worst = 0.0
+    for k, g in flatten(got):
+        ref = w[k].float()
+        scale = ref.abs().max().item()
+        assert bool(g.isfinite().all()), f"{label}: gradient {k} not finite"
+        assert scale > 0 and math.isfinite(scale), \
+            f"{label}: plain gradient {k} is zero or not finite"
+        err = (g.float() - ref).abs().max().item()
+        worst = max(worst, err / scale)
+        assert err <= rtol * scale, \
+            (f"{label}: gradient {k}: max|kernel - plain| {err:.3g} > "
+             f"{rtol:g} x {scale:.3g}")
+    return worst
+
+
+def _rel_errs(got: dict, truth: dict) -> dict:
+    """Each leaf's max|got - truth| / max|truth|."""
+    from repro_torch.train.tree import flatten
+    t = dict(flatten(truth))
+    return {k: (g.float() - t[k].float()).abs().max().item()
+            / t[k].float().abs().max().item() for k, g in flatten(got)}
+
+
+def _bytes_equal(a: dict, b: dict) -> bool:
+    from repro_torch.train.tree import flatten
+    return all(x.equal(y) for (_, x), (_, y) in zip(flatten(a), flatten(b)))
+
+
+def train_batch(vocab: int, batch: int, seq: int, step: int = 0) -> dict:
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    return SyntheticLMStream(DataConfig(vocab, seq, batch, seed=0)).batch(step)
+
+
+def grad_check(torch, device, label: str, cfg, base, loss_for, wrt_of, *,
+               batch: int, seq: int, modes, frozen_base: bool) -> None:
+    """One training step's loss and gradients (with respect to
+    ``wrt_of(base)``; ``loss_for(model, base)`` is the loss), by the
+    two-dtype rule (chip_smoke's docstring, phase 10b):
+
+    * float32, the same weights upcast: the kernels (remat='full') against
+      the plain oracle (``plain_layers``, remat='full'), every gradient
+      within TRAIN_F32_RTOL x max|plain|, each leaf alone, and the loss
+      within TRAIN_LOSS_RTOL; the oracle is also the float32 truth below;
+    * bfloat16, under each of ``modes``: the loss within TRAIN_LOSS_RTOL
+      of the truth's; every gradient's max error against the truth at
+      most BF16_VS_PLAIN times the plain bfloat16 oracle's (or than
+      BF16_ULP, where that is larger), each leaf alone; the modes against the first by LORA_GRAD_RTOL (byte equality
+      printed). Launches asserted for every kernel run; step time (after
+      one untimed warm-up step of the same mode), peak allocated bytes and
+      (remat='offload') offloaded bytes printed."""
+    import dataclasses as dc
+    from repro_torch.models import build_model
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.train.tree import tree_map
+
+    b = train_batch(cfg.vocab_size, batch, seq)
+    t = time.perf_counter()
+    cfg32 = dc.replace(cfg, dtype="float32")
+    base32 = tree_map(lambda x: x.float(), base)
+    with plain_layers():
+        truth_loss, truth = value_and_grad(
+            loss_for(build_model(cfg32, device=device, remat="full"), base32),
+            wrt_of(base32), b)
+    _reset_train_launches()
+    k_loss, k32 = value_and_grad(
+        loss_for(build_model(cfg32, device=device, remat="full"), base32),
+        wrt_of(base32), b)
+    torch.cuda.synchronize()
+    _check_launches(f"{label} float32", _train_launches(),
+                    expected_train_launches(cfg.n_layers, "full",
+                                            frozen_base=
+                                            frozen_base))
+    del base32
+    truth_loss, k_loss = truth_loss.item(), k_loss.item()
+    assert abs(k_loss - truth_loss) <= TRAIN_LOSS_RTOL * abs(truth_loss), \
+        f"{label} float32: loss {k_loss} against the oracle's {truth_loss}"
+    worst = _grad_rule(f"{label} float32", k32, truth, TRAIN_F32_RTOL)
+    print(f"train grad check {label} float32 {batch}x{seq} remat=full: loss "
+          f"{k_loss:.6f} (oracle {truth_loss:.6f}) max_err/max|plain| "
+          f"{worst:.3g} (tol {TRAIN_F32_RTOL:g}); {_phase_s(t)}", flush=True)
+    del k32
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    with plain_layers():
+        p_loss, p16 = value_and_grad(
+            loss_for(build_model(cfg, device=device, remat="full"), base),
+            wrt_of(base), b)
+    plain_err = _rel_errs(p16, truth)
+    print(f"train grad check {label} {cfg.dtype} plain oracle remat=full: loss "
+          f"{p_loss.item():.6f} (float32 truth {truth_loss:.6f}) "
+          f"max_err/max|truth| by leaf {_fmt(plain_err)}; {_phase_s(t)}",
+          flush=True)
+    del p16
+    first = None
+    for remat in modes:
+        model = build_model(cfg, device=device, remat=remat)
+        # warm-up: first-use costs (pinned host blocks for 'offload', the
+        # allocator's pools) stay out of the timed step
+        value_and_grad(loss_for(model, base), wrt_of(base), b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_train_launches()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(loss_for(model, base), wrt_of(base), b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches(f"{label} remat={remat}", launches,
+                        expected_train_launches(cfg.n_layers, remat,
+                                                frozen_base=
+                                                frozen_base))
+        loss = loss.item()
+        assert math.isfinite(loss) and \
+            abs(loss - truth_loss) <= TRAIN_LOSS_RTOL * abs(truth_loss), \
+            f"{label} remat={remat}: loss {loss} against {truth_loss}"
+        errs = _rel_errs(grads, truth)
+        for k, e in errs.items():
+            lim = BF16_VS_PLAIN * max(plain_err[k], BF16_ULP)
+            assert math.isfinite(e) and e <= lim, \
+                (f"{label} remat={remat}: gradient {k} is {e:.4g} of "
+                 f"max|truth| from the float32 truth, the plain {cfg.dtype} "
+                 f"oracle {plain_err[k]:.4g} (limit {lim:.4g})")
+        moved = ""
+        if remat == "offload":
+            got = _check_offload(cfg, batch, seq)
+            moved = (f" offloaded_bytes {got['offloaded']} "
+                     f"reloaded_bytes {got['reloaded']}")
+        same = ""
+        if first is None:
+            first = (remat, loss, grads)
+        else:
+            vs = _grad_rule(f"{label} remat={remat} vs {first[0]}", grads,
+                            first[2], LORA_GRAD_RTOL)
+            same = (f" vs_remat_{first[0]} byte_equal "
+                    f"{loss == first[1] and _bytes_equal(grads, first[2])} "
+                    f"max_err/max|{first[0]}| {vs:.3g}")
+        print(f"train grad check {label} {cfg.dtype} {batch}x{seq} remat={remat}:"
+              f" step_s {dt:.3f} loss {loss:.6f} max_err/max|truth| by leaf "
+              f"{_fmt(errs)} (limit {BF16_VS_PLAIN:g}x the plain oracle's) "
+              f"peak_allocated_bytes {peak}{moved} launches {launches}{same}",
+              flush=True)
+        del model, grads
+    del truth
+
+
+def _fmt(errs: dict) -> str:
+    return "{" + ", ".join(f"{k}: {v:.4f}" for k, v in errs.items()) + "}"
+
+
+def _phase_s(t0: float) -> str:
+    return f"{time.perf_counter() - t0:.2f} s"
+
+
+def supervised_run(torch, device, *, profile: bool) -> tuple[dict, object]:
+    """The slice's main path, through repro_torch.launch.train's own
+    functions: llama-7b with LoRA, remat='offload', SUPERVISED's batch,
+    sequence, steps and checkpoint cadence. A step_fn wrapper raises once
+    before each step of SUPERVISED's faults; before raising at a step that
+    follows no checkpoint it overwrites the live adapters and optimizer
+    state with NaN, as a step that fails half-way through an update would.
+    The Supervisor restores the last checkpoint each time and goes on; the
+    final adapters and optimizer state must be byte-equal to an
+    uninterrupted run's. Then one step under remat='full' at the same
+    shape (peak HBM and step time beside 'offload'). Returns the launches
+    of the supervised run and the Run (its base weights)."""
+    import tempfile
+    from repro_torch.launch import train as T
+    from repro_torch.models import build_model
+    from repro_torch.models.lora import make_lora_loss
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.train.tree import flatten
+
+    S = SUPERVISED
+    tmp = tempfile.TemporaryDirectory(prefix="repro_torch_train_")
+    argv = ["--arch", TRAIN_ARCH, "--lora", "--remat", "offload",
+            "--batch", str(S["batch"]), "--seq", str(S["seq"]),
+            "--steps", str(S["steps"]), "--save-every", str(S["save_every"]),
+            "--device", str(device)]
+    t = time.perf_counter()
+    args = T.parse_args(argv + ["--ckpt-dir", os.path.join(tmp.name, "a")])
+    r = T.setup(args)
+    torch.cuda.synchronize()
+    _phase("supervised run: setup (base weights drawn on the card)", t)
+    left = set(S["faults"])
+    step_s = []
+
+    def faulty(state, batch):
+        nxt = int(state["step"]) + 1
+        if nxt in left:
+            left.discard(nxt)
+            if (nxt - 1) % S["save_every"]:
+                for _, leaf in flatten({"p": state["params"],
+                                        "o": state["opt"]}):
+                    if leaf.is_floating_point():
+                        leaf.fill_(float("nan"))
+            raise RuntimeError(f"injected fault before step {nxt}")
+        t0 = time.perf_counter()
+        out = r.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    def log(msg):
+        print(f"supervised run: {msg}", flush=True)
+
+    _reset_train_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state, report, losses = T.run(r, args, step_fn=faulty, log=log)
+    torch.cuda.synchronize()
+    launches = _train_launches()
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t
+    ckpt = lambda n: (n - 1) - (n - 1) % S["save_every"]   # noqa: E731
+    want = [e for n in S["faults"]
+            for e in (f"fail@{n - 1}:RuntimeError", f"restored@{ckpt(n)}")]
+    assert not left and report.restarts == len(S["faults"]) and \
+        [e for e in report.history if e.startswith(("fail", "restored"))] \
+        == want, report.history
+    n_run = len(step_s)
+    assert n_run == S["steps"] + sum(n - 1 - ckpt(n) for n in S["faults"]), \
+        (n_run, report.history)
+    _check_launches("supervised run", launches,
+                    expected_train_launches(r.model.cfg.n_layers, "offload",
+                                            frozen_base=True), n_run)
+    off = _check_offload(r.model.cfg, S["batch"], S["seq"], n_run)
+    print(f"supervised run {TRAIN_ARCH} lora remat=offload "
+          f"{S['batch']}x{S['seq']}: {n_run} steps run, restarts "
+          f"{report.restarts}, history {report.history}; wall_s {wall:.2f} "
+          f"step_s {[round(x, 3) for x in step_s]} peak_allocated_bytes "
+          f"{peak} offloaded_bytes_a_step {off['offloaded'] // n_run} "
+          f"reloaded_bytes_a_step {off['reloaded'] // n_run} losses "
+          f"{[round(x, 5) for x in losses]} launches {launches}", flush=True)
+    assert all(math.isfinite(x) for x in losses)
+
+    t = time.perf_counter()
+    args_b = T.parse_args(argv + ["--ckpt-dir", os.path.join(tmp.name, "b")])
+    clean, report_b, losses_b = T.run(r, args_b, log=lambda m: None)
+    torch.cuda.synchronize()
+    same = _bytes_equal(state, clean)
+    print(f"supervised run: uninterrupted {report_b.steps_run} steps in "
+          f"{time.perf_counter() - t:.2f} s, losses "
+          f"{[round(x, 5) for x in losses_b]}; final adapters and optimizer "
+          f"state byte-equal to the faulted run: {same}", flush=True)
+    assert same, "the resumed run's final state differs from the " \
+        "uninterrupted run's"
+    tmp.cleanup()
+
+    model = build_model(r.model.cfg, device=device, remat="full")
+    b = train_batch(r.model.cfg.vocab_size, S["batch"], S["seq"])
+    for label, m in (("full", model), ("offload", r.model)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value_and_grad(make_lora_loss(m, r.base), clean["params"], b)
+        torch.cuda.synchronize()
+        print(f"train step remat={label} {S['batch']}x{S['seq']}: step_s "
+              f"{time.perf_counter() - t0:.3f} (loss and gradients, no "
+              f"update) peak_allocated_bytes "
+              f"{torch.cuda.max_memory_allocated()}", flush=True)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            value_and_grad(make_lora_loss(r.model, r.base), clean["params"],
+                           b)
+            torch.cuda.synchronize()
+        copies, kernels = {"HtoD": [], "DtoH": []}, []
+        for e in prof.events():
+            if "cuda" not in str(getattr(e, "device_type", "")).lower():
+                continue
+            span = (e.time_range.start, e.time_range.end)
+            kind = next((c for c in copies if c in e.name), None)
+            if kind:
+                copies[kind].append(span)
+            elif "Memset" not in e.name and "Memcpy" not in e.name:
+                kernels.append(span)
+        kernels.sort()
+        for kind, spans in copies.items():
+            ms = sum(b - a for a, b in spans) / 1e3
+            overl = sum(any(ka < b and a < kb for ka, kb in kernels)
+                        for a, b in spans)
+            print(f"profile train step remat=offload: {kind} {len(spans)} "
+                  f"copies, device_ms {ms:.2f}, {overl} overlap a kernel",
+                  flush=True)
+    del model
+    return launches, r
+
+
+def full_param_run(torch, device) -> None:
+    """llama-7b width, FULL_PARAM's layers, bfloat16, AdamW over every
+    leaf: each leaf's gradient of the first step by the two-dtype rule
+    (``grad_check``, remat None), then FULL_PARAM's steps through make_train_step on that one batch, so that
+    a fall of the loss is the optimizer's and not the data's: the loss must
+    fall at every step. dγ goes through rmsnorm_bwd (launches
+    asserted)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    P = FULL_PARAM
+    cfg = dc.replace(get_arch(TRAIN_ARCH), n_layers=P["layers"])
+    model = build_model(cfg, device=device)
+    opt = AdamW(lr=P["lr"])
+    state = init_train_state(model, torch.Generator(device=device)
+                             .manual_seed(0), opt)
+    b = train_batch(cfg.vocab_size, P["batch"], P["seq"])
+    grad_check(torch, device, f"full-parameter {cfg.name} L={cfg.n_layers}",
+               cfg, state["params"], lambda m, base: m.loss, lambda p: p,
+               batch=P["batch"], seq=P["seq"], modes=(None,),
+               frozen_base=False)
+    step_fn = make_train_step(model, opt)
+    losses, times = [], []
+    _reset_train_launches()
+    for i in range(P["steps"]):
+        t0 = time.perf_counter()
+        state, met = step_fn(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(met["loss"].item())
+    launches = _train_launches()
+    _check_launches("full-parameter steps", launches,
+                    expected_train_launches(cfg.n_layers, None,
+                                            frozen_base=False),
+                    P["steps"])
+    print(f"full-parameter steps: losses {[round(x, 5) for x in losses]} "
+          f"step_s {[round(x, 3) for x in times]} launches {launches}",
+          flush=True)
+    assert all(math.isfinite(x) for x in losses) and \
+        all(b < a for a, b in zip(losses, losses[1:])), \
+        f"the full-parameter loss did not fall: {losses}"
+
+
+def train_phase(torch, device, *, profile: bool) -> dict:
+    """Phase 10: the gradient check, the supervised run and the
+    full-parameter run; frees every model before it returns the
+    supervised run's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.lora import lora_init, make_lora_loss
+
+    cfg = get_arch(TRAIN_ARCH)
+    t = time.perf_counter()
+    base = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+    adapters = lora_init(torch.Generator(device=device).manual_seed(1), base)
+    gen = torch.Generator(device=device).manual_seed(2)
+    for ad in adapters.values():          # B nonzero: with B = 0, dA is 0
+        ad["B"] = torch.randn(ad["B"].shape, generator=gen,
+                              device=device) * LORA_B_SCALE
+    torch.cuda.synchronize()
+    _phase("train grad check: base weights and adapters", t)
+    t = time.perf_counter()
+    grad_check(torch, device, f"{cfg.name} lora L={cfg.n_layers}", cfg, base,
+               make_lora_loss, lambda _: adapters, batch=GRAD_CHECK[0],
+               seq=GRAD_CHECK[1], modes=REMAT_ORDER, frozen_base=True)
+    _phase("train grad check", t)
+    del base, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    launches, r = supervised_run(torch, device, profile=profile)
+    _phase("supervised run", t)
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    full_param_run(torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("full-parameter run", t)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2008,6 +2844,16 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
+    rms_bwd = rmsnorm_bwd_phase(torch, device)
+    fa_bwd = flash_bwd_phase(torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("training kernels", t)
+    t = time.perf_counter()
+    trained = train_phase(torch, device, profile="--profile" in argv)
+    _phase("training path", t)
+
+    t = time.perf_counter()
     model, params = build_serving(torch, device)
     prompts = serving_traffic(model.cfg.vocab_size)
     print(f"serving path: llama-7b, {model.cfg.n_layers} layers, bfloat16, "
@@ -2099,7 +2945,23 @@ def main(argv: list[str]) -> int:
              source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
              replaces="src/repro/kernels/rwkv6/kernel.py:18",
              launches=recurrent["wkv6"],
-             kernel_launches=recurrent["wkv6_kernel"], **scans["wkv6"])]
+             kernel_launches=recurrent["wkv6_kernel"], **scans["wkv6"]),
+        dict(name="rmsnorm_bwd", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/kernel.py:13",
+             note="the VJP of the kernel at replaces; no TPU kernel "
+                  "computes it",
+             launches=trained["rmsnorm_bwd"],
+             kernel_launches=trained["rmsnorm_bwd_kernel"], **rms_bwd),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:23",
+             note="the VJP of the kernel at replaces; no TPU kernel "
+                  "computes it",
+             launches=trained["flash_attention_bwd"],
+             kernel_launches=trained["flash_attention_bwd_kernel"],
+             **fa_bwd)]
     _phase("total", t_all)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

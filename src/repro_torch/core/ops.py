@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
+from ..kernels.rmsnorm.ops import rmsnorm_bwd as _rmsnorm_bwd_kernel
 from ..kernels.rmsnorm.ops import rmsnorm_plain
 from .taskgraph import TensorSpec
 
@@ -293,8 +294,18 @@ ROW_SCRATCH_BYTES = 1 << 20
 
 @register("rmsnorm_bwd")
 def _rmsnorm_bwd(x, g, dy, *, eps=1e-6, out=None, **_):
-    """Exact VJP of rmsnorm wrt x (gamma frozen in LoRA training); float64
-    arithmetic, as the reference op, a chunk of rows at a time."""
+    """Exact VJP of rmsnorm wrt x (gamma frozen in LoRA training). On CUDA
+    the backward kernel (``kernels/rmsnorm``: f32 accumulation, dx only);
+    on the CPU its plain version here, float64 as the reference op."""
+    if x.device.type == "cuda":
+        return _rmsnorm_bwd_kernel(x, g, dy, eps=eps, need_dg=False,
+                                   out=out)[0]
+    return _rmsnorm_bwd_f64(x, g, dy, eps=eps, out=out)
+
+
+def _rmsnorm_bwd_f64(x, g, dy, *, eps=1e-6, out=None, **_):
+    """The plain version: float64 arithmetic, as the reference op, a chunk
+    of rows at a time."""
     out = _fresh(out, x)
     D = x.shape[-1]
     xs, dys, outs = x.reshape(-1, D), dy.reshape(-1, D), out.view(-1, D)
@@ -308,6 +319,9 @@ def _rmsnorm_bwd(x, g, dy, *, eps=1e-6, out=None, **_):
         dx = dyg.mul_(r).sub_(xf.mul_(r ** 3 / D).mul_(s))
         outs[a:a + step].copy_(dx)
     return out
+
+
+PLAIN["rmsnorm_bwd"] = _rmsnorm_bwd_f64
 
 
 @register("split_heads")

@@ -31,6 +31,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 SOURCES: dict[str, str] = {
     "rmsnorm": "rmsnorm/csrc/rmsnorm.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
     "wkv6": "rwkv6/csrc/wkv6.cu",

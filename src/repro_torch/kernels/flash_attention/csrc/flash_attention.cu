@@ -67,6 +67,10 @@
 //   * Registers (ptxas, sm_90a): 144-166 a thread at Dh 112-128, no spill;
 //     one block of 288 threads and ~165 KB of shared memory per SM.
 //
+// With a non-null `lse`, both instances also write each row's log-sum-exp
+// m scale + log(l) at the end of the row: the backward's
+// (flash_attention_bwd.cu) input, 4 bytes a row; serving passes null.
+//
 // f32 design: scalar FMAs (no TF32, which would break the f32 tolerance).
 // One block owns one (b, query head, 64-row q tile) and loops over 32-row
 // KV tiles converted to f32 in shared memory; 4 threads per query row,
@@ -97,6 +101,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // [B, Hq, Sq] f32 log-sum-exp of each row's scaled scores,
+                // for the backward; null: not written
   // strides in elements of (batch, seq, head); the head dimension is contiguous
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
@@ -495,6 +501,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_fwd_tc(
     const int row = qrow + 8 * i;
     if (row >= p.sq) continue;
     const float den = fmaxf(li, 1e-30f);
+    if (p.lse != nullptr && (lane & 3) == 0)
+      p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.sq + row] =
+          m[i] * p.scale + logf(den);
     T* orow = og + static_cast<int64_t>(row) * p.o_ss + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < ND / 4; ++j) {
@@ -638,6 +647,8 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(const Params p) {
   const int qi = q0 + r;
   if (qi < p.sq) {
     const float den = fmaxf(l, 1e-30f);
+    if (p.lse != nullptr && c == 0)
+      p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.sq + qi] = m + logf(den);
     T* og = static_cast<T*>(p.o) + b * p.o_sb + static_cast<int64_t>(qi) * p.o_ss +
             h * p.o_sh;
 #pragma unroll
@@ -740,11 +751,12 @@ bool aligned16(const void* ptr, int b, int64_t sb, int s, int64_t ss, int h,
 
 // q [B, Sq, Hq, Dh], k/v [B, Skv, Hkv, Dh], o [B, Sq, Hq, Dh]; each given by
 // its pointer and (batch, seq, head) strides in elements, the last dimension
-// contiguous. dtype: 0 = float32 (scalar instance), 1 = float16, 2 =
+// contiguous. lse, when not null, receives each row's log-sum-exp of its
+// scaled, masked scores, f32 [B, Hq, Sq] contiguous (the backward's input). dtype: 0 = float32 (scalar instance), 1 = float16, 2 =
 // bfloat16 (wgmma instances). Dh is 32, 64, 112 or 128. Returns a
 // cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -755,7 +767,7 @@ extern "C" int flash_attention_launch(
       hq % hkv != 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;

@@ -7,8 +7,8 @@ from .lm import LM
 
 def build_model(cfg: ArchConfig, **kw) -> LM:
     """Factory: the model class for an architecture config (``device``
-    and the LM's options, ``moe_capacity_factor`` and ``kv_cache_dtype``,
-    pass through)."""
+    and the LM's options, ``moe_capacity_factor``, ``remat`` and
+    ``kv_cache_dtype``, pass through)."""
     if cfg.family == "encdec":
         raise NotImplementedError("EncDec is not ported yet")
     return LM(cfg, **kw)

@@ -8,6 +8,14 @@ products of :func:`moe_block` (``kernels/moe_gmm``); on a CPU tensor each
 wrapper computes its kernel's plain version. Everything else is plain
 torch, as the reference computes it outside any Pallas kernel.
 
+Gradients: :func:`rmsnorm` and :func:`blockwise_attention` go through
+``autograd.Function``s whose backward is a kernel too (``RMSNormFn``,
+``FlashAttentionFn``). The grouped matmul, the SSD scan and WKV6 have no
+backward kernel yet: on CUDA their callers raise (:func:`no_backward`)
+when a gradient would have to pass through them, rather than return an
+output that autograd cannot differentiate. On the CPU they stay plain
+torch and differentiable.
+
 Parameters are dicts of tensors with the reference's keys. ``*_init``
 functions draw with the reference's distributions and scales from an
 explicit ``torch.Generator`` onto ``device`` (default CUDA); the bits differ
@@ -22,14 +30,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from ..kernels.flash_attention.ops import NEG_INF, flash_attention
+from ..kernels.flash_attention.ops import (FlashAttentionFn, NEG_INF,
+                                           flash_attention)
 from ..kernels.moe_gmm.ops import grouped_matmul
-from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
+from ..kernels.rmsnorm.ops import RMSNormFn, rmsnorm as _rmsnorm_kernel
 
 __all__ = ["rmsnorm", "layernorm", "rope", "blockwise_attention",
            "decode_attention", "decode_attention_q8", "AttnParamsSpec",
            "attention_block", "swiglu_mlp", "gelu_mlp", "mlp_init", "moe_init",
-           "moe_route", "moe_block", "randn"]
+           "moe_route", "moe_block", "randn", "no_backward"]
 
 
 def randn(gen: torch.Generator, shape, dtype: torch.dtype, scale: float,
@@ -41,17 +50,39 @@ def randn(gen: torch.Generator, shape, dtype: torch.dtype, scale: float,
     return t.mul_(scale).to(dev)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def no_backward(kernel: str, *tensors) -> None:
+    """Raise when a gradient would have to pass through ``kernel`` on the
+    card: grad mode on and one of ``tensors`` (inputs and parameters of the
+    call) requiring a gradient. The kernel writes an output that autograd
+    cannot differentiate, and it has no backward kernel yet (ROADMAP B5).
+    On the CPU the kernels' plain versions are differentiable torch."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t.device.type == "cuda" and t.requires_grad:
+            raise RuntimeError(
+                f"{kernel} has no backward kernel yet (ROADMAP B5): a "
+                f"gradient through it on CUDA is not supported; run under "
+                f"torch.no_grad() or on the CPU")
+
+
 # --------------------------------------------------------------------------
 # norms
 # --------------------------------------------------------------------------
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None,
             eps: float = 1e-6) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * gamma, through the rmsnorm kernel (f32
-    accumulation, one rounding to x.dtype). Without ``gamma`` it is plain
-    torch."""
+    accumulation, one rounding to x.dtype) and its backward kernel
+    (``RMSNormFn``). Without ``gamma`` it is plain torch."""
     if gamma is None:
         var = x.float().square().mean(dim=-1, keepdim=True)
         return x * torch.rsqrt(var + eps).to(x.dtype)
+    if _needs_grad(x, gamma):
+        return RMSNormFn.apply(x, gamma, eps)
     return _rmsnorm_kernel(x, gamma, eps=eps)
 
 
@@ -95,13 +126,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, q_offset: int = 0,
                         block_kv: int = 1024) -> torch.Tensor:
-    """Online-softmax attention over KV blocks: the flash-attention kernel.
+    """Online-softmax attention over KV blocks: the flash-attention kernel,
+    differentiable through its backward kernels (``FlashAttentionFn``).
 
     q: [B, Sq, Hq, Dh], k/v: [B, Skv, Hkv, Dh] with Hq % Hkv == 0.
     ``q_offset``: absolute position of q[0]. ``block_kv`` is the
     reference's XLA block size; the kernel keeps its own tiles, so it is
     accepted and not used."""
     del block_kv
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, int(q_offset))
+    # no gradient: the forward alone, without the log-sum-exp
     return flash_attention(q, k, v, causal=causal, q_offset=int(q_offset))
 
 
@@ -319,6 +354,7 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         keep = (pos < C).view(T, top_k)
         gate = gate * keep
     off32, cnt32 = offsets.int(), counts.int()
+    no_backward("grouped_matmul", x, p["wi_gate"], p["wi_up"], p["wo"])
     xs = xt[perm // top_k]                                       # [T*k, D]
     h = F.silu(grouped_matmul(xs, p["wi_gate"], off32, cnt32)) \
         * grouped_matmul(xs, p["wi_up"], off32, cnt32)

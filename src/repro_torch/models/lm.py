@@ -39,27 +39,53 @@ Differences from the reference, on purpose:
   with :func:`repro_torch.core.bridge.params_from_reference` to compute the
   same function.
 
-``remat`` and ``loss`` wait for the training slice. ``prefill`` serves the
-attention families only, as in the reference: a recurrent family's prompt
-pass is its decode loop.
+* ``loss`` is the reference's (``lm.py:255-271``): f32 logits, the vocab
+  padding masked with −1e30, mean NLL, plus ``0.01·aux / n_layers`` for
+  MoE. ``remat`` wraps each layer body as the reference's ``_wrap_remat``
+  (``lm.py:74-93``) does, with ``torch.utils.checkpoint`` (non-reentrant):
+  ``'full'`` keeps only the layer's input; ``'dots'`` also saves the
+  outputs of the plain (unbatched) matrix products, ``aten.mm`` and
+  ``aten.addmm``, as ``dots_with_no_batch_dims_saveable`` does; ``'offload'``
+  keeps only the input and moves it to pinned host memory and back
+  (:mod:`.offload`). Zamba2's shared block is recomputed in full whenever
+  ``remat`` is set (reference :236-238). On CUDA a gradient goes through
+  the rmsnorm and flash-attention backward kernels; through the MoE,
+  SSD and WKV6 kernels it raises (``layers.no_backward``).
+
+``prefill`` serves the attention families only, as in the reference: a
+recurrent family's prompt pass is its decode loop. A ``vision_embeds``
+frontend is not ported (ROADMAP A12).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from . import layers as L
 from . import rwkv as R
 from . import ssm as SSM
+from .offload import ResidualOffload
 
-__all__ = ["LM"]
+__all__ = ["LM", "REMAT_MODES"]
 
 _KV_DTYPES = ("bf16", "int8")
 _FAMILIES = ("dense", "moe", "rwkv", "zamba")
+REMAT_MODES = (None, "full", "dots", "offload")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of unbatched matrix products, recompute the rest
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _norm(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -109,17 +135,42 @@ class LM:
 
     def __init__(self, cfg: ArchConfig, *,
                  moe_capacity_factor: float | None = 1.25,
+                 remat: str | None = None,
                  kv_cache_dtype: str = "bf16", device=None) -> None:
         if cfg.family not in _FAMILIES:
             raise ValueError(f"the port's LM runs the {_FAMILIES} families, "
                              f"not {cfg.family!r}")
         if kv_cache_dtype not in _KV_DTYPES:
             raise ValueError(f"kv_cache_dtype must be one of {_KV_DTYPES}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
         self.cfg = cfg
         self.moe_capacity_factor = moe_capacity_factor
+        self.remat = remat
         self.kv_cache_dtype = kv_cache_dtype
         self.dtype = getattr(torch, cfg.dtype)
         self.device = resolve_device(device)
+
+    def _wrap_remat(self, body, mode: str | None = None,
+                    off: ResidualOffload | None = None):
+        """``body(h, *args)`` under the activation-checkpoint policy
+        ``mode`` (default: the model's ``remat``); ``'offload'`` sends the
+        layer's input through ``off``, the apply's own offload."""
+        mode = self.remat if mode is None else mode
+        if mode is None:
+            return body
+        if mode == "full":
+            return lambda h, *a: checkpoint(body, h, *a, use_reentrant=False)
+        if mode == "dots":
+            ctx = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+            return lambda h, *a: checkpoint(body, h, *a, use_reentrant=False,
+                                            context_fn=ctx)
+
+        def offloaded(h, *a):
+            with off.layer(h):
+                return checkpoint(body, h, *a, use_reentrant=False)
+        return offloaded
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> dict:
@@ -199,8 +250,8 @@ class LM:
 
     def _attn_mlp_block(self, p: dict, h: torch.Tensor,
                         positions: torch.Tensor,
-                        adapter_g: torch.Tensor | None = None
-                        ) -> torch.Tensor:
+                        adapter_g: torch.Tensor | None = None):
+        """(the block's output, the MoE aux loss or None)."""
         cfg = self.cfg
         x = _norm(cfg, p, "ln1", h)
         if adapter_g is not None:
@@ -211,9 +262,7 @@ class LM:
             rope_theta=cfg.rope_theta)
         y, aux = self._ffn(p, _norm(cfg, p, "ln2", h),
                            self.moe_capacity_factor)
-        if aux is not None:
-            self._aux = self._aux + aux
-        return h + y
+        return h + y, aux
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, device=self.device)[None].expand(B, S)
@@ -221,33 +270,81 @@ class LM:
     # ------------------------------------------------------------- apply
     def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         """Full forward: tokens [B, S] → logits [B, S, padded_vocab]. Also
-        sets ``self._aux``, the MoE aux loss summed over the layers."""
+        sets ``self._aux``, the MoE aux loss summed over the layers.
+
+        A layer's parameters are taken out of the stacked leaves inside
+        its (recomputed) body, so that a leaf whose layer slice is computed
+        (a LoRA merge, ``models/lora.py``) is recomputed with it."""
         cfg = self.cfg
         B, S = tokens.shape
         self._aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        off = (ResidualOffload(self.device) if self.remat == "offload"
+               else None)
         h = params["embed"][tokens]
         positions = self._positions(B, S)
         if cfg.family in ("dense", "moe"):
+            def block(hh, i):
+                return self._attn_mlp_block(
+                    layer_params(params["layers"], i), hh, positions)
+            block = self._wrap_remat(block, off=off)
             for i in range(cfg.n_layers):
-                h = self._attn_mlp_block(layer_params(params["layers"], i),
-                                         h, positions)
+                h, aux = block(h, i)
+                if aux is not None:
+                    self._aux = self._aux + aux
         elif cfg.family == "rwkv":
-            for i in range(cfg.n_layers):
+            def body(hh, i):
                 lp = layer_params(params["layers"], i)
-                h = h + R.rwkv6_time_mix(lp, _norm(cfg, lp, "ln1", h),
-                                         headdim=cfg.rwkv_headdim)
-                h = h + R.rwkv6_channel_mix(lp, _norm(cfg, lp, "ln2", h))
+                hh = hh + R.rwkv6_time_mix(lp, _norm(cfg, lp, "ln1", hh),
+                                           headdim=cfg.rwkv_headdim)
+                return hh + R.rwkv6_channel_mix(lp, _norm(cfg, lp, "ln2", hh))
+            body = self._wrap_remat(body, off=off)
+            for i in range(cfg.n_layers):
+                h = body(h, i)
         else:                                             # zamba
-            for g, lps in self._zamba_groups(params):
-                h = self._attn_mlp_block(
-                    params["shared"], h, positions,
-                    adapter_g=params["shared_adapters"][g])
-                for lp in lps:
-                    h = h + self._mamba(lp, h)
-            for lp in self._zamba_tail(params):
-                h = h + self._mamba(lp, h)
+            ng, grp, tail = self._zamba_split()
+
+            def mamba(hh, key, *idx):
+                lp = params[key]
+                for j in idx:
+                    lp = layer_params(lp, j)
+                return hh + self._mamba(lp, hh)
+            mamba = self._wrap_remat(mamba, off=off)
+
+            def shared(hh, g):
+                return self._attn_mlp_block(
+                    params["shared"], hh, positions,
+                    adapter_g=params["shared_adapters"][g])[0]
+            if self.remat is not None:          # reference :236-238
+                shared = self._wrap_remat(shared, "full")
+            for g in range(ng):
+                h = shared(h, g)
+                for j in range(grp):
+                    h = mamba(h, "mamba", g, j)
+            for j in range(tail):
+                h = mamba(h, "mamba_tail", j)
         h = _norm(cfg, params, "ln_f", h)
         return h @ params["unembed"]
+
+    # -------------------------------------------------------------- loss
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both [B, S], tensors or arrays) over the true
+        vocabulary, in f32; plus ``0.01·aux / n_layers`` for MoE."""
+        cfg = self.cfg
+        if batch.get("vision_embeds") is not None:
+            raise NotImplementedError("a vision frontend is not ported yet "
+                                      "(ROADMAP A12)")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        logits = self.apply(params, tokens.long()).float()
+        iota = torch.arange(cfg.padded_vocab, device=self.device)
+        logits = logits + torch.where(iota < cfg.vocab_size, 0.0, -1e30)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])
+        loss = nll.mean()
+        if cfg.family == "moe":
+            loss = loss + 0.01 * self._aux / cfg.n_layers
+        return loss
 
     def _mamba(self, p: dict, h: torch.Tensor, **state):
         cfg = self.cfg

@@ -1155,3 +1155,171 @@ def test_placement_bound_on_a_small_plan(cuda):
                        for t in rr.outputs.values() if t.is_cuda)
             assert peak <= rr.arena_bytes + outs + allowance, \
                 (exec_backend, policy, mode, peak, rr.arena_bytes, outs)
+
+
+# --------------------------------------------------------------------------
+# training: the backward kernels and the model's gradients on the card
+# --------------------------------------------------------------------------
+# (B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset): tests/test_kernels.py's
+# attention sweep, two q_offset chunks, head size 112, GQA 4
+BWD_SWEEP = [(2, 128, 128, 4, 2, 64, True, 0), (1, 200, 200, 4, 4, 128, True, 0),
+             (2, 64, 256, 8, 2, 64, False, 0), (1, 256, 64, 2, 1, 64, True, 0),
+             (1, 64, 256, 4, 2, 32, True, 192), (1, 100, 130, 4, 4, 112, True, 30),
+             (1, 512, 512, 32, 8, 128, True, 0)]
+
+
+@pytest.mark.parametrize("shape", [(7, 128), (3, 33, 256), (1, 512),
+                                   (4096, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_rmsnorm_bwd_matches_plain_on_card(cuda, shape, dtype):
+    """dx within one ulp of the storage type (KERNEL_TOL); dγ, a sum over
+    the rows in another order, within KERNEL_TOL plus 2e-6 of the sum of
+    its terms' magnitudes; the same bytes on a second call (no atomics)."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_bwd_plain
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dy = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    g = torch.randn(shape[-1:], generator=gen, device=cuda).to(dtype)
+    rtol, atol = KERNEL_TOL[dtype]
+    before = rmsnorm_bwd.launches, rmsnorm_bwd.kernel_launches
+    dx, dg = rmsnorm_bwd(x, g, dy)
+    dx0, none = rmsnorm_bwd(x, g, dy, need_dg=False)
+    assert none is None
+    # two calls; three device launches (dγ's reduction is the third)
+    assert (rmsnorm_bwd.launches, rmsnorm_bwd.kernel_launches) == \
+        (before[0] + 2, before[1] + 3)
+    pdx, pdg = rmsnorm_bwd_plain(x, g, dy)
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=rtol, atol=atol)
+    assert torch.equal(dx, dx0)
+    xf = x.float()
+    terms = (dy.float() * xf * torch.rsqrt(xf.square().mean(-1, keepdim=True)
+                                           + 1e-6)).reshape(-1, shape[-1])
+    lim = atol + rtol * pdg.float().abs() + 2e-6 * terms.abs().sum(0)
+    assert bool(((dg.float() - pdg.float()).abs() <= lim).all())
+    assert torch.equal(rmsnorm_bwd(x, g, dy)[1], dg)
+
+
+@pytest.mark.parametrize("case", BWD_SWEEP, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_bwd_matches_plain_on_card(cuda, case, dtype):
+    """dQ, dK, dV within ``gradient_limit`` of the plain version (which
+    computes its own log-sum-exp), the forward's lse within 1e-5 of the
+    plain one, and the same bytes on a second call."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain, gradient_limit,
+        lse_plain)
+    B, Sq, Skv, Hq, Hkv, Dh, causal, off = case
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, do = (torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    lse = torch.empty(B, Hq, Sq, device=cuda)
+    o = flash_attention(q, k, v, causal=causal, q_offset=off, lse=lse)
+    assert (lse - lse_plain(q, k, causal, off)).abs().max() < 1e-5
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                              q_offset=off)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                     q_offset=off)
+    name = str(dtype).removeprefix("torch.")
+    for a, b in zip(got, want):
+        assert bool(((a.float() - b.float()).abs()
+                     <= gradient_limit(b, name)).all())
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                q_offset=off)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_no_silent_gradient_loss_on_card(cuda, dtype):
+    """After one loss.backward() on a tiny llama-shaped model on the card,
+    every parameter has a finite, nonzero gradient: the kernels' outputs
+    carry a grad_fn, so nothing below the final norm is cut off; and the
+    backward went through both backward kernels."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+    cfg = dataclasses.replace(reduced(get_arch("llama-7b")), dtype=dtype)
+    model = build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    flat = []
+
+    def mark(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                mark(v)
+            else:
+                flat.append(v.requires_grad_())
+    mark(params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 65))
+    n_rms, n_fa = rmsnorm_bwd.launches, flash_attention_bwd.launches
+    loss = model.loss(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert loss.grad_fn is not None
+    loss.backward()
+    for t in flat:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.float().abs().max()) > 0
+    assert rmsnorm_bwd.launches - n_rms == 2 * cfg.n_layers + 1
+    assert flash_attention_bwd.launches - n_fa == cfg.n_layers
+
+
+def test_kernels_without_backward_refuse_gradients_on_card(cuda):
+    """moe_block (grouped matmul), the SSD scan and WKV6 have no backward
+    kernel: under grad, with an input that needs a gradient, they raise on
+    the card; under no_grad they run."""
+    from repro_torch.models import layers as PL
+    from repro_torch.models import rwkv as R
+    from repro_torch.models import ssm as SSM
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, 16, 64, generator=gen, device=cuda).requires_grad_()
+    moe = PL.moe_init(gen, 64, 32, 4, torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="ROADMAP B5"):
+        PL.moe_block(moe, x, n_experts=4, top_k=2)
+    ssd = SSM.ssd_init(gen, 64, d_state=16, headdim=16, expand=2,
+                       dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="ROADMAP B5"):
+        SSM.ssd_block(ssd, x, d_state=16, headdim=16, expand=2)
+    rw = R.rwkv6_init(gen, 64, headdim=16, d_ff=128, dtype=torch.float32,
+                      device=cuda)
+    with pytest.raises(RuntimeError, match="ROADMAP B5"):
+        R.rwkv6_time_mix(rw, x, headdim=16)
+    with torch.no_grad():
+        PL.moe_block(moe, x, n_experts=4, top_k=2)
+        SSM.ssd_block(ssd, x, d_state=16, headdim=16, expand=2)
+        R.rwkv6_time_mix(rw, x, headdim=16)
+
+
+def test_offload_gradients_equal_full_remat_on_card(cuda):
+    """A 2-layer llama-width model (bf16) under LoRA: remat='offload'
+    (each layer's input through pinned host memory on the copy streams)
+    gives byte for byte the loss and adapter gradients of remat='full',
+    and moves each layer's input out and back once."""
+    from repro_torch.models import offload
+    from repro_torch.models.lora import lora_init, make_lora_loss
+    from repro_torch.train.step import value_and_grad
+    cfg = dataclasses.replace(get_arch("llama-7b"), n_layers=2)
+    base = build_model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    ad = lora_init(torch.Generator(device=cuda).manual_seed(1), base)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for v in ad.values():
+        v["B"] = torch.randn(v["B"].shape, generator=gen, device=cuda) * 0.01
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (1, 257))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for remat in ("full", "offload"):
+        model = build_model(cfg, device=cuda, remat=remat)
+        offload.reset_moved()
+        out[remat] = value_and_grad(make_lora_loss(model, base), ad, batch)
+        torch.cuda.synchronize()
+    assert torch.equal(out["full"][0], out["offload"][0])
+    for k in ad:
+        for n in ("A", "B"):
+            assert torch.equal(out["full"][1][k][n], out["offload"][1][k][n])
+    nbytes = 2 * 256 * cfg.d_model * 2
+    assert offload.moved == {"offloaded": nbytes, "reloaded": nbytes}

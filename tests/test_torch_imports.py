@@ -45,6 +45,12 @@ def test_port_sources_exist():
     assert (ROOT / "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu").exists()
+    assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd.cu").exists()
+    for mod in ("models/lora.py", "models/offload.py", "train/optim.py",
+                "train/step.py", "data/pipeline.py", "ckpt/store.py",
+                "ft/supervisor.py", "launch/train.py"):
+        assert (ROOT / "src/repro_torch" / mod).exists(), mod
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -67,7 +73,11 @@ def test_package_imports_without_jax():
         "repro_torch.serve, repro_torch.kernels.flash_attention.ops, "
         "repro_torch.kernels.moe_gmm.ops, repro_torch.kernels.ssd_scan.ops, "
         "repro_torch.kernels.rwkv6.ops, repro_torch.models.ssm, "
-        "repro_torch.models.rwkv\n"
+        "repro_torch.models.rwkv, repro_torch.models.lora, "
+        "repro_torch.models.offload, repro_torch.train.optim, "
+        "repro_torch.train.step, repro_torch.train.tree, "
+        "repro_torch.data.pipeline, repro_torch.ckpt.store, "
+        "repro_torch.ft.supervisor, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"

@@ -194,10 +194,9 @@ def test_cut_safe_overwrite_edge_raises_race_error(prefill):
     pytest.fail("no cut MEM edge replayed to a RaceError")
 
 
-def test_compiled_backend_is_not_ported_yet(prefill):
-    """The compiled backend is ported now (the name predates it): it runs
-    the offloaded prefill to the interpreted backend's outputs, and an
-    unknown backend is refused."""
+def test_compiled_backend_matches_reference_prefill(prefill):
+    """The compiled backend runs the offloaded prefill to the reference's
+    outputs, and an unknown backend is refused."""
     tr, res, cap, inputs, ref = prefill
     rr = TurnipRuntime(tr.tg, res, device="cpu", backend="bytes",
                        capacities={d: cap for d in tr.tg.devices()},
