@@ -204,8 +204,9 @@ failure:
       2L + 1 and L, the same again for the recomputed layers under every
       remat mode; backward 2L rmsnorm_bwd (the first layer's input norm has
       no gradient path: the embedding is frozen), one device launch each
-      (no dγ: the gains are frozen), and L flash backward, three device
-      launches each (the wrappers' ``kernel_launches``).
+      (no dγ: the gains are frozen), and L flash backward, two device
+      launches each (the wrappers' ``kernel_launches``), every one of them
+      on the 16-bit wgmma instance in bfloat16 (``launches_tc``).
    c. The supervised run, the slice's main path: ``repro_torch.launch.
       train``'s ``parse_args``, ``setup`` and ``run`` with ``--arch
       llama-7b --lora --remat offload --batch 4 --seq 4096 --steps 6
@@ -220,8 +221,9 @@ failure:
       and offloaded bytes asserted per step run. Then one loss-and-gradient step under
       remat='full' and one under 'offload' at the same shape: step time
       and peak allocated bytes. ``--profile`` adds a profiled 'offload'
-      step: device time of the d2h and h2d copies, and how many overlap a
-      kernel.
+      step: device time of the d2h and h2d copies, how many overlap a
+      kernel, and the device operations that take the most time, each with
+      its share of the step's device time (``profile_kernels``).
    d. Full-parameter step: llama-7b width, 4 of 32 layers, bfloat16,
       AdamW (lr 1e-3), 2 x 2048 tokens: every leaf's gradient by b's
       two-dtype rule (remat None), dγ through rmsnorm_bwd (2L + 1 calls a
@@ -258,7 +260,9 @@ time of its host spans.
 ``python3 chip_smoke.py --ab-prefill OTHER_ROOT`` runs nothing of the
 above: it times the interpreted prefill of this checkout's port against
 another checkout's (``ab_prefill``), for example the parent commit
-unpacked with ``git archive`` under ``build/``.
+unpacked with ``git archive`` under ``build/``. ``--ab-train OTHER_ROOT``
+does the same for the training step of phase 10c (``ab_train``): step
+times and the step's device time by kernel, the two checkouts in turns.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
@@ -286,9 +290,12 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# an ab_prefill worker (``--ab-worker SRC ...``) runs the port found in SRC
-SRC = (sys.argv[sys.argv.index("--ab-worker") + 1]
-       if "--ab-worker" in sys.argv else os.path.join(ROOT, "src"))
+# an ab_prefill or ab_train worker (``--ab-worker SRC ...``,
+# ``--ab-train-worker SRC``) runs the port found in SRC
+_WORKER = next((f for f in ("--ab-worker", "--ab-train-worker")
+                if f in sys.argv), None)
+SRC = (sys.argv[sys.argv.index(_WORKER) + 1] if _WORKER
+       else os.path.join(ROOT, "src"))
 sys.path.insert(0, SRC)
 
 # one 4 MiB cuBLAS workspace per (handle, stream), fixed before torch first
@@ -2040,6 +2047,86 @@ def ab_worker(inputs_dir: str) -> int:
     return 0
 
 
+AB_TRAIN_STEPS = 4                 # timed steps a worker, after a warm-up
+
+
+def ab_train(other_root: str, rounds: int = 2) -> int:
+    """The LoRA training step of phase 10c (TRAIN_ARCH, SUPERVISED's batch
+    and sequence, remat='offload') of this checkout's port against another
+    checkout's (``other_root``), in separate processes taken in turns:
+    other, tree, then tree, other, ``rounds`` times. Each worker
+    (``ab_train_worker``) prints its step times and its profiled step's
+    device time by kernel; the medians by checkout come last."""
+    other_src = os.path.join(os.path.abspath(other_root), "src")
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        raise SystemExit(f"no port under {other_src}")
+    steps: dict[str, list[float]] = {}
+    flash: dict[str, list[float]] = {}
+    for r in range(rounds):
+        order = (("other", other_src), ("tree", os.path.join(ROOT, "src")))
+        for name, src in (order if r % 2 == 0 else order[::-1]):
+            cmd = [sys.executable, os.path.abspath(__file__),
+                   "--ab-train-worker", src]
+            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+            got = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, cwd=ROOT, timeout=900)
+            out = got.stdout.splitlines()
+            for ln in out:
+                if ln.startswith("profile "):
+                    print(f"ab round {r} {name}: {ln}", flush=True)
+            lines = [ln for ln in out if ln.startswith("ABT ")]
+            if got.returncode != 0 or not lines:
+                print(got.stdout[-3000:], got.stderr[-3000:], flush=True)
+                raise RuntimeError(f"ab train worker {name} failed "
+                                   f"(rc {got.returncode})")
+            res = json.loads(lines[-1][4:])
+            print(f"ab round {r} {name} ({res['port']}): step_s "
+                  f"{res['step_s']} warm-up {res['warmup_s']:.3f} s; "
+                  f"profiled step device_ms {res['device_ms']:.3f}, flash "
+                  f"backward {res['flash_bwd_ms']:.3f} ms", flush=True)
+            steps.setdefault(name, []).extend(res["step_s"])
+            flash.setdefault(name, []).append(res["flash_bwd_ms"])
+    for name in steps:
+        print(f"ab median {name}: step_s {statistics.median(steps[name]):.4f} "
+              f"flash backward ms a step {statistics.median(flash[name]):.3f}",
+              flush=True)
+    return 0
+
+
+def ab_train_worker() -> int:
+    """One ab_train process: the port on ``sys.path`` (SRC) sets up the
+    training run through repro_torch.launch.train, runs one warm-up step
+    and AB_TRAIN_STEPS timed steps (host clock, ending in a synchronize),
+    then one under torch.profiler."""
+    import repro_torch.core
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as T
+
+    S = SUPERVISED
+    r = T.setup(T.parse_args([
+        "--arch", TRAIN_ARCH, "--lora", "--remat", "offload", "--batch",
+        str(S["batch"]), "--seq", str(S["seq"]), "--device", "cuda"]))
+    state, step_s = r.state, []
+    for i in range(1 + AB_TRAIN_STEPS):
+        batch = r.batch_fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = r.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        assert math.isfinite(float(met["loss"])), "loss not finite"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = r.step_fn(state, r.batch_fn(1 + AB_TRAIN_STEPS))
+        torch.cuda.synchronize()
+    port = os.path.dirname(os.path.dirname(repro_torch.core.__file__))
+    got = profile_kernels(prof, "train step remat=offload")
+    print("ABT " + json.dumps({"port": port, "step_s": step_s[1:],
+                               "warmup_s": step_s[0], **got}), flush=True)
+    return 0
+
+
 # --------------------------------------------------------------------------
 # training (slice 9, ROADMAP A11b)
 # --------------------------------------------------------------------------
@@ -2258,6 +2345,46 @@ def _train_launches() -> dict:
             "flash_attention_bwd_kernel": flash_attention_bwd.kernel_launches}
 
 
+def assert_flash_bwd_on_tensor_cores() -> None:
+    """Every flash backward call since the last reset went to the 16-bit
+    wgmma instance."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    fb = flash_attention_bwd
+    assert fb.launches_tc == fb.launches and fb.launches_scalar == 0, \
+        (f"flash_attention_bwd: {fb.launches} calls, {fb.launches_tc} on "
+         f"the tensor cores, {fb.launches_scalar} scalar")
+
+
+# device operations of the flash backward, by kernel name
+FLASH_BWD_KERNELS = ("attn_bwd_",)
+
+
+def profile_kernels(prof, label: str, top: int = 15) -> dict:
+    """The device operations of a torch.profiler trace by total device
+    time, the ``top`` largest printed with their share of the summed device
+    time, and the flash backward's kernels (FLASH_BWD_KERNELS) summed.
+    Returns {"device_ms", "flash_bwd_ms", "top": [(name, ms, count)]}."""
+    by_name: dict[str, tuple[float, int]] = {}
+    for e in prof.events():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + (e.time_range.end - e.time_range.start)
+                           / 1e3, n + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    fb = sum(ms for name, (ms, _) in by_name.items()
+             if any(k in name for k in FLASH_BWD_KERNELS))
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    for name, (ms, n) in rows:
+        print(f"profile {label}: {ms:9.3f} ms {n:5d}x share "
+              f"{ms / max(total, 1e-9):.3f} {name[:90]}", flush=True)
+    print(f"profile {label}: device_ms {total:.3f} (sum over operations); "
+          f"flash backward {fb:.3f} ms, share {fb / max(total, 1e-9):.3f}",
+          flush=True)
+    return {"device_ms": total, "flash_bwd_ms": fb,
+            "top": [(name, ms, n) for name, (ms, n) in rows]}
+
+
 def _reset_train_launches() -> None:
     """Zero the training kernels' launch counts and the offload's byte
     counts."""
@@ -2278,7 +2405,8 @@ def expected_train_launches(n_layers: int, remat, *, frozen_base: bool
     a gradient path (all but the first layer's input norm when the
     embedding is frozen, as under LoRA), one device launch each, two when
     its gain takes a gradient (not under LoRA: the base is frozen); one
-    flash_attention_bwd a layer, three device launches each."""
+    flash_attention_bwd a layer, two device launches each (Di and dQ,
+    then dK and dV)."""
     L = n_layers
     again = 0 if remat is None else 1
     n_bwd = 2 * L + 1 - (1 if frozen_base else 0)
@@ -2287,7 +2415,7 @@ def expected_train_launches(n_layers: int, remat, *, frozen_base: bool
             "rmsnorm_bwd_kernel": n_bwd * (1 if frozen_base else 2),
             "flash_attention": L + again * L,
             "flash_attention_bwd": L,
-            "flash_attention_bwd_kernel": 3 * L}
+            "flash_attention_bwd_kernel": 2 * L}
 
 
 def _check_offload(cfg, batch: int, seq: int, steps: int = 1) -> dict:
@@ -2599,6 +2727,7 @@ def supervised_run(torch, device, *, profile: bool) -> tuple[dict, object]:
     _check_launches("supervised run", launches,
                     expected_train_launches(r.model.cfg.n_layers, "offload",
                                             frozen_base=True), n_run)
+    assert_flash_bwd_on_tensor_cores()
     off = _check_offload(r.model.cfg, S["batch"], S["seq"], n_run)
     print(f"supervised run {TRAIN_ARCH} lora remat=offload "
           f"{S['batch']}x{S['seq']}: {n_run} steps run, restarts "
@@ -2659,6 +2788,8 @@ def supervised_run(torch, device, *, profile: bool) -> tuple[dict, object]:
             print(f"profile train step remat=offload: {kind} {len(spans)} "
                   f"copies, device_ms {ms:.2f}, {overl} overlap a kernel",
                   flush=True)
+        profile_kernels(prof, f"train step remat=offload {S['batch']}x"
+                              f"{S['seq']}")
     del model
     return launches, r
 
@@ -2759,6 +2890,10 @@ def main(argv: list[str]) -> int:
         return ab_worker(argv[argv.index("--ab-worker") + 2])
     if "--ab-prefill" in argv:
         return ab_prefill(argv[argv.index("--ab-prefill") + 1])
+    if "--ab-train-worker" in argv:
+        return ab_train_worker()
+    if "--ab-train" in argv:
+        return ab_train(argv[argv.index("--ab-train") + 1])
     from repro_torch.configs import get_arch
     from repro_torch.core.bridge import inputs_from_reference
     from repro_torch.kernels import build

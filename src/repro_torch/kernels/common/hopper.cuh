@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, moe_gmm.cu): mbarriers, TMA loads and the cached
-// lookup of cuTensorMapEncodeTiled, shared-memory matrix descriptors in the
-// 128-byte swizzle, and the wgmma instructions the kernels issue.
+// (flash_attention.cu, flash_attention_bwd.cu, moe_gmm.cu): mbarriers, TMA
+// loads and the cached lookup of cuTensorMapEncodeTiled, shared-memory
+// matrix descriptors in the 128-byte swizzle, the wgmma instructions the
+// kernels issue, and setmaxnreg.
 //
 // Everything here has internal linkage (an anonymous namespace): each
 // kernel's shared library holds its own copy, and a library's build digest
@@ -94,6 +95,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
                  : "=r"(done) : "r"(a), "r"(parity) : "memory");
   } while (!done);
 }
+// Warp specialisation: a warpgroup gives registers back to the block's pool
+// (dealloc) or takes them from it (alloc), so that consumer warpgroups can
+// hold more than the launch's even share; N a multiple of 8 in [24, 256].
+// Every thread of the warpgroup executes it.
+template <int N> __device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N> __device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // Pins registers that an asynchronous wgmma reads or writes to this point
 // of the program, so that the compiler moves no access to them across the
 // fence, issue and wait.

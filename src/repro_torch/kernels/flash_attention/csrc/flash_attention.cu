@@ -90,7 +90,7 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "../../common/hopper.cuh"   // mbarriers, TMA, wgmma
+#include "attention_tc.cuh"   // tile helpers shared with the backward
 
 namespace {
 
@@ -115,15 +115,6 @@ struct Params {
   float scale_log2;   // scale * log2(e)
 };
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // --------------------------------------------------------------------------
 // 16-bit instances: wgmma
 // --------------------------------------------------------------------------
@@ -139,69 +130,6 @@ template <int DH>
 constexpr int tc_smem_bytes() {
   return TC_BAR_BYTES + 1024 +
          (TC_BQ + TC_STAGES * 2 * TC_BK) * ((DH + 63) / 64) * 128;
-}
-
-template <typename T> __device__ __forceinline__ uint32_t pack2(float a, float b);
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
-  const __half2 h = __floats2half2_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// bf16 P as hi + lo: hi = bf16(p), lo = bf16(p - hi)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
-template <typename T> __device__ __forceinline__ void store2(T* p, float a,
-                                                             float b);
-template <> __device__ __forceinline__ void store2<__half>(__half* p, float a,
-                                                           float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-template <> __device__ __forceinline__ void store2<__nv_bfloat16>(
-    __nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// bf16 P is issued as hi + lo (see the header); f16 P once
-template <typename T> constexpr bool kSplitP = false;
-template <> constexpr bool kSplitP<__nv_bfloat16> = true;
-
-// The layout the 16-bit kernel stages tiles in, TMA's 128-byte swizzle:
-// a tile of R rows is cut into NH = ceil(Dh / 64) column halves of 64
-// channels, each R rows of 128 bytes; 16-byte chunk j of row r sits at
-// chunk j ^ (r % 8) of its row. Channels past Dh are zeros.
-template <int DH> constexpr int kHalves = (DH + 63) / 64;
-
-// Element-load staging of rows [row0, row0 + ROWS) of a [rows, DH] view
-// (row stride `rs` elements; rows at or past `limit` as zeros) into that
-// layout, by the 32 lanes of the producer warp: for views whose pointers or
-// strides are not 16-byte aligned, which TMA cannot take.
-template <typename T, int ROWS, int DH>
-__device__ __forceinline__ void stage_elements(unsigned char* dst,
-                                               const T* src, int64_t rs,
-                                               int row0, int limit, int lane) {
-  for (int i = lane; i < kHalves<DH> * ROWS * 8; i += 32) {
-    const int j = i % 8, r = (i / 8) % ROWS, half = i / (8 * ROWS);
-    const int col = 64 * half + 8 * j, row = row0 + r;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (row < limit && col < DH) {
-      const uint16_t* e = reinterpret_cast<const uint16_t*>(
-          src + static_cast<int64_t>(row) * rs + col);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        w[k] = static_cast<uint32_t>(e[2 * k])
-             | (static_cast<uint32_t>(e[2 * k + 1]) << 16);
-    }
-    *reinterpret_cast<uint4*>(dst + half * ROWS * 128 + r * 128 +
-                              ((j ^ (r & 7)) << 4)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
 }
 
 // Masks and exponentiates one S tile in place (P in f32), and updates the
@@ -255,58 +183,6 @@ __device__ __forceinline__ void online_softmax(
         l[i] += pe;
       }
     }
-  }
-}
-
-// P as the A fragments of the four k-steps of P.V: register 4kk + r holds
-// the pair (row + 8 (r & 1), columns 16kk + 8 (r >> 1) + 2 (lane % 4) +
-// {0, 1}), which is s[4 (2kk + (r >> 1)) + 2 (r & 1) + {0, 1}]. bf16: hi in
-// ph, lo in pl.
-template <typename T>
-__device__ __forceinline__ void p_fragments(const float (&s)[32],
-                                            uint32_t (&ph)[16],
-                                            uint32_t (&pl)[16]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int at = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
-      if constexpr (kSplitP<T>) {
-        split_bf16(s[at], s[at + 1], ph[4 * kk + r], pl[4 * kk + r]);
-      } else {
-        ph[4 * kk + r] = pack2<T>(s[at], s[at + 1]);
-        pl[4 * kk + r] = 0u;
-      }
-    }
-  }
-}
-
-// S = Q.K^T of one tile: Q and K K-major, 4 k-steps of 32 bytes inside each
-// 128-byte row, then the next column half; Dh / 16 steps, so the zero
-// columns past Dh 112 are not multiplied.
-template <typename T, int DH>
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q,
-                                         uint32_t k) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t at = (kk / 4) * 1u, in = (kk % 4) * 32u;
-    wgmma_ss<T>(s, smem_desc(q + at * TC_BQ * 128 + in, 16, 1024),
-                smem_desc(k + at * TC_BK * 128 + in, 16, 1024), kk > 0);
-  }
-}
-
-// O += P.V of one tile: V MN-major, 4 k-steps of 16 KV rows (SBO steps 8
-// rows, LBO the next 64-channel half); in bf16 the hi and the lo product.
-template <typename T, int DH>
-__device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
-                                         const uint32_t (&ph)[16],
-                                         const uint32_t (&pl)[16],
-                                         uint32_t v) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t vdesc = smem_desc(v + kk * 16 * 128, TC_BK * 128, 1024);
-    wgmma_rs<T, DH>(o, ph + 4 * kk, vdesc);
-    if constexpr (kSplitP<T>) wgmma_rs<T, DH>(o, pl + 4 * kk, vdesc);
   }
 }
 
@@ -433,12 +309,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_fwd_tc(
     __syncwarp();
     pin(s);
     wg_fence();
-    issue_qk<T, DH>(s, q_at, kv_at);
+    issue_nt<T, DH, TC_BQ * 128, TC_BK * 128>(s, q_at, kv_at);
     wg_commit();
     wg_wait<0>();
     pin(s);
     online_softmax(s, m, l, corr, p, 0, qrow, row_lo, lane);
-    p_fragments<T>(s, ph, pl);
+    a_fragments<T>(s, ph, pl);
     // Tile t's scores go to the tensor cores ahead of tile t-1's P.V; the
     // softmax of tile t then runs while P.V of tile t-1 is in flight.
     for (int t = 1; t < n_live; ++t) {
@@ -451,9 +327,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_fwd_tc(
       pin(ph);
       pin(pl);
       wg_fence();
-      issue_qk<T, DH>(s, q_at, kv_at + st * 2 * KV_BYTES);
+      issue_nt<T, DH, TC_BQ * 128, TC_BK * 128>(s, q_at, kv_at + st * 2 * KV_BYTES);
       wg_commit();
-      issue_pv<T, DH>(o, ph, pl, kv_at + sp * 2 * KV_BYTES + KV_BYTES);
+      issue_rs<T, DH, TC_BK>(o, ph, pl, kv_at + sp * 2 * KV_BYTES + KV_BYTES);
       wg_commit();
       wg_wait<1>();                      // the scores of tile t
       pin(s);
@@ -471,14 +347,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_fwd_tc(
           o[4 * j + 2 * i + 1] *= corr[i];
         }
       }
-      p_fragments<T>(s, ph, pl);
+      a_fragments<T>(s, ph, pl);
     }
     const int sl = (n_live - 1) % TC_STAGES;
     pin(o);
     pin(ph);
     pin(pl);
     wg_fence();
-    issue_pv<T, DH>(o, ph, pl, kv_at + sl * 2 * KV_BYTES + KV_BYTES);
+    issue_rs<T, DH, TC_BK>(o, ph, pl, kv_at + sl * 2 * KV_BYTES + KV_BYTES);
     wg_commit();
     wg_wait<0>();
     pin(o);
@@ -672,31 +548,6 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A [B, S, H, Dh] view as a 4-d tensor map (channels, rows, heads, batch),
-// boxes of 64 channels x `rows` rows in the 128-byte swizzle; channels past
-// Dh and rows past S read as zeros. Strides in elements, 16-byte multiples
-// (a dimension of size 1 takes any).
-template <typename T>
-bool encode_view(CUtensorMap* map, const void* ptr, int dh, int s, int h,
-                 int b, int64_t ss, int64_t sh, int64_t sb, int rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(s > 1 ? ss * 2 : 16),
-      static_cast<cuuint64_t>(h > 1 ? sh * 2 : 16),
-      static_cast<cuuint64_t>(b > 1 ? sb * 2 : 16)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, kMapType<T>, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int DH>
 cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<DH>();
@@ -736,15 +587,6 @@ cudaError_t launch_dh(const Params& p, int dh, cudaStream_t stream) {
     case 128: return launch_one<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// A 16-bit [B, S, H, Dh] view TMA can read: 16-byte aligned, and every
-// stride of a dimension longer than 1 a positive multiple of 8 elements.
-bool aligned16(const void* ptr, int b, int64_t sb, int s, int64_t ss, int h,
-               int64_t sh) {
-  auto ok = [](int n, int64_t st) { return n == 1 || (st > 0 && st % 8 == 0); };
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && ok(b, sb) &&
-         ok(s, ss) && ok(h, sh);
 }
 
 }  // namespace

@@ -19,12 +19,13 @@ against a longer KV.
 
 :func:`flash_attention_bwd` is the VJP (dQ, dK, dV) from the forward's
 per-row log-sum-exp (``lse=``, an optional output of the forward launch),
-``csrc/flash_attention_bwd.cu``: three device launches a call, none of
-which materialises the scores. :func:`flash_attention_bwd_plain` is its
-plain version (it does materialise them, one KV head at a time), and
-:class:`FlashAttentionFn` the ``torch.autograd.Function`` of the pair, with
-the same CPU/CUDA rule. ``flash_attention_bwd.launches`` counts calls on
-the card, by instance ``launches_mma`` (16-bit) and ``launches_scalar``
+``csrc/flash_attention_bwd.cu``: two device launches a call (Di and dQ,
+then dK and dV), neither of which materialises the scores.
+:func:`flash_attention_bwd_plain` is its plain version (it does
+materialise them, one KV head at a time), and :class:`FlashAttentionFn`
+the ``torch.autograd.Function`` of the pair, with the same CPU/CUDA rule.
+``flash_attention_bwd.launches`` counts calls on the card, by instance
+``launches_tc`` (16-bit: the wgmma kernels) and ``launches_scalar``
 (float32), and ``kernel_launches`` the device launches.
 """
 from __future__ import annotations
@@ -328,16 +329,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err}")
     with _count_lock:
         flash_attention_bwd.launches += 1
-        flash_attention_bwd.kernel_launches += 3
+        flash_attention_bwd.kernel_launches += 2
         if q.dtype == torch.float32:
             flash_attention_bwd.launches_scalar += 1
         else:
-            flash_attention_bwd.launches_mma += 1
+            flash_attention_bwd.launches_tc += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_mma = 0
+flash_attention_bwd.launches_tc = 0
 flash_attention_bwd.launches_scalar = 0
 flash_attention_bwd.kernel_launches = 0
 

@@ -1234,6 +1234,33 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda, case, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_bwd_is_deterministic_on_card(cuda, dtype):
+    """Two calls on the same inputs give the same bytes (each output
+    element is summed by one thread in a fixed order; no atomics), at a
+    causal GQA shape with ragged tiles and q_offset; each call is two
+    device launches on the 16-bit wgmma instance."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    B, Sq, Skv, Hq, Hkv, Dh, off = 2, 700, 764, 16, 4, 128, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, do = (torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    lse = torch.empty(B, Hq, Sq, device=cuda)
+    o = flash_attention(q, k, v, q_offset=off, lse=lse)
+    fb = flash_attention_bwd
+    before = (fb.launches, fb.launches_tc, fb.kernel_launches)
+    first = flash_attention_bwd(q, k, v, o, do, lse, q_offset=off)
+    second = flash_attention_bwd(q, k, v, o, do, lse, q_offset=off)
+    torch.cuda.synchronize()
+    assert (fb.launches, fb.launches_tc, fb.kernel_launches) == \
+        (before[0] + 2, before[1] + 2, before[2] + 4)
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a.float()).all())
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_no_silent_gradient_loss_on_card(cuda, dtype):
     """After one loss.backward() on a tiny llama-shaped model on the card,
