@@ -74,6 +74,22 @@ failure:
    other (first-token logits within 2e-2 x max|logit|; tokens equal up to
    the first near tie, a step whose reference top-two logits differ by
    less than that).
+4b. Fleet path (slice 11): the same llama-7b model, one copy of its
+   parameters, behind ``Router`` with three ``Engine`` replicas on the
+   card, each worker thread on a CUDA stream of its own, each replica
+   with its own pinned host pool (``HostPool``) and heartbeat (60 s
+   timeout); tickets travel as host bytes over a priced, slept link that
+   models a NIC between hosts. Phase 4's traffic and configuration with
+   one row a replica and preemption every 2 steps (FLEET_BUCKETS says
+   why). After ``naive_generate`` of all 12 requests and a warm-up burst:
+   a steady run (least-loaded), then one chaos run per placement policy
+   with replica-0 armed before any submit to die after 6 decode steps,
+   its requests drained warm (KV over the link) or cold (re-prefill);
+   then a warm ticket exported by hand from one engine, encoded, decoded
+   and imported into another. ``fleet_phase`` states the rules. Each run
+   prints wall, tokens/s, TTFT p50/p95, warm and cold migrations, link
+   bytes and (chaos) its tokens/s over the steady run's, which is not
+   gated: three replicas on one card share its compute.
 5. MoE serving path (slice 3): the llama model is freed first. Then
    moonshot-v1-16b-a3b at full width and full depth (48 layers, d_model
    2048, 64 experts of 1408, top-6, vocab 163,840, bfloat16; random
@@ -160,10 +176,12 @@ failure:
       tensor's rms for rows whose exact gradient vanishes) of
       ``flash_attention_bwd_plain``, which computes its own log-sum-exp
       and materialises the scores one KV head at a time; the forward's
-      lse within 1e-5 of the plain one. Library times: ``F.rms_norm``
+      lse within 1e-5 of the plain one at every shape (``lse_plain`` one
+      batch row at a time). Library times: ``F.rms_norm``
       forward + backward through autograd, and the backward of
-      ``F.scaled_dot_product_attention`` through autograd (yardsticks the
-      port never calls). Bounds as phase 2's, the backward's operations
+      ``F.scaled_dot_product_attention`` through autograd, and at the
+      training shapes SDPA's forward beside the flash forward's
+      (yardsticks the port never calls). Bounds as phase 2's, the backward's operations
       2.5 times the forward's (five products).
    b. Gradient check: llama-7b with LoRA, 32 layers, 1 x 4096 tokens
       (``SyntheticLMStream``, seed 0), base weights from
@@ -370,6 +388,29 @@ SERVE_RTOL = 2e-2
 # probabilities within this fraction of the k-th (see phase 5)
 ROUTE_RTOL = 1e-3
 MOE_ARCH = "moonshot-v1-16b-a3b"
+# the fleet (phase 4b): three replicas of the serving model on the card.
+# serve_config("fixed") with one row a replica and preemption every 2
+# decode steps, as the reference's warm-ticket tests run
+# (tests/test_router.py). A replica's drained request ships warm only if it
+# was swapped out, and only requests that wait force a swap: with buckets
+# up to 8 the 12 requests never wait (4 to a replica), and with preemption
+# every 8 steps none is swapped before a kill at step 6. With one row, any
+# replica that holds two requests swaps from step 2 on, whatever the
+# placement. A host pool of two requests' KV refused every warm import on
+# the CPU rehearsal (the survivors' pools full of their own mirrors), so
+# each replica's pool holds FLEET_HOST_REQUESTS max_len requests' KV.
+FLEET_REPLICAS = 3
+FLEET_BUCKETS = (1,)
+FLEET_PREEMPT = 2
+FLEET_KILL_STEP = 6                # the victim's decode steps at its kill
+FLEET_HOST_REQUESTS = 8            # host pool per replica: this many
+#                                    max_len requests' KV
+FLEET_WARM_REQUESTS = 3            # the hand-moved warm ticket's burst
+FLEET_WAIT_S = 600.0
+# what a closed fleet may leave allocated: a cuBLAS and a cuBLASLt
+# workspace for each replica's (worker thread, CUDA stream) pair
+FLEET_MEM_SLACK = FLEET_REPLICAS * (CUBLAS_WS_BYTES + CUBLASLT_WS_BYTES)
+FLEET_THREADS = ("router-", "nic", "serve-dma-")
 GMM_PREFILL_TOKENS = 8 * 768       # the serving prefill's largest call
 GMM_DECODE_TOKENS = 8              # a bucket-8 decode step
 GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 64, 64), (8, 16, 48, 32)]
@@ -1324,6 +1365,273 @@ def run_serving(torch, device, model, params, prompts, *,
     return launches
 
 
+def _same_bytes(torch, a, b) -> bool:
+    """Two tensors of one dtype and shape hold the same bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                            b.contiguous().view(-1).view(torch.uint8)))
+
+
+def _fleet_threads() -> list[str]:
+    """Names of live threads the fleet owns, after a 10 s grace."""
+    import threading
+    deadline = time.monotonic() + 10
+    while True:
+        alive = [t.name for t in threading.enumerate() if t.is_alive()
+                 and any(t.name.startswith(p) for p in FLEET_THREADS)]
+        if not alive or time.monotonic() > deadline:
+            return alive
+        time.sleep(0.05)
+
+
+def fleet_phase(torch, device, model, params, prompts, *,
+                max_new: int = SERVE_MAX_NEW, profile: bool = False) -> dict:
+    """Phase 4b: the serving model behind ``Router`` with FLEET_REPLICAS
+    replicas on one card, each with a host pool of FLEET_HOST_REQUESTS x
+    max_len tokens' KV, heartbeats timing out after 60 s. One warm-up
+    burst; a steady run (least-loaded, no fault); a chaos run under each
+    placement policy, replica-0 armed before any submit to die after
+    FLEET_KILL_STEP decode steps; then a warm ticket moved by hand
+    between two engines. The rules, fixed before the phase first ran on
+    the card: every request completes; each chaos run kills one replica
+    and moves at least one warm ticket; every run's tokens equal
+    naive_generate's, and the steady run's, up to the first near tie;
+    after close() no fleet thread is left, the allocated bytes fall back
+    to within FLEET_MEM_SLACK of the run's start, and each surviving pool
+    peaked within its capacity and drained to zero; the warm ticket (from
+    a burst of the first FLEET_WARM_REQUESTS requests) lands its bytes
+    unchanged and its request finishes by the same rule.
+    Returns the kernels' launches over the runs."""
+    import threading
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.launch.mesh import FleetTopology
+    from repro_torch.serve import (PLACEMENT_POLICY_NAMES, Engine,
+                                   PagedKVCache, ReplicaKilled, Router,
+                                   decode_ticket, encode_ticket,
+                                   naive_generate)
+
+    cfg = model.cfg
+    L, vocab = cfg.n_layers, cfg.vocab_size
+    cuda = device.type == "cuda"
+    scfg = dataclasses.replace(serve_config("fixed"),
+                               batch_buckets=FLEET_BUCKETS,
+                               preempt_every=FLEET_PREEMPT)
+    kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm}
+    token_nbytes = int(PagedKVCache(model, 1, scfg.block_size,
+                                    block_size=scfg.block_size).token_nbytes)
+    topo = FleetTopology(
+        n_replicas=FLEET_REPLICAS, heartbeat_timeout_s=60.0,
+        host_bytes_per_replica=FLEET_HOST_REQUESTS * scfg.max_len
+        * token_nbytes)
+    print(f"fleet: {FLEET_REPLICAS} replicas of {cfg.name} sharing one copy "
+          f"of the parameters; buckets {scfg.batch_buckets}, block "
+          f"{scfg.block_size}, preempt_every {scfg.preempt_every}, max_len "
+          f"{scfg.max_len}; host pool {topo.host_bytes_per_replica} B a "
+          f"replica; nic {topo.nic_bw:.3g} B/s + {topo.nic_latency:g} s "
+          f"(a modelled link between hosts, slept)", flush=True)
+
+    t = time.perf_counter()
+    oracle, oracle_margins = [], []
+    for i, p in enumerate(prompts):
+        rows: list = []
+        oracle.append(naive_generate(
+            model, params, p, max_new=max_new, max_len=scfg.max_len, rid=i,
+            on_emit=lambda pos, row, rows=rows: rows.append(
+                _margin(row, vocab))))
+        oracle_margins.append(rows)
+    _phase("fleet oracle (naive_generate)", t)
+
+    t = time.perf_counter()
+    with Router(model, params, scfg, topology=topo) as warm:
+        warm.wait([warm.submit(p[:64], max_new=2)
+                   for p in prompts[:FLEET_REPLICAS]], timeout=FLEET_WAIT_S)
+    del warm
+    _phase("fleet warm-up (a replica's first forward in its thread)", t)
+
+    launches = dict.fromkeys(kernels, 0)
+    steady = None
+    runs = [("steady", "least-loaded", None)] + [
+        ("chaos", pol, FLEET_KILL_STEP) for pol in PLACEMENT_POLICY_NAMES]
+    for label, placement, kill in runs:
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        margins: dict[int, list] = {i: [] for i in range(len(prompts))}
+        router = Router(model, params, scfg, topology=topo,
+                        placement=placement)
+        try:
+            for rep in router.replicas:
+                rep.engine.on_emit = (lambda req, row, m=margins:
+                                      m[req.rid].append(_margin(row, vocab)))
+            if kill is not None:         # armed before any submit
+                router.replicas[0].engine.fault_after_steps = kill
+            for fn in kernels.values():  # the fleet path starts here
+                reset_launches(fn)
+            t0 = time.perf_counter()
+            rids = [router.submit(p, max_new=max_new) for p in prompts]
+            router.wait(rids, timeout=FLEET_WAIT_S)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {name: fn.launches for name, fn in kernels.items()}
+            fa_tc = flash_attention.launches_tc
+            outs = [router.result(r) for r in rids]
+            summ = router.summary()
+            ttft = [x for v in router.ttft_samples().values() for x in v]
+            stats = [rep.engine.stats for rep in router.replicas]
+            pools = []
+            for rep in router.replicas:
+                if rep.pool is None or rep.closed:
+                    continue
+                deadline = time.monotonic() + 30     # eventual, not instant
+                while (not rep.pool.drained
+                       and time.monotonic() < deadline):
+                    time.sleep(0.005)
+                pools.append((rep.name, rep.pool.peak_bytes,
+                              rep.pool.capacity, rep.pool.drained))
+            alive = [rep.alive for rep in router.replicas]
+        finally:
+            router.close()
+        del router
+        leaked = _fleet_threads()
+        gc.collect()
+        left = (torch.cuda.memory_allocated() - base) if cuda else 0
+        prefills = sum(s.prefill_calls for s in stats)
+        steps = sum(s.decode_steps for s in stats)
+        want = {"flash_attention": L * prefills,
+                "rmsnorm": (2 * L + 1) * (prefills + steps)}
+        tokens = sum(len(o) for o in outs)
+        decode_tokens = sum(s.decode_tokens for s in stats)
+        full = sum(agree_to_first_tie(oracle[i], outs[i], oracle_margins[i])
+                   for i in range(len(prompts)))
+        vs_steady = ""
+        if steady is not None:
+            same = sum(agree_to_first_tie(steady["outs"][i], outs[i],
+                                          steady["margins"][i])
+                       for i in range(len(prompts)))
+            vs_steady = (f" match_steady_in_full {same}/{len(prompts)} "
+                         f"tokens_s/steady "
+                         f"{(tokens / wall) / steady['tokens_s']:.4f}")
+        p50, p95 = (np.percentile(ttft, q) for q in (50, 95))
+        print(f"fleet {label} placement={placement} kill_step={kill}: "
+              f"wall_s {wall:.3f} tokens {tokens} tokens_s "
+              f"{tokens / wall:.2f} decode_tok_s {decode_tokens / wall:.2f} "
+              f"ttft_p50_s {p50:.4f} ttft_p95_s {p95:.4f} completed "
+              f"{summ['completed']}/{len(prompts)} replicas_killed "
+              f"{summ['replicas_killed']} migrations_warm "
+              f"{summ['migrations']} migrations_cold {summ['reprefills']} "
+              f"migrated_bytes {summ['migrated_bytes']} nic_bytes "
+              f"{summ['nic']['shipped_bytes']} nic_transfers "
+              f"{summ['nic']['transfers']} drain_s {summ['drain_time']:.3f} "
+              f"prefill_calls {prefills} decode_steps {steps} swaps "
+              f"{sum(s.swaps for s in stats)} replica_seconds (prefill, "
+              f"decode, stall; summed over replicas, host clock) "
+              f"{sum(s.prefill_time for s in stats):.3f} "
+              f"{sum(s.decode_time for s in stats):.3f} "
+              f"{sum(s.stall_time for s in stats):.3f} decode_ms_per_step "
+              f"{1e3 * sum(s.decode_time for s in stats) / max(steps, 1):.2f} "
+              f"flash_attention_launches {n['flash_attention']} (= "
+              f"{want['flash_attention']}) rmsnorm_launches {n['rmsnorm']} "
+              f"(= {want['rmsnorm']}) flash_attention_launches_tc {fa_tc} "
+              f"pools (name, peak, capacity, drained) {pools} "
+              f"allocated_after_close-start {left} match_naive_in_full "
+              f"{full}/{len(prompts)}{vs_steady}", flush=True)
+        assert [len(o) for o in outs] == [max_new] * len(prompts), \
+            "a request fell short"
+        assert summ["completed"] == len(prompts)
+        assert not leaked, f"fleet threads left after close(): {leaked}"
+        assert left <= FLEET_MEM_SLACK, \
+            f"{left} B still allocated after the fleet closed"
+        for name, peak, cap, drained in pools:
+            assert peak <= cap and drained, (name, peak, cap, drained)
+        if kill is None:
+            assert summ["replicas_killed"] == 0 and all(alive)
+            steady = dict(outs=outs, margins=margins, tokens_s=tokens / wall)
+        else:
+            assert summ["replicas_killed"] == 1 and not alive[0]
+            assert summ["migrations"] >= 1, "no warm ticket moved"
+        if cuda:
+            for name in kernels:
+                assert n[name] == want[name] > 0, \
+                    f"{name} launched {n[name]} times, expected {want[name]}"
+            assert_flash_on_tensor_cores(flash_attention)
+        for name in kernels:
+            launches[name] += n[name]
+
+    t = time.perf_counter()
+    a = Engine(model, params, scfg, name="warm-src")
+    b = Engine(model, params, scfg, name="warm-dst")
+    warm_prompts = prompts[:FLEET_WARM_REQUESTS]
+    for i, p in enumerate(warm_prompts):
+        a.submit(p, max_new, rid=i)
+    err: list = []
+
+    def _run():
+        try:
+            # a stream of its own, as a Router worker has
+            with (torch.cuda.stream(torch.cuda.Stream(device)) if cuda
+                  else contextlib.nullcontext()):
+                a.run()
+        except ReplicaKilled:
+            pass
+        except BaseException as e:   # noqa: BLE001 — raised below
+            err.append(e)
+
+    worker = threading.Thread(target=_run, name="serve-warm-src")
+    worker.start()
+    ticket = None
+    deadline = time.monotonic() + FLEET_WAIT_S
+    try:
+        while ticket is None and time.monotonic() < deadline and not err:
+            a.pause()
+            ticket = a.export_one_swapped()
+            if ticket is None:
+                a.resume()
+                time.sleep(0.002)
+    finally:
+        a.resume()
+    assert ticket is not None and not err, f"no warm ticket: {err}"
+    blob = encode_ticket(ticket)
+    b.import_migration(decode_ticket(blob))
+    same = all(_same_bytes(torch, b.host.peek_offload((ticket.rid, j))[k],
+                          want[k])
+               for j, want in enumerate(ticket.blocks) for k in want)
+    worker.join(timeout=FLEET_WAIT_S)
+    assert not worker.is_alive() and not err, err
+    b.run()
+    outs = {rid: list(req.out) for eng in (a, b)
+            for rid, req in eng.reqs.items()}
+    full = sum(agree_to_first_tie(oracle[i], outs[i], oracle_margins[i])
+               for i in range(len(warm_prompts)))
+    print(f"fleet warm ticket: rid {ticket.rid} pos {ticket.pos} "
+          f"{len(ticket.blocks)} blocks, {len(blob)} B on the wire; imported "
+          f"host bytes equal to the exported {same}; migrations_out "
+          f"{a.stats.migrations_out} migrations_in {b.stats.migrations_in}; "
+          f"tokens of rid {ticket.rid} {len(outs[ticket.rid])}; "
+          f"match_naive_in_full {full}/{len(warm_prompts)}", flush=True)
+    assert same, "the imported blocks differ from the exported ones"
+    assert a.stats.migrations_out == 1 and b.stats.migrations_in == 1
+    assert len(outs[ticket.rid]) == max_new
+    a.close()
+    b.close()
+    del a, b
+    _phase("fleet warm ticket", t)
+    if profile:
+        def fleet_run() -> float:
+            gc.collect()
+            with Router(model, params, scfg, topology=topo) as router:
+                t0 = time.perf_counter()
+                router.wait([router.submit(p, max_new=max_new)
+                             for p in prompts], timeout=FLEET_WAIT_S)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+        profile_run(torch, "fleet steady placement=least-loaded", fleet_run)
+    return launches
+
+
 def build_main_path(*, arch=None, seq_len=MAIN_SEQ, n_layers=MAIN_LAYERS,
                     head_group=8, q_block=512, mlp_slices=2,
                     dtype="float16", budgets_gib=(3.0, 1.5)):
@@ -2268,8 +2576,11 @@ def flash_bwd_phase(torch, device) -> dict:
                 .to(dt) for _ in range(2))
         lse = torch.empty(B, Hq, Sq, device=device)
         o = flash_attention(q, k, v, causal=causal, q_offset=off, lse=lse)
-        lse_err = (lse - lse_plain(q, k, causal, off)).abs().max().item() \
-            if not timed else float("nan")
+        # one batch row at a time: the plain scores of 4 x 4096 x 4096 x 32
+        # heads in f32 are 8.6 GB
+        lse_err = max((lse[b:b + 1] - lse_plain(q[b:b + 1], k[b:b + 1],
+                                                causal, off))
+                      .abs().max().item() for b in range(B))
         got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                   q_offset=off)
         torch.cuda.synchronize()
@@ -2304,6 +2615,11 @@ def flash_bwd_phase(torch, device) -> dict:
                 reps=3)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
+            with torch.no_grad():
+                lib_fwd_ms = _median_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv),
+                    torch, flush, reps=10)
             ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                 enable_gqa=Hq != Hkv)
             dot = do.transpose(1, 2)
@@ -2316,7 +2632,8 @@ def flash_bwd_phase(torch, device) -> dict:
             line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
                      f"{lib_ms:.4f} (SDPA backward) bound_ms {bound_ms:.4f} "
                      f"({bound_by}) forward_ms {fwd_ms:.4f} with lse "
-                     f"{fwd_lse_ms:.4f} "
+                     f"{fwd_lse_ms:.4f} library_forward_ms {lib_fwd_ms:.4f} "
+                     f"(SDPA forward) "
                      + rate(train_ops_bwd(B, Sq, Skv, Hq, Dh, causal, off),
                             k_ms, bound_ms))
             if main is None:
@@ -3001,6 +3318,10 @@ def main(argv: list[str]) -> int:
     run_serving(torch, device, model, params, prompts,
                 profile="--profile" in argv)
     _phase("serving path", t)
+    t = time.perf_counter()
+    fleet_phase(torch, device, model, params, prompts,
+                profile="--profile" in argv)
+    _phase("fleet path", t)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -23,7 +23,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["inputs_from_reference", "params_from_reference", "host_tensor",
-           "numpy_bytes", "tensor_from_bytes"]
+           "numpy_bytes", "tensor_from_bytes", "dtype_name"]
 
 
 def _from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -72,10 +72,16 @@ def params_from_reference(params: dict, *,
             for k, v in params.items()}
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype's name as numpy (and ml_dtypes) spell it:
+    ``"bfloat16"``, ``"float32"``."""
+    return str(dtype).removeprefix("torch.")
+
+
 def numpy_bytes(t: torch.Tensor) -> tuple[str, np.ndarray]:
     """``t`` as (dtype name, contiguous numpy array of its bytes)."""
     t = t.detach().cpu().contiguous()
-    name = str(t.dtype).removeprefix("torch.")
+    name = dtype_name(t.dtype)
     if t.dtype == torch.bfloat16:
         return name, t.view(torch.uint16).numpy()
     return name, t.numpy()

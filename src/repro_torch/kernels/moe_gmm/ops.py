@@ -18,6 +18,12 @@ counts the kernel's launches from both, and by instance:
 ``launches_mma`` (other 16-bit views: mma.sync with element loads) and
 ``launches_scalar`` (float32). The kernel masks the ragged edges itself,
 so unlike the reference wrapper this one pads nothing.
+
+Under grad on the card :func:`grouped_matmul` goes through
+:class:`GroupedMatmulFn`: the forward on the kernel, the gradient through
+:func:`grouped_matmul_plain` (:mod:`repro_torch.kernels.plain_grad`). The
+rows and the weights get gradients; the integer offsets and counts, the
+routing, get none, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,8 +32,10 @@ import threading
 
 import torch
 
+from ..plain_grad import needs_grad, plain_grads
+
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "moe_gmm",
-           "moe_gmm_plain"]
+           "moe_gmm_plain", "GroupedMatmulFn"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _count_lock = threading.Lock()
@@ -104,6 +112,25 @@ def _wgmma_view(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> bool:
                                          out.stride(0))))
 
 
+class GroupedMatmulFn(torch.autograd.Function):
+    """:func:`grouped_matmul` under grad. ``kernel(x, w, offsets, counts)``
+    computes the forward (the card's launch; a test may pass a stand-in);
+    only the inputs are saved, and the backward differentiates
+    :func:`grouped_matmul_plain` at them."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets, counts, kernel):
+        ctx.save_for_backward(x, w, offsets, counts)
+        return kernel(x, w, offsets, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offsets, counts = ctx.saved_tensors
+        dx, dw = plain_grads(grouped_matmul_plain, (x, w),
+                             ctx.needs_input_grad[:2], dy, offsets, counts)
+        return dx, dw, None, None, None
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                    counts: torch.Tensor, *,
                    out: torch.Tensor | None = None) -> torch.Tensor:
@@ -111,12 +138,23 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
     count c (int32, on x's device), accumulated in f32 and written in
     ``x.dtype``. The groups must be disjoint ranges of ``[0, R)``; rows in
     no group are left as they are in ``out`` (uninitialised on the card
-    when ``out`` is None). Written into ``out`` when given."""
+    when ``out`` is None). Written into ``out`` when given, which autograd
+    cannot follow."""
     _check(x, w, offsets, counts, out)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, offsets, counts, out=out)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: no kernel for device {x.device}")
+    if needs_grad(x, w):
+        if out is not None:
+            raise ValueError("grouped_matmul: out= under grad cannot be "
+                             "differentiated")
+        return GroupedMatmulFn.apply(x, w, offsets, counts, _launch)
+    return _launch(x, w, offsets, counts, out)
+
+
+def _launch(x, w, offsets, counts, out=None) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors."""
     R, D = x.shape
     E, _, F = w.shape
     if out is None:

@@ -19,6 +19,10 @@ kernel does; the model's decode step, which carries a state, uses its own
 recurrence (``models/rwkv.py::wkv6_chunked``). The kernel masks the ragged
 last chunk itself (as zero rows: lw = 0 and k = v = 0 leave the state
 unchanged), so unlike the reference wrapper this one pads nothing.
+
+Under grad on the card :func:`wkv6` goes through :class:`WKV6Fn`: the
+forward on the kernel, the gradient through :func:`wkv6_plain`
+(:mod:`repro_torch.kernels.plain_grad`).
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ import threading
 
 import torch
 
-__all__ = ["wkv6", "wkv6_plain"]
+from ..plain_grad import needs_grad, plain_grads
+
+__all__ = ["wkv6", "wkv6_plain", "WKV6Fn"]
 
 MAX_P = 64                 # what csrc/wkv6.cu is built for
 MAX_CHUNK = 64
@@ -111,6 +117,25 @@ def _check(r, k, v, lw, u, chunk) -> None:
         raise ValueError(f"wkv6: chunk must be an int >= 1, got {chunk!r}")
 
 
+class WKV6Fn(torch.autograd.Function):
+    """:func:`wkv6` under grad. ``kernel(r, k, v, lw, u, chunk)`` computes
+    the forward (the card's launch; a test may pass a stand-in); only the
+    inputs are saved, and the backward differentiates :func:`wkv6_plain`
+    at them."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, chunk, kernel):
+        ctx.save_for_backward(r, k, v, lw, u)
+        ctx.chunk = chunk
+        return kernel(r, k, v, lw, u, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = plain_grads(wkv6_plain, ctx.saved_tensors,
+                            ctx.needs_input_grad[:5], dy, chunk=ctx.chunk)
+        return (*grads, None, None)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          lw: torch.Tensor, u: torch.Tensor, *, chunk: int = 32
          ) -> torch.Tensor:
@@ -123,6 +148,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_plain(r, k, v, lw, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
+    if needs_grad(r, k, v, lw, u):
+        return WKV6Fn.apply(r, k, v, lw, u, chunk, _launch)
+    return _launch(r, k, v, lw, u, chunk)
+
+
+def _launch(r, k, v, lw, u, chunk) -> torch.Tensor:
+    """The kernel's three launches on checked CUDA tensors."""
     B, S, H, P = r.shape
     for name, t in (("k", k), ("v", v), ("lw", lw)):
         if t.dtype != r.dtype:

@@ -18,6 +18,10 @@ The scan starts from a zero state and returns none, as the TPU kernel
 does; the model's decode step, which carries a state, uses its own
 recurrence (``models/ssm.py::_ssd_chunked``). The kernel masks the ragged
 last chunk itself, so unlike the reference wrapper this one pads nothing.
+
+Under grad on the card :func:`ssd_scan` goes through :class:`SSDScanFn`:
+the forward on the kernel, the gradient through :func:`ssd_scan_plain`
+(:mod:`repro_torch.kernels.plain_grad`).
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ import threading
 
 import torch
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+from ..plain_grad import needs_grad, plain_grads
+
+__all__ = ["ssd_scan", "ssd_scan_plain", "SSDScanFn"]
 
 MAX_P = 64                 # what csrc/ssd_scan.cu is built for
 MAX_N = 64
@@ -113,6 +119,25 @@ def _check(xh, dt, A, Bm, Cm, chunk) -> None:
         raise ValueError(f"ssd_scan: chunk must be an int >= 1, got {chunk!r}")
 
 
+class SSDScanFn(torch.autograd.Function):
+    """:func:`ssd_scan` under grad. ``kernel(xh, dt, A, Bm, Cm, chunk)``
+    computes the forward (the card's launch; a test may pass a stand-in);
+    only the inputs are saved, and the backward differentiates
+    :func:`ssd_scan_plain` at them."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk, kernel):
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return kernel(xh, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = plain_grads(ssd_scan_plain, ctx.saved_tensors,
+                            ctx.needs_input_grad[:5], dy, chunk=ctx.chunk)
+        return (*grads, None, None)
+
+
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *,
              chunk: int = 128) -> torch.Tensor:
@@ -125,6 +150,13 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_plain(xh, dt, A, Bm, Cm, chunk=chunk)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
+    if needs_grad(xh, dt, A, Bm, Cm):
+        return SSDScanFn.apply(xh, dt, A, Bm, Cm, chunk, _launch)
+    return _launch(xh, dt, A, Bm, Cm, chunk)
+
+
+def _launch(xh, dt, A, Bm, Cm, chunk) -> torch.Tensor:
+    """The kernel's three launches on checked CUDA tensors."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):

@@ -1,1 +1,2 @@
-"""Entry points: the training driver (``train.py``)."""
+"""Entry points: the training loop (``train.py``) and the fleet
+topology the serving router takes (``mesh.py``)."""

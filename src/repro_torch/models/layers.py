@@ -11,10 +11,10 @@ torch, as the reference computes it outside any Pallas kernel.
 Gradients: :func:`rmsnorm` and :func:`blockwise_attention` go through
 ``autograd.Function``s whose backward is a kernel too (``RMSNormFn``,
 ``FlashAttentionFn``). The grouped matmul, the SSD scan and WKV6 have no
-backward kernel yet: on CUDA their callers raise (:func:`no_backward`)
-when a gradient would have to pass through them, rather than return an
-output that autograd cannot differentiate. On the CPU they stay plain
-torch and differentiable.
+backward kernel yet: under grad on CUDA their forward still runs the
+kernel, and their gradient is their plain version's, recomputed
+(``GroupedMatmulFn``, ``SSDScanFn``, ``WKV6Fn``; ROADMAP B5 replaces it).
+On the CPU they stay plain torch and differentiable.
 
 Parameters are dicts of tensors with the reference's keys. ``*_init``
 functions draw with the reference's distributions and scales from an
@@ -33,12 +33,13 @@ from ..core.device import resolve_device
 from ..kernels.flash_attention.ops import (FlashAttentionFn, NEG_INF,
                                            flash_attention)
 from ..kernels.moe_gmm.ops import grouped_matmul
+from ..kernels.plain_grad import needs_grad
 from ..kernels.rmsnorm.ops import RMSNormFn, rmsnorm as _rmsnorm_kernel
 
 __all__ = ["rmsnorm", "layernorm", "rope", "blockwise_attention",
            "decode_attention", "decode_attention_q8", "AttnParamsSpec",
            "attention_block", "swiglu_mlp", "gelu_mlp", "mlp_init", "moe_init",
-           "moe_route", "moe_block", "randn", "no_backward"]
+           "moe_route", "moe_block", "randn"]
 
 
 def randn(gen: torch.Generator, shape, dtype: torch.dtype, scale: float,
@@ -48,26 +49,6 @@ def randn(gen: torch.Generator, shape, dtype: torch.dtype, scale: float,
     dev = resolve_device(device)
     t = torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
     return t.mul_(scale).to(dev)
-
-
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def no_backward(kernel: str, *tensors) -> None:
-    """Raise when a gradient would have to pass through ``kernel`` on the
-    card: grad mode on and one of ``tensors`` (inputs and parameters of the
-    call) requiring a gradient. The kernel writes an output that autograd
-    cannot differentiate, and it has no backward kernel yet (ROADMAP B5).
-    On the CPU the kernels' plain versions are differentiable torch."""
-    if not torch.is_grad_enabled():
-        return
-    for t in tensors:
-        if t.device.type == "cuda" and t.requires_grad:
-            raise RuntimeError(
-                f"{kernel} has no backward kernel yet (ROADMAP B5): a "
-                f"gradient through it on CUDA is not supported; run under "
-                f"torch.no_grad() or on the CPU")
 
 
 # --------------------------------------------------------------------------
@@ -81,7 +62,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None,
     if gamma is None:
         var = x.float().square().mean(dim=-1, keepdim=True)
         return x * torch.rsqrt(var + eps).to(x.dtype)
-    if _needs_grad(x, gamma):
+    if needs_grad(x, gamma):
         return RMSNormFn.apply(x, gamma, eps)
     return _rmsnorm_kernel(x, gamma, eps=eps)
 
@@ -134,7 +115,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's XLA block size; the kernel keeps its own tiles, so it is
     accepted and not used."""
     del block_kv
-    if _needs_grad(q, k, v):
+    if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, int(q_offset))
     # no gradient: the forward alone, without the log-sum-exp
     return flash_attention(q, k, v, causal=causal, q_offset=int(q_offset))
@@ -354,7 +335,6 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         keep = (pos < C).view(T, top_k)
         gate = gate * keep
     off32, cnt32 = offsets.int(), counts.int()
-    no_backward("grouped_matmul", x, p["wi_gate"], p["wi_up"], p["wo"])
     xs = xt[perm // top_k]                                       # [T*k, D]
     h = F.silu(grouped_matmul(xs, p["wi_gate"], off32, cnt32)) \
         * grouped_matmul(xs, p["wi_up"], off32, cnt32)

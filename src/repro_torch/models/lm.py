@@ -49,8 +49,9 @@ Differences from the reference, on purpose:
   keeps only the input and moves it to pinned host memory and back
   (:mod:`.offload`). Zamba2's shared block is recomputed in full whenever
   ``remat`` is set (reference :236-238). On CUDA a gradient goes through
-  the rmsnorm and flash-attention backward kernels; through the MoE,
-  SSD and WKV6 kernels it raises (``layers.no_backward``).
+  the rmsnorm and flash-attention backward kernels; through the MoE, SSD
+  and WKV6 kernels, whose forward runs on the card, it goes through
+  their plain versions, recomputed (every decoder family trains).
 
 ``prefill`` serves the attention families only, as in the reference: a
 recurrent family's prompt pass is its decode loop. A ``vision_embeds``

@@ -159,7 +159,6 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
     lw = -torch.exp(lw).reshape(B, S, H, Pd)
 
     if state is None and not return_state:
-        L.no_backward("wkv6", r, k, v, lw, p["bonus_u"])
         y = wkv6(r, k, v, lw, p["bonus_u"], chunk=chunk)
     else:
         y, sT = wkv6_chunked(r, k, v, lw, p["bonus_u"], chunk=chunk,

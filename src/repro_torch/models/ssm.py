@@ -147,7 +147,6 @@ def ssd_block(p: dict, x: torch.Tensor, *, d_state: int = 64,
     Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
     c = min(chunk, max(S, 1))
     if state is None and not return_state:
-        L.no_backward("ssd_scan", xh, dt, A, Bf, Cf)
         y = ssd_scan(xh.contiguous(), dt, A, Bf, Cf, chunk=c)
     else:
         y, hT = _ssd_chunked(xh, dt, A, Bf, Cf, chunk=c, h0=state)

@@ -58,10 +58,18 @@ padding, offload and reload order, and :func:`naive_generate` is the
 unbatched oracle any engine configuration must match. Greedy sampling is
 the reference's.
 
-The fleet seams of the reference (migration tickets, hard-kill, pause,
-per-step hooks, time-to-first-token stamps) wait for the router's port;
-its fused DMA submissions (``fuse_dma``), which no test or benchmark
-turns on, are not ported.
+The fleet seams (DESIGN.md §16) are the reference's: ``submit(rid=)``
+pins a router-allocated id; ``on_step`` beats a heartbeat off the lock;
+``hard_kill``, ``fault_after_steps`` and ``pause``/``resume`` are the
+fault seams; ``drain_tickets``, ``export_one_swapped`` and
+``import_migration`` move requests between replicas as
+:class:`MigrationTicket` objects. A warm ticket's blocks are the pinned host
+copies of the offload tier, each handed to the store only after its d2h
+copy finished, so a ticket never carries a block still in flight; a
+killed replica's run loop joins its DMA threads before it returns, and
+:meth:`Engine.close` drops its device cache. The reference's fused DMA
+submissions (``fuse_dma``), which no test or benchmark turns on, are not
+ported.
 """
 from __future__ import annotations
 
@@ -75,6 +83,7 @@ import numpy as np
 import torch
 
 from ..core import lockcheck
+from ..core.bridge import dtype_name
 from ..core.dispatch import D2H, DISK, H2D, DispatchPolicy
 from ..core.executor import select_best
 from ..core.liveness import (LeaseSpec, LivenessCertificate,
@@ -86,11 +95,48 @@ from .kv_cache import PagedKVCache
 
 __all__ = ["ServeConfig", "Engine", "Request", "ServeStats",
            "ReloadPolicy", "RELOAD_POLICY_NAMES", "get_reload_policy",
+           "ReplicaKilled", "MigrationRefused", "MigrationTicket",
            "naive_generate"]
 
 # request lifecycle
 QUEUED, RUNNING, SWAPPING, SWAPPED, RELOADING, DONE = (
     "queued", "running", "swapping-out", "swapped", "reloading", "done")
+
+
+class ReplicaKilled(RuntimeError):
+    """The replica's run loop was hard-killed (``hard_kill()`` or
+    ``fault_after_steps``): device state is gone, but the host/disk tiers,
+    owned by the host process, survive for draining."""
+
+
+class MigrationRefused(RuntimeError):
+    """All-or-nothing import refused: the destination could not reserve the
+    whole KV set against its lease, or the ticket failed validation.
+    Nothing landed; the caller falls back to cold re-prefill."""
+
+
+@dataclasses.dataclass
+class MigrationTicket:
+    """A request checkpointed at its last emitted token, portable between
+    replicas. ``blocks`` carries the KV payloads of a *warm* ticket (one
+    ``{leaf: CPU tensor}`` dict per block, ``read_block``'s layout);
+    ``None`` means cold: the destination re-prefills ``prompt + out``,
+    token-exact because sampling folds only (seed, rid, position)."""
+
+    rid: int
+    prompt: list[int]
+    out: list[int]
+    max_new: int
+    pos: int
+    last: int
+    block_size: int
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    blocks: "list[dict] | None" = None
+
+    @property
+    def warm(self) -> bool:
+        return self.blocks is not None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +188,10 @@ class Request:
     inflight: set[int] = dataclasses.field(default_factory=set)
     pending_reload: set[int] = dataclasses.field(default_factory=set)
     reload_data: dict[int, dict] = dataclasses.field(default_factory=dict)
+    # time-to-first-token stamps (time.monotonic() seconds), carried across
+    # migrations in the ticket
+    t_submit: float = 0.0
+    t_first: float = 0.0
 
 
 @dataclasses.dataclass
@@ -165,6 +215,9 @@ class ServeStats:
     prefetch_bytes: int = 0           # disk→host bytes staged ahead of a
     #                                   resume (subset of disk_load_bytes)
     kv_bytes_written: int = 0
+    migrations_in: int = 0            # warm tickets imported (router fleet)
+    migrations_out: int = 0           # warm tickets exported off this
+    #                                   replica (live rebalance)
 
     @property
     def offloaded_fraction(self) -> float:
@@ -473,6 +526,18 @@ class Engine:
         # observation seam: on_emit(req, row_logits) is called, engine lock
         # held, with every row of logits a token is sampled from
         self.on_emit = None
+        # ---- fleet / fault seams (serve/router.py) ----------------------
+        # on_step(engine): called once per run-loop iteration OFF the
+        # engine lock (the router beats the replica's heartbeat)
+        self.on_step = None
+        # hard_kill() (any thread) or fault_after_steps (raise once this
+        # many decode steps have run) raise ReplicaKilled out of run();
+        # its finally still joins every DMA thread
+        self._killed = False
+        self.fault_after_steps: int | None = None
+        # pause() blocks the run loop (and its heartbeats) until resume()
+        self._pause_evt = threading.Event()
+        self._pause_evt.set()
 
     # ---------------------------------------------- pool lease bookkeeping
     def pool_model(self) -> PoolConfig:
@@ -555,10 +620,12 @@ class Engine:
         self._charged[key] = (dst, entry[1])
 
     # ------------------------------------------------------------- public
-    def submit(self, prompt, max_new: int = 32) -> int:
+    def submit(self, prompt, max_new: int = 32, *,
+               rid: int | None = None) -> int:
         """Enqueue a request; returns its id. Tokens emitted will be
         ``min(max_new, max_len - len(prompt) + 1)``: the first token
-        samples from the prefill logits."""
+        samples from the prefill logits. ``rid`` pins the id (a router
+        allocates ids fleet-wide: sampling folds the rid)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -569,23 +636,52 @@ class Engine:
             raise ValueError(f"prompt of {len(prompt)} tokens exceeds "
                              f"max_len={self.cfg.max_len}")
         with self._lock:        # online use submits while run() is draining
-            rid = self._next_rid
-            self._next_rid += 1
-            self.reqs[rid] = Request(rid, prompt, max_new)
+            if rid is None:
+                rid = self._next_rid
+            elif rid in self.reqs:
+                raise ValueError(f"rid {rid} already present on replica "
+                                 f"{self.name!r}")
+            self._next_rid = max(self._next_rid, rid + 1)
+            self.reqs[rid] = Request(rid, prompt, max_new,
+                                     t_submit=time.monotonic())
             self._live.add(rid)
             self._queue.append(rid)
             self._wake.notify_all()
         return rid
 
+    def hard_kill(self) -> None:
+        """Kill the replica from any thread: the run loop raises
+        :class:`ReplicaKilled` at its next iteration. Device state is
+        considered lost; the host/disk tiers stay for :meth:`drain_tickets`."""
+        with self._lock:
+            self._killed = True
+            self._wake.notify_all()
+
+    def pause(self) -> None:
+        """Block the run loop (and its heartbeats) without killing it: the
+        silent-wedge failure a supervisor must tell from a crash."""
+        self._pause_evt.clear()
+
+    def resume(self) -> None:
+        self._pause_evt.set()
+
     def close(self) -> None:
         """Release the engine-owned store's backing resources (the disk
-        tier's temp directory) and the pool leases. Idempotent."""
+        tier's temp directory), the pool leases and the device KV cache.
+        Idempotent; call it once the run loop has returned."""
         if self._owns_host:
             self.host.close()
         if self._pool is not None:
             self._kv_lease.close()
             self._pf_lease.close()
             self._charged.clear()
+        with self._lock:
+            # device tensors: the cache and, after a kill, reloads that
+            # were never applied
+            self.kv = None
+            self._events.clear()
+            for req in self.reqs.values():
+                req.reload_data.clear()
 
     def __enter__(self) -> "Engine":
         return self
@@ -600,6 +696,164 @@ class Engine:
             if req is not None and req.state != DONE:
                 raise ValueError(f"request {rid} is {req.state}, not done")
             self.reqs.pop(rid, None)
+
+    # ------------------------------------- KV migration (DESIGN.md §16)
+    def _warm_payload_locked(self, req: Request) -> "list[dict] | None":
+        """A SWAPPED request's complete block set from the host/disk tiers
+        (``peek_offload``: no traffic counted). ``None`` unless every block
+        is present and quiescent: a warm ticket is all blocks or none. A
+        host block is a pinned copy the d2h stream finished before it
+        handed it to the store."""
+        if req.state != SWAPPED or req.inflight or req.pending_reload:
+            return None
+        blocks = []
+        for blk in range(self.kv.n_token_blocks(req.pos)):
+            data = self.host.peek_offload((req.rid, blk))
+            if data is None:
+                return None
+            blocks.append(dict(data))
+        return blocks
+
+    def _ticket_locked(self, req: Request,
+                       blocks: "list[dict] | None") -> MigrationTicket:
+        return MigrationTicket(
+            rid=req.rid, prompt=list(req.prompt), out=list(req.out),
+            max_new=req.max_new, pos=req.pos, last=req.last,
+            block_size=self.cfg.block_size,
+            t_submit=req.t_submit, t_first=req.t_first, blocks=blocks)
+
+    def drain_tickets(self) -> list[MigrationTicket]:
+        """Checkpoint every live request at its last emitted token, after
+        a kill. SWAPPED requests whose full block set survives on the
+        host/disk tiers become *warm* tickets; the rest lost their device
+        state and go *cold*. Read-only: the caller retires the engine with
+        ``close()``."""
+        tickets = []
+        with self._lock:
+            for rid in sorted(self._live):
+                req = self.reqs[rid]
+                blocks = (self._warm_payload_locked(req)
+                          if self.kv is not None else None)
+                tickets.append(self._ticket_locked(req, blocks))
+        return tickets
+
+    def export_one_swapped(self) -> MigrationTicket | None:
+        """Live rebalance: detach the *tail* of the swapped FIFO as a warm
+        ticket, releasing its local bytes, lease charges and seq entries.
+        ``None`` when no swapped request has a complete, quiescent block
+        set (an in-flight spill or prefetch defers the export)."""
+        with self._lock:
+            if self.kv is None:
+                return None
+            for i in range(len(self._swapped) - 1, -1, -1):
+                rid = self._swapped[i]
+                req = self.reqs[rid]
+                keys = [(rid, b)
+                        for b in range(self.kv.n_token_blocks(req.pos))]
+                if any(k in self._spill_inflight
+                       or k in self._prefetch_inflight for k in keys):
+                    continue
+                blocks = self._warm_payload_locked(req)
+                if blocks is None:
+                    continue
+                ticket = self._ticket_locked(req, blocks)
+                self._swapped.pop(i)
+                self._live.discard(rid)
+                self.reqs.pop(rid)
+                for k in keys:
+                    self.host.pop_offload(k)
+                    self._release_key_locked(k)
+                    self._block_seq.pop(k, None)
+                self.stats.migrations_out += 1
+                self._wake.notify_all()   # run() re-checks its live set
+                return ticket
+        return None
+
+    def load(self) -> tuple[int, int]:
+        """Placement signals for a router: (live request count, resident +
+        committed KV tokens)."""
+        with self._lock:
+            return (len(self._live),
+                    sum(max(self.reqs[r].pos, len(self.reqs[r].prompt))
+                        for r in self._live))
+
+    def import_migration(self, ticket: MigrationTicket) -> None:
+        """Admit a warm ticket in SWAPPED state: validate every payload
+        against this replica's :meth:`PagedKVCache.leaf_spec`, reserve the
+        whole block set against the kv lease, then land the bytes in the
+        host tier (pinned on CUDA), **all or nothing**: a
+        :class:`MigrationRefused` leaves no byte, charge or record behind.
+        The request resumes through the ordinary h2d reload path."""
+        if ticket.blocks is None:
+            raise MigrationRefused(
+                f"ticket {ticket.rid} is cold (no KV payload): resubmit "
+                "prompt+out for re-prefill instead")
+        if ticket.block_size != self.cfg.block_size:
+            raise MigrationRefused(
+                f"block_size mismatch: ticket has {ticket.block_size}, "
+                f"replica {self.name!r} serves {self.cfg.block_size}")
+        with self._lock:
+            if ticket.rid in self.reqs:
+                raise MigrationRefused(
+                    f"rid {ticket.rid} already present on replica "
+                    f"{self.name!r}")
+            if self.kv is None:
+                # geometry (block bytes, leaf spec) before any validation
+                bucket = self._bucket_for(1)
+                self.kv = PagedKVCache(self.model, bucket, self.cfg.max_len,
+                                       block_size=self.cfg.block_size)
+                self._slots = [None] * bucket
+                if self.kv.device.type == "cuda":
+                    # zeroed on the importing thread's stream; the run
+                    # loop writes the cache on its own
+                    torch.cuda.current_stream(self.kv.device).synchronize()
+            n_blocks = self.kv.n_token_blocks(ticket.pos)
+            if len(ticket.blocks) != n_blocks:
+                raise MigrationRefused(
+                    f"ticket {ticket.rid} carries {len(ticket.blocks)} "
+                    f"blocks for pos={ticket.pos} (want {n_blocks})")
+            spec = self.kv.leaf_spec()
+            for blk, data in enumerate(ticket.blocks):
+                if set(data) != set(spec):
+                    raise MigrationRefused(
+                        f"ticket {ticket.rid} block {blk}: leaves "
+                        f"{sorted(data)} != spec {sorted(spec)}")
+                for leaf, (shape, dtype) in spec.items():
+                    arr = data[leaf]
+                    if (tuple(arr.shape) != shape
+                            or dtype_name(arr.dtype) != dtype):
+                        raise MigrationRefused(
+                            f"ticket {ticket.rid} block {blk} leaf "
+                            f"{leaf!r}: {tuple(arr.shape)}/"
+                            f"{dtype_name(arr.dtype)} != {shape}/{dtype}")
+            charged_now = []
+            for blk in range(n_blocks):
+                if self._charge_key_locked((ticket.rid, blk),
+                                           self._kv_lease):
+                    charged_now.append((ticket.rid, blk))
+                else:
+                    for key in charged_now:
+                        self._release_key_locked(key)
+                    raise MigrationRefused(
+                        f"replica {self.name!r} cannot reserve "
+                        f"{n_blocks} blocks for ticket {ticket.rid}: "
+                        "kv lease refused the set")
+            req = Request(ticket.rid, list(ticket.prompt), ticket.max_new,
+                          out=list(ticket.out), state=SWAPPED,
+                          pos=ticket.pos, last=ticket.last,
+                          mirrored=set(range(n_blocks)),
+                          t_submit=ticket.t_submit, t_first=ticket.t_first)
+            for blk, data in enumerate(ticket.blocks):
+                key = (ticket.rid, blk)
+                self.host.put_offload(key, data)
+                self._block_seq[key] = self._seq_counter
+                self._seq_counter += 1
+            self.reqs[ticket.rid] = req
+            self._live.add(ticket.rid)
+            self._swapped.append(ticket.rid)
+            self._next_rid = max(self._next_rid, ticket.rid + 1)
+            self.stats.migrations_in += 1
+            self._wake.notify_all()
 
     def generate(self, prompts: list[list[int]], *, max_new: int = 32,
                  seed: int | None = None) -> list[list[int]]:
@@ -635,7 +889,18 @@ class Engine:
             stream.start()
         try:
             while True:
+                if self.on_step is not None:
+                    # off the lock: the heartbeat table is a leaf lock
+                    self.on_step(self)
+                self._pause_evt.wait()
                 with self._lock:
+                    if self._killed or (
+                            self.fault_after_steps is not None
+                            and self.stats.decode_steps
+                            >= self.fault_after_steps):
+                        raise ReplicaKilled(
+                            f"replica {self.name!r} hard-killed after "
+                            f"{self.stats.decode_steps} decode steps")
                     for stream in streams:
                         if stream.error is not None:
                             raise stream.error
@@ -997,6 +1262,8 @@ class Engine:
     def _emit_locked(self, req: Request, row_logits: np.ndarray) -> None:
         if self.on_emit is not None:
             self.on_emit(req, row_logits)
+        if req.t_first == 0.0:      # a migrated request keeps its stamp
+            req.t_first = time.monotonic()
         tok = _sample_token(row_logits, seed=self._seed, rid=req.rid,
                             pos=req.pos, temperature=self.cfg.temperature,
                             vocab_size=self.model.cfg.vocab_size)

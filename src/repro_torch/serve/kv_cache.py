@@ -39,6 +39,8 @@ import math
 
 import torch
 
+from ..core.bridge import dtype_name
+
 __all__ = ["PagedKVCache"]
 
 
@@ -82,6 +84,16 @@ class PagedKVCache:
 
     def token_range(self, blk: int) -> tuple[int, int]:
         return blk * self.block_size, (blk + 1) * self.block_size
+
+    def leaf_spec(self) -> dict[str, tuple[tuple[int, ...], str]]:
+        """Per-leaf (shape, dtype name) of ONE block's payload,
+        ``[L, block_size, ...]``: the contract a migration ticket is
+        validated against before any byte lands on a replica. Dtypes are
+        named as numpy names them (``"bfloat16"``, not ``"torch.bfloat16"``),
+        so a ticket's header reads the same in the reference package."""
+        return {k: ((leaf.shape[0], self.block_size) + tuple(leaf.shape[3:]),
+                    dtype_name(leaf.dtype))
+                for k, leaf in self.cache.items()}
 
     @property
     def token_nbytes(self) -> float:

@@ -49,7 +49,8 @@ def test_port_sources_exist():
             "flash_attention_bwd.cu").exists()
     for mod in ("models/lora.py", "models/offload.py", "train/optim.py",
                 "train/step.py", "data/pipeline.py", "ckpt/store.py",
-                "ft/supervisor.py", "launch/train.py"):
+                "ft/supervisor.py", "launch/train.py", "launch/mesh.py",
+                "serve/router.py", "kernels/plain_grad.py"):
         assert (ROOT / "src/repro_torch" / mod).exists(), mod
 
 
@@ -77,7 +78,9 @@ def test_package_imports_without_jax():
         "repro_torch.models.offload, repro_torch.train.optim, "
         "repro_torch.train.step, repro_torch.train.tree, "
         "repro_torch.data.pipeline, repro_torch.ckpt.store, "
-        "repro_torch.ft.supervisor, repro_torch.launch.train\n"
+        "repro_torch.ft.supervisor, repro_torch.launch.train, "
+        "repro_torch.launch.mesh, repro_torch.serve.router, "
+        "repro_torch.kernels.plain_grad\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
