@@ -248,6 +248,25 @@ failure:
       step, two device launches each), then 3 steps on that batch, the
       loss falling at each.
 
+11. The encoder-decoder family and the vision frontend (slice 12, ROADMAP
+   A12), after 6, each model freed before the next; the rules, fixed
+   before the phase first ran on the card, are in ``encdec_phase``'s and
+   ``vlm_phase``'s docstrings. a. seamless-m4t-large-v2 at full width
+   and depth (24 + 24 layers, bfloat16): ``encode`` of 4 x 1500 frame
+   embeddings, 32 greedy tokens a row through ``init_cache`` and
+   ``decode_step`` after a 16-token prefix, held against the
+   teacher-forced ``decode`` of the same rows (phase 4's rule), flash
+   launches asserted per call; 4 LoRA steps of ``launch.train`` at
+   2 x 2048 under ``'offload'``. b. internvl2-26b at full width and depth
+   (48 layers, 19.9 B parameters): ``LM.apply`` on 2 x (256 vision + 1792
+   text) positions, launches asserted per forward; 3 LoRA steps at
+   1 x (256 + 3840). Each training step asserts its launches and offloaded
+   bytes and prints its seconds and peak allocated bytes. Phase 2 and 10a
+   also hold the flash kernels at these paths' shapes (FLASH_A12,
+   FLASH_BWD_A12: head size 64 bidirectional and as cross-attention, one
+   query row, 1500 rows, GQA 6) and rmsnorm at [4096, 6144] (RMS_A12),
+   timed beside SDPA and ``F.rms_norm``.
+
 Placement (ROADMAP C2): every prefill and LoRA run asserts that the HBM it
 allocates beyond what was allocated before it (peak
 ``max_memory_allocated`` minus the base) is at most the arena, the
@@ -490,6 +509,35 @@ BF16_ULP = 2.0 ** -8          # its floor: one bfloat16 rounding
 SUPERVISED = dict(batch=4, seq=4096, steps=6, save_every=2, faults=(5, 6))
 FULL_PARAM = dict(layers=4, batch=2, seq=2048, steps=3, lr=1e-3)
 
+# the encoder-decoder family and the vision frontend (phase 11), bfloat16
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "internvl2-26b"
+ENCDEC_FRAMES = (4, 1500)       # encode's rows x frames, N(0, 1), numpy seed 0
+ENCDEC_PREFIX = 16              # decoder prefix tokens a row, then
+ENCDEC_NEW = 32                 # greedy tokens a row
+ENCDEC_TRAIN = dict(batch=2, seq=2048, steps=4)
+VLM_TEXT = (2, 1792)            # apply's rows x text tokens, after the
+#                                 n_frontend_tokens (256) vision embeddings
+VLM_TRAIN = dict(batch=1, seq=3840, steps=3)     # 256 + 3840 = 4096 positions
+# flash attention at their paths' shapes, (B, Sq, Skv, Hq, Hkv, Dh, causal,
+# q_offset), bfloat16, timed: seamless's encoder (1500 rows: no multiple of
+# the 128-row tiles), the teacher-forced decoder's cross-attention (48
+# queries over 1500 frames), decode_step's (one query row), training's
+# attention at 2 x 2048 (the encoder's and the cross-attention, both
+# bidirectional at equal lengths, are one shape; the decoder's causal);
+# internvl's prefill
+# (256 vision + 1792 text positions) and training (GQA 6: 48 query heads
+# over 8 KV heads)
+FLASH_A12 = [("seamless-encoder", (4, 1500, 1500, 16, 16, 64, False, 0)),
+             ("seamless-cross", (4, 48, 1500, 16, 16, 64, False, 0)),
+             ("seamless-cross-step", (4, 1, 1500, 16, 16, 64, False, 0)),
+             ("seamless-train/cross", (2, 2048, 2048, 16, 16, 64, False, 0)),
+             ("seamless-train-causal", (2, 2048, 2048, 16, 16, 64, True, 0)),
+             ("internvl-prefill", (2, 2048, 2048, 48, 8, 128, True, 0)),
+             ("internvl-train", (1, 4096, 4096, 48, 8, 128, True, 0))]
+FLASH_BWD_A12 = [c for c in FLASH_A12 if "train" in c[0]]
+RMS_A12 = (4096, 6144)          # internvl2-26b's norms at 4096 positions
+
 
 def reset_launches(fn) -> None:
     """Zero a wrapper's launch counts: ``launches``; by instance, flash
@@ -581,14 +629,15 @@ def rmsnorm_bound_ms(n_rows: int, d: int, itemsize: int) -> tuple[float, str]:
 
 
 def kernel_phase(torch, device) -> dict:
-    """rmsnorm against rmsnorm_plain on the card. Returns the record of
-    the main path's shape."""
+    """rmsnorm against rmsnorm_plain on the card (timed): the main path's
+    shape, internvl2-26b's (RMS_A12) and the reference sweep. Returns the
+    record of the main path's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
 
     gen = torch.Generator(device=device).manual_seed(0)
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
-    cases = [((2048, 4096), torch.float16)]
+    cases = [((2048, 4096), torch.float16), (RMS_A12, torch.bfloat16)]
     for shape in [(7, 128), (3, 33, 256), (1, 512)]:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             cases.append((shape, dt))
@@ -670,7 +719,8 @@ def flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
 
 def flash_phase(torch, device) -> dict:
     """flash_attention against flash_attention_plain on the card at the
-    main shapes (bfloat16, timed) and over the sweep in three dtypes.
+    main shapes and FLASH_A12's (bfloat16, timed) and over the sweep in
+    three dtypes.
     Returns the record of the serving prefill's shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
@@ -679,7 +729,8 @@ def flash_phase(torch, device) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain f32 in full f32
     gen = torch.Generator(device=device).manual_seed(0)
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
-    cases = [(lbl, shp, torch.bfloat16, True) for lbl, shp in FLASH_MAIN]
+    cases = [(lbl, shp, torch.bfloat16, True)
+             for lbl, shp in FLASH_MAIN + FLASH_A12]
     for lbl, shp in FLASH_MAIN + FLASH_SWEEP:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             if (lbl, dt) not in {(c[0], c[2]) for c in cases}:
@@ -709,7 +760,8 @@ def flash_phase(torch, device) -> dict:
                 q, k, v, causal=causal, q_offset=off), torch, flush)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal), torch, flush)
+                qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv), torch,
+                flush)
             bound_ms, bound_by = flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh,
                                                 causal, off, q.element_size())
             line += (f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
@@ -2266,6 +2318,344 @@ def decode_check(torch, device, arch) -> None:
     assert not mismatched, f"argmax differs at positions {mismatched}"
     del model, params, full, cache
 
+
+def _sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(torch, device):
+    return torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+
+
+def _reset_peak(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _counted_flash(torch, device, fn, want: int, what: str):
+    """``fn()`` with flash attention's launches counted from 0: exactly
+    ``want``, every one on the 16-bit tensor-core instance."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    reset_launches(flash_attention)
+    out = fn()
+    _sync(torch, device)
+    assert flash_attention.launches == want, \
+        f"{what}: {flash_attention.launches} flash launches, expected {want}"
+    assert_flash_on_tensor_cores(flash_attention)
+    return out
+
+
+def a12_train(torch, device, arch: str, S: dict, per_step: dict,
+              offload_per_step: int, *, profile: bool = False
+              ) -> list[float]:
+    """``repro_torch.launch.train``'s ``parse_args``, ``setup`` and ``run``
+    with ``--arch arch --lora --remat offload`` at S's batch, sequence and
+    steps (checkpoints in a temporary directory). Every step's launches
+    (``_train_launches``) equal ``per_step``, every flash backward runs on
+    the tensor-core instance, every step offloads and reloads
+    ``offload_per_step`` bytes; the losses must be finite. Prints each
+    step's seconds and peak allocated bytes; ``profile`` adds one more
+    step under torch.profiler (``profile_run``). Returns the losses."""
+    import tempfile
+    from repro_torch.launch import train as T
+    from repro_torch.models.offload import moved
+
+    tmp = tempfile.TemporaryDirectory(prefix="repro_torch_a12_")
+    args = T.parse_args(["--arch", arch, "--lora", "--remat", "offload",
+                         "--batch", str(S["batch"]), "--seq", str(S["seq"]),
+                         "--steps", str(S["steps"]), "--save-every",
+                         str(S["steps"]), "--device", str(device),
+                         "--ckpt-dir", tmp.name])
+    t = time.perf_counter()
+    r = T.setup(args)
+    _sync(torch, device)
+    _phase(f"{arch} train setup (base weights drawn on the card)", t)
+    step_s, peaks = [], []
+
+    def timed(state, batch):
+        _reset_train_launches()
+        _reset_peak(torch, device)
+        t0 = time.perf_counter()
+        out = r.step_fn(state, batch)
+        _sync(torch, device)
+        step_s.append(time.perf_counter() - t0)
+        peaks.append(_peak(torch, device))
+        _check_launches(f"{arch} train step {len(step_s)}",
+                        _train_launches(), per_step)
+        assert_flash_bwd_on_tensor_cores()
+        assert dict(moved) == {"offloaded": offload_per_step,
+                               "reloaded": offload_per_step}, \
+            f"{arch}: offload moved {dict(moved)}, expected " \
+            f"{offload_per_step} B each way"
+        return out
+
+    state, report, losses = T.run(r, args, step_fn=timed,
+                                  log=lambda m: None)
+    print(f"train {arch} lora remat=offload {S['batch']}x{S['seq']}: "
+          f"{report.steps_run} steps, step_s "
+          f"{[round(x, 3) for x in step_s]} peak_allocated_bytes {peaks} "
+          f"losses {[round(x, 5) for x in losses]} offloaded_bytes_a_step "
+          f"{offload_per_step} launches_a_step {per_step}", flush=True)
+    assert report.steps_run == S["steps"] == len(losses), report.history
+    assert all(math.isfinite(x) for x in losses), losses
+    if profile:
+        def once() -> float:
+            t0 = time.perf_counter()
+            r.step_fn(state, r.batch_fn(S["steps"]))
+            _sync(torch, device)
+            return time.perf_counter() - t0
+        profile_run(torch, f"train {arch} {S['batch']}x{S['seq']}", once)
+    tmp.cleanup()
+    del r, state
+    return losses
+
+
+def encdec_phase(torch, device, *, profile: bool = False) -> dict:
+    """Phase 11a: seamless-m4t-large-v2 at full width and depth (24 + 24
+    layers, d_model 1024, 16 heads of 64, vocab 256,206), bfloat16, random
+    weights from ``torch.Generator(0)`` on the card. ``encode`` of
+    ENCDEC_FRAMES frame embeddings (numpy seed 0, N(0, 1); one warm-up,
+    one timed); then, from an ENCDEC_PREFIX-token prefix a row (the same
+    numpy generator), ``init_cache`` and one ``decode_step`` a token:
+    the prefix, then ENCDEC_NEW greedy tokens (argmax over the true
+    vocabulary); then ``decode(enc, prefix + generated)`` teacher-forced on
+    the same rows. The rule, fixed before the phase first ran on the card
+    (the serving rule of phase 4): at each of the ENCDEC_NEW positions
+    that produced a token, each row's ``decode_step`` logits within
+    SERVE_RTOL x max|logit| of ``decode``'s, and the generated tokens
+    equal to ``decode``'s argmax up to its first near tie
+    (``agree_to_first_tie``). Flash launches asserted per call, all on the
+    tensor-core instance: L_enc an ``encode``, 2 L_dec a ``decode``, L_dec
+    a ``decode_step`` (its cross-attention; the self-attention reads the
+    cache in plain torch). Then ENCDEC_TRAIN's LoRA steps through
+    ``launch.train`` (``a12_train``): per step 2 x (L_enc + 2 L_dec) flash
+    forward launches (the offload remat recomputes each layer),
+    L_enc + 2 L_dec flash backward calls, two device launches each, and
+    each layer's input offloaded once. ``profile`` adds one ``encode``, 8
+    ``decode_step``s and one training step under torch.profiler. Frees
+    the model. Returns the launches of one encode, decode and
+    decode_step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(ENCDEC_ARCH)
+    Le, Ld, V = cfg.n_layers, cfg.n_decoder_layers, cfg.vocab_size
+    t = time.perf_counter()
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    _sync(torch, device)
+    print(f"enc-dec path: {cfg.name}, {Le} + {Ld} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {V} (padded {cfg.padded_vocab}), {cfg.dtype}, "
+          f"{sum(x.numel() for x in _leaves(params))} parameters "
+          f"({sum(x.numel() * x.element_size() for x in _leaves(params))}"
+          f" B)", flush=True)
+    _phase("enc-dec model", t)
+    B, S_enc = ENCDEC_FRAMES
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.standard_normal(
+        (B, S_enc, cfg.d_model)).astype(np.float32)).to(device)
+    prefix = torch.from_numpy(rng.integers(0, V, (B, ENCDEC_PREFIX))).to(
+        device)
+    n_steps = ENCDEC_PREFIX + ENCDEC_NEW - 1
+    t = time.perf_counter()
+    with torch.no_grad():
+        _counted_flash(torch, device, lambda: model.encode(params, emb), Le,
+                       "encode warm-up")
+        _reset_peak(torch, device)
+        t0 = time.perf_counter()
+        enc = _counted_flash(torch, device, lambda: model.encode(params, emb),
+                             Le, "encode")
+        encode_s = time.perf_counter() - t0
+        assert tuple(enc.shape) == (B, S_enc, cfg.d_model)
+        assert bool(torch.isfinite(enc).all()), "non-finite encoder output"
+        cache = model.init_cache(B, ENCDEC_PREFIX + ENCDEC_NEW, S_enc)
+        cache["enc_out"].copy_(enc)
+        tok, gen, steps, step_s = prefix[:, :1], [], [], []
+        for i in range(n_steps):
+            if i < ENCDEC_PREFIX:
+                tok = prefix[:, i:i + 1]
+            t0 = time.perf_counter()
+            logits, cache = _counted_flash(
+                torch, device,
+                lambda: model.decode_step(params, cache, tok, i), Ld,
+                f"decode_step {i}")
+            step_s.append(time.perf_counter() - t0)
+            if i >= ENCDEC_PREFIX - 1:         # this step makes a token
+                steps.append(logits[:, :V].float())
+                tok = logits[:, :V].argmax(-1, keepdim=True)
+                gen.append(tok)
+        gen = torch.cat(gen, dim=1)                       # [B, ENCDEC_NEW]
+        full = _counted_flash(
+            torch, device, lambda: model.decode(
+                params, enc, torch.cat([prefix, gen], dim=1)), 2 * Ld,
+            "decode")
+        peak = _peak(torch, device)
+    _phase("enc-dec encode and decode", t)
+    want = full[:, ENCDEC_PREFIX - 1:ENCDEC_PREFIX - 1 + ENCDEC_NEW, :V]
+    got = torch.stack(steps, dim=1)                   # [B, ENCDEC_NEW, V]
+    want = want.float()
+    scale = want.abs().amax(-1)
+    err = (got - want).abs().amax(-1)
+    worst = float((err / scale).max())
+    gen_s = sum(step_s[ENCDEC_PREFIX - 1:])
+    print(f"enc-dec {cfg.name} encode {B}x{S_enc}: encode_ms "
+          f"{encode_s * 1e3:.2f}; decode_step {B} rows: {n_steps} steps "
+          f"({ENCDEC_PREFIX} prefix, {ENCDEC_NEW} generated), "
+          f"decode_ms_per_step {statistics.median(step_s) * 1e3:.2f} "
+          f"(median) tokens_per_s {B * ENCDEC_NEW / gen_s:.1f}; "
+          f"peak_allocated_bytes {peak}; decode_step vs teacher-forced "
+          f"decode max_err/max|logit| {worst:.4g} (tol {SERVE_RTOL:g})",
+          flush=True)
+    assert bool((err <= SERVE_RTOL * scale).all()), \
+        f"decode_step logits differ from decode's by {worst:.4g} of " \
+        f"max|logit| (tol {SERVE_RTOL:g})"
+    full_tokens = want.argmax(-1).cpu().numpy()
+    wnp, gnp = want.cpu().numpy(), gen.cpu().numpy()
+    agreed = [agree_to_first_tie(
+        full_tokens[b].tolist(), gnp[b].tolist(),
+        [_margin(wnp[b, j], V) for j in range(ENCDEC_NEW)])
+        for b in range(B)]
+    print(f"enc-dec {cfg.name}: greedy tokens equal to decode's argmax in "
+          f"full: {agreed} (else equal up to the first near tie)",
+          flush=True)
+    launches = {"encode": Le, "decode": 2 * Ld, "decode_step": Ld}
+    if profile:
+        def encode_once() -> float:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.encode(params, emb)
+            _sync(torch, device)
+            return time.perf_counter() - t0
+
+        def steps_once() -> float:
+            c = model.init_cache(B, 8, S_enc)
+            c["enc_out"].copy_(enc)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for i in range(8):
+                    model.decode_step(params, c, prefix[:, i:i + 1], i)
+            _sync(torch, device)
+            return time.perf_counter() - t0
+        profile_run(torch, f"enc-dec encode {B}x{S_enc}", encode_once)
+        profile_run(torch, f"enc-dec 8 decode_steps {B} rows", steps_once)
+    del enc, cache, full, got, want, steps, model, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    S = ENCDEC_TRAIN
+    n_attn = Le + 2 * Ld
+    itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[cfg.dtype]
+    a12_train(torch, device, ENCDEC_ARCH, S, {
+        "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_kernel": 0,
+        "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+        "flash_attention_bwd_kernel": 2 * n_attn},
+        (Le + Ld) * S["batch"] * S["seq"] * cfg.d_model * itemsize,
+        profile=profile)
+    _phase("enc-dec training", t)
+    return launches
+
+
+def vlm_phase(torch, device, *, profile: bool = False) -> dict:
+    """Phase 11b: internvl2-26b at full width and depth (48 layers, d_model
+    6144, 48 query heads over 8 KV heads of 128, d_ff 16384, vocab 92,553,
+    256 frontend tokens), bfloat16, random weights from
+    ``torch.Generator(0)`` on the card. ``LM.apply`` on VLM_TEXT text
+    tokens with n_frontend_tokens vision embeddings a row (numpy seed 0;
+    one warm-up, one timed). The rule, fixed before the phase first ran
+    on the card: logits [rows, 256 + text, padded vocab], finite; the text
+    positions' logits differ from ``apply`` without the embeddings; per
+    forward L flash launches (all on the tensor-core instance) and 2L + 1
+    rmsnorm launches. Then VLM_TRAIN's LoRA steps through ``launch.train``
+    (``a12_train``; launches as ``expected_train_launches``, each layer's
+    input offloaded once a step). ``profile`` adds one ``apply`` and one
+    training step under torch.profiler. Frees the model. Returns the
+    launches of one forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.models import build_model
+
+    cfg = get_arch(VLM_ARCH)
+    nf, L = cfg.n_frontend_tokens, cfg.n_layers
+    t = time.perf_counter()
+    _reset_peak(torch, device)
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    _sync(torch, device)
+    print(f"vision path: {cfg.name}, {L} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {nf} "
+          f"frontend tokens, {cfg.dtype}, "
+          f"{sum(x.numel() for x in _leaves(params))} parameters "
+          f"({sum(x.numel() * x.element_size() for x in _leaves(params))}"
+          f" B); peak_allocated_bytes after the draw "
+          f"{_peak(torch, device)}", flush=True)
+    _phase("vision model", t)
+    B, S = VLM_TEXT
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(
+        device)
+    ve = torch.from_numpy(rng.standard_normal(
+        (B, nf, cfg.d_model)).astype(np.float32)).to(device)
+    per_fwd = {"flash_attention": L, "rmsnorm": 2 * L + 1}
+
+    def forward():
+        reset_launches(rmsnorm)
+        out = _counted_flash(torch, device, lambda: model.apply(
+            params, toks, vision_embeds=ve), L, "apply")
+        assert rmsnorm.launches == 2 * L + 1, \
+            f"apply: {rmsnorm.launches} rmsnorm launches, expected {2 * L + 1}"
+        return out
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        forward()                                   # warm-up
+        _reset_peak(torch, device)
+        t0 = time.perf_counter()
+        logits = forward()
+        apply_s = time.perf_counter() - t0
+        peak = _peak(torch, device)
+        assert tuple(logits.shape) == (B, nf + S, cfg.padded_vocab), \
+            logits.shape
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        text_only = model.apply(params, toks)
+        moved_by = float((logits[:, nf:].float()
+                          - text_only.float()).abs().max())
+    _phase("vision apply", t)
+    print(f"vision {cfg.name} apply {B}x({nf} vision + {S} text): apply_ms "
+          f"{apply_s * 1e3:.2f} tokens_per_s {B * (nf + S) / apply_s:.1f} "
+          f"peak_allocated_bytes {peak} launches_a_forward {per_fwd}; text "
+          f"logits with vs without the embeddings: max_abs_diff "
+          f"{moved_by:.4g}", flush=True)
+    assert moved_by > 0, "the vision embeddings left the text logits as " \
+        "they were"
+    if profile:
+        def once() -> float:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.apply(params, toks, vision_embeds=ve)
+            _sync(torch, device)
+            return time.perf_counter() - t0
+        profile_run(torch, f"vision apply {B}x({nf} + {S})", once)
+    del logits, text_only, model, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    St = VLM_TRAIN
+    itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[cfg.dtype]
+    a12_train(torch, device, VLM_ARCH, St,
+              expected_train_launches(L, "offload", frozen_base=True),
+              L * St["batch"] * (nf + St["seq"]) * cfg.d_model * itemsize,
+              profile=profile)
+    _phase("vision training", t)
+    return per_fwd
+
+
+
 AB_ROUNDS = 5
 # (name, which checkout, cuBLAS's default workspace): this tree as the
 # smoke runs it, the other tree as its own smoke ran (no workspace set),
@@ -2471,8 +2861,8 @@ def rmsnorm_bwd_bound_ms(n_rows: int, d: int, itemsize: int,
 
 
 def rmsnorm_bwd_phase(torch, device) -> dict:
-    """rmsnorm_bwd against rmsnorm_bwd_plain at the training shape
-    (RMS_BWD_MAIN, bfloat16, with and without dγ; timed) and on
+    """rmsnorm_bwd against rmsnorm_bwd_plain at the training shapes
+    (RMS_BWD_MAIN and RMS_A12, bfloat16, with and without dγ; timed) and on
     tests/test_kernels.py's rmsnorm sweep in three dtypes. dx within
     KERNEL_TOL; dγ, a sum over rows in another order, within KERNEL_TOL
     plus 2e-6 of the sum of its terms' magnitudes. Returns the record of
@@ -2483,7 +2873,8 @@ def rmsnorm_bwd_phase(torch, device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(0)
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
-    cases = [(RMS_BWD_MAIN, torch.bfloat16, True)]
+    cases = [(RMS_BWD_MAIN, torch.bfloat16, True),
+             (RMS_A12, torch.bfloat16, True)]
     for shape in [(7, 128), (3, 33, 256), (1, 512)]:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             cases.append((shape, dt, False))
@@ -2533,11 +2924,12 @@ def rmsnorm_bwd_phase(torch, device) -> dict:
                          f"library_ms {lib_ms:.4f} (F.rms_norm forward + "
                          f"backward) bound_ms {bound_ms:.4f} ({bound_by})")
                 key = "" if not need_dg else "dg_"
-                rec.update({f"{key}max_abs_err": max_err, f"{key}ms": k_ms,
-                            f"{key}plain_ms": p_ms,
-                            f"{key}bound_ms": bound_ms,
-                            f"{key}bound_by": bound_by,
-                            f"{key}library_ms": lib_ms})
+                if shape == RMS_BWD_MAIN:      # the record: the main path's
+                    rec.update({f"{key}max_abs_err": max_err,
+                                f"{key}ms": k_ms, f"{key}plain_ms": p_ms,
+                                f"{key}bound_ms": bound_ms,
+                                f"{key}bound_by": bound_by,
+                                f"{key}library_ms": lib_ms})
             print(line, flush=True)
             if not ok:
                 raise AssertionError(f"rmsnorm_bwd disagrees with its plain "
@@ -2551,9 +2943,10 @@ def rmsnorm_bwd_phase(torch, device) -> dict:
 def flash_bwd_phase(torch, device) -> dict:
     """flash_attention_bwd against flash_attention_bwd_plain (which
     computes its own log-sum-exp, one KV head at a time) at the training
-    shapes (FLASH_BWD_MAIN, bfloat16, timed beside the backward of
-    F.scaled_dot_product_attention through autograd, and the forward kernel
-    timed without and with its log-sum-exp output) and on FLASH_BWD_SWEEP
+    shapes (FLASH_BWD_MAIN and FLASH_BWD_A12, bfloat16, timed beside the
+    backward of F.scaled_dot_product_attention through autograd, and the
+    forward kernel timed without and with its log-sum-exp output) and on
+    FLASH_BWD_SWEEP
     in three dtypes: dQ, dK, dV within gradient_limit, the forward's lse
     within 1e-5 of the plain one. Returns the record of the supervised
     run's shape (the first)."""
@@ -2564,7 +2957,8 @@ def flash_bwd_phase(torch, device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(0)
     flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
-    cases = [(lbl, shp, torch.bfloat16, True) for lbl, shp in FLASH_BWD_MAIN]
+    cases = [(lbl, shp, torch.bfloat16, True)
+             for lbl, shp in FLASH_BWD_MAIN + FLASH_BWD_A12]
     for lbl, shp in FLASH_BWD_SWEEP:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             cases.append((lbl, shp, dt, False))
@@ -3372,6 +3766,17 @@ def main(argv: list[str]) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _phase(f"{arch} float32 decode check", t)
+
+    t = time.perf_counter()
+    encdec_phase(torch, device, profile="--profile" in argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("enc-dec path", t)
+    t = time.perf_counter()
+    vlm_phase(torch, device, profile="--profile" in argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("vision path", t)
 
     records = [
         dict(name="rmsnorm", route="cuda",

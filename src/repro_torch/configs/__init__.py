@@ -3,7 +3,7 @@
 ``get_arch(name)`` resolves any registered ``--arch <id>``.
 """
 from .base import (ArchConfig, ShapeConfig, SHAPES, reduced,
-                   applicable_shapes)
+                   applicable_shapes, input_specs)
 
 from .internvl2_26b import CONFIG as internvl2_26b
 from .zamba2_7b import CONFIG as zamba2_7b
@@ -37,4 +37,4 @@ def get_arch(name: str) -> ArchConfig:
 
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "ARCHS", "ASSIGNED",
-           "get_arch", "reduced", "applicable_shapes"]
+           "get_arch", "reduced", "applicable_shapes", "input_specs"]

@@ -2,9 +2,9 @@
 
 Every architecture is an :class:`ArchConfig`; every workload shape a
 :class:`ShapeConfig`. ``reduced(arch)`` gives the tiny same-family config
-used by CPU smoke tests. The reference's ``input_specs`` (ShapeDtypeStruct stand-ins for
-the JAX dry-run) is not part of the port: the dry-run's counterpart is
-ROADMAP item A13.
+used by CPU smoke tests. ``input_specs(arch, shape)`` gives the step
+function's inputs as meta-device tensors, PyTorch's counterpart of the
+reference's ``ShapeDtypeStruct`` stand-ins (for the dry-run, ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -12,8 +12,10 @@ import dataclasses
 import math
 from typing import Any
 
+import torch
+
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "reduced",
-           "applicable_shapes"]
+           "applicable_shapes", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +123,37 @@ def applicable_shapes(arch: ArchConfig) -> list[str]:
     if arch.subquadratic:
         out.append("long_500k")
     return out
+
+
+def _meta(shape, dtype: str) -> torch.Tensor:
+    return torch.empty(tuple(int(n) for n in shape),
+                       dtype=getattr(torch, dtype), device="meta")
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """Meta-device stand-ins for every model input of the step function
+    (the reference's ``input_specs``: the same keys, shapes and dtypes;
+    weights and caches are made separately). Frontends are stubs: an
+    enc-dec model takes ``S/2`` frame embeddings and ``S/2`` tokens, a
+    ``vit`` model ``n_frontend_tokens`` vision embeddings before
+    ``S - n_frontend_tokens`` tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    adt, D = arch.dtype, arch.d_model
+    if shape.kind == "decode":       # one new token against a deep cache
+        return {"token": _meta((B, 1), "int32"),
+                "cache_len": _meta((), "int32")}
+    if arch.family == "encdec":
+        specs = {"encoder_embeds": _meta((B, S // 2, D), adt),
+                 "tokens": _meta((B, S // 2), "int32")}
+    elif arch.frontend == "vit":
+        nf = arch.n_frontend_tokens
+        specs = {"vision_embeds": _meta((B, nf, D), adt),
+                 "tokens": _meta((B, S - nf), "int32")}
+    else:
+        specs = {"tokens": _meta((B, S), "int32")}
+    if shape.kind == "train":
+        specs["labels"] = _meta(specs["tokens"].shape, "int32")
+    return specs
 
 
 def reduced(arch: ArchConfig) -> ArchConfig:

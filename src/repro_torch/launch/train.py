@@ -10,8 +10,21 @@ default:
 The reference's options, plus ``--device`` (default CUDA; ``cpu`` runs the
 same loop on the CPU, as the tests do) and ``--seed``. Base weights are
 drawn on the device from ``torch.Generator(seed)``; LoRA adapters from
-``torch.Generator(seed + 1)``. The encoder-decoder family and the vision
-frontend are not ported yet (ROADMAP A12) and raise.
+``torch.Generator(seed + 1)``. Frontends are stubs, as in the reference:
+an enc-dec model's batch carries frame embeddings [batch, seq, D]
+(``encoder_embeds``), a ``vit`` model's ``vision_embeds``
+[batch, n_frontend_tokens, D] ahead of its ``seq`` tokens, both on the
+run's device.
+
+One difference from the reference, on purpose: the stub embeddings are
+N(0, 1) draws from ``numpy.random.default_rng((seed, step))`` (the same
+for a step whatever the restarts), not zeros. Zero embeddings make every
+norm of the frontend's positions see a zero row, where a norm's Jacobian
+is 1/sqrt(eps) (316 for layernorm, 1000 for rmsnorm): the gradient grows
+by about that much a layer along those positions and overflows within
+the models' depth, so the weight gradients there are 0 x inf = NaN and
+training diverges from its second step, in the reference as in the port
+(``tests/test_torch_encdec.py::test_zero_stub_gradients_overflow_at_depth``).
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ import tempfile
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..configs import get_arch, reduced
@@ -73,10 +87,6 @@ def setup(args: argparse.Namespace) -> Run:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.family == "encdec" or cfg.frontend == "vit":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family "
-                                  f"and the vision frontend are not ported "
-                                  f"yet (ROADMAP A12)")
     model = build_model(cfg, remat=args.remat, device=args.device)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -96,7 +106,19 @@ def setup(args: argparse.Namespace) -> Run:
     else:
         state = init_train_state(model, gen, opt)
         step_fn = make_train_step(model, opt, grad_accum=args.grad_accum)
-    return Run(model, state, step_fn, stream.batch, base)
+    stubs = {}
+    if cfg.family == "encdec":
+        stubs["encoder_embeds"] = (args.batch, args.seq, cfg.d_model)
+    if cfg.frontend == "vit":
+        stubs["vision_embeds"] = (args.batch, cfg.n_frontend_tokens,
+                                  cfg.d_model)
+
+    def batch_fn(step: int) -> dict:
+        rng = np.random.default_rng((args.seed, step))
+        return {**stream.batch(step),
+                **{k: torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(dev) for k, shape in stubs.items()}}
+    return Run(model, state, step_fn, batch_fn, base)
 
 
 def run(r: Run, args: argparse.Namespace, *,

@@ -38,7 +38,8 @@ from ..kernels.rmsnorm.ops import RMSNormFn, rmsnorm as _rmsnorm_kernel
 
 __all__ = ["rmsnorm", "layernorm", "rope", "blockwise_attention",
            "decode_attention", "decode_attention_q8", "AttnParamsSpec",
-           "attention_block", "swiglu_mlp", "gelu_mlp", "mlp_init", "moe_init",
+           "attention_block", "decode_qkv", "cache_put",
+           "decode_attention_block", "swiglu_mlp", "gelu_mlp", "mlp_init", "moe_init",
            "moe_route", "moe_block", "randn"]
 
 
@@ -212,6 +213,49 @@ def attention_block(p: dict, x: torch.Tensor, *, n_heads: int,
     o = blockwise_attention(q, k, v, causal=causal and kv is None,
                             block_kv=block_kv)
     return o.reshape(B, S, n_heads * d_head) @ p["wo"]
+
+
+def decode_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+               n_heads: int, n_kv_heads: int, d_head: int,
+               rope_theta: float) -> tuple[torch.Tensor, ...]:
+    """One token a row: x [B, 1, D] at ``positions`` [B, 1] → q
+    [B, 1, Hq, Dh] and k, v [B, 1, Hkv, Dh], RoPE applied when
+    ``rope_theta``."""
+    B = x.shape[0]
+    q = _proj(x, p, "wq", "bq").reshape(B, 1, n_heads, d_head)
+    k = _proj(x, p, "wk", "bk").reshape(B, 1, n_kv_heads, d_head)
+    v = _proj(x, p, "wv", "bv").reshape(B, 1, n_kv_heads, d_head)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def cache_put(buf: torch.Tensor, upd: torch.Tensor,
+              at: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Write ``upd[sel, 0]`` into a layer's cache ``buf`` [B, Smax, ...]
+    in place, at ``at = (sel, lens[sel])``: each row ``sel`` at its own
+    position; the other rows stay untouched. Returns ``buf``."""
+    buf.index_put_(at, upd[at[0], 0])
+    return buf
+
+
+def decode_attention_block(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lens: torch.Tensor,
+                           sel: torch.Tensor, *, n_heads: int,
+                           n_kv_heads: int, d_head: int,
+                           rope_theta: float) -> torch.Tensor:
+    """One-token self-attention against a layer's [B, Smax, Hkv, Dh]
+    cache: the token of row b sits at position ``lens[b]``; rows ``sel``
+    write its K/V there (:func:`cache_put`) and every row attends to its
+    first ``lens + 1`` entries. Returns the output projection [B, 1, D]."""
+    q, k, v = decode_qkv(p, x, lens[:, None], n_heads=n_heads,
+                         n_kv_heads=n_kv_heads, d_head=d_head,
+                         rope_theta=rope_theta)
+    at = (sel, lens[sel])
+    o = decode_attention(q, cache_put(k_cache, k, at),
+                         cache_put(v_cache, v, at), lens + 1)
+    return o.reshape(x.shape[0], 1, n_heads * d_head) @ p["wo"]
 
 
 # --------------------------------------------------------------------------

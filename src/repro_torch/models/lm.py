@@ -54,8 +54,11 @@ Differences from the reference, on purpose:
   their plain versions, recomputed (every decoder family trains).
 
 ``prefill`` serves the attention families only, as in the reference: a
-recurrent family's prompt pass is its decode loop. A ``vision_embeds``
-frontend is not ported (ROADMAP A12).
+recurrent family's prompt pass is its decode loop. ``apply`` and ``loss``
+of the dense and MoE families take a stub frontend's ``vision_embeds``
+[B, F, D], prepended to the token embeddings (``loss`` drops their F
+positions before the NLL); ``prefill`` and ``decode_step`` take none, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -87,6 +90,27 @@ def _dots_policy(ctx, op, *args, **kwargs):
     (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)."""
     return (CheckpointPolicy.MUST_SAVE if op in _DOTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def wrap_remat(body, mode: str | None,
+               off: ResidualOffload | None = None):
+    """``body(h, *args)`` under the activation-checkpoint policy ``mode``
+    (one of ``REMAT_MODES``); ``'offload'`` sends the layer's input
+    ``h`` through ``off``."""
+    if mode is None:
+        return body
+    if mode == "full":
+        return lambda h, *a: checkpoint(body, h, *a, use_reentrant=False)
+    if mode == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda h, *a: checkpoint(body, h, *a, use_reentrant=False,
+                                        context_fn=ctx)
+
+    def offloaded(h, *a):
+        with off.layer(h):
+            return checkpoint(body, h, *a, use_reentrant=False)
+    return offloaded
 
 
 def _norm(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -157,21 +181,7 @@ class LM:
         """``body(h, *args)`` under the activation-checkpoint policy
         ``mode`` (default: the model's ``remat``); ``'offload'`` sends the
         layer's input through ``off``, the apply's own offload."""
-        mode = self.remat if mode is None else mode
-        if mode is None:
-            return body
-        if mode == "full":
-            return lambda h, *a: checkpoint(body, h, *a, use_reentrant=False)
-        if mode == "dots":
-            ctx = functools.partial(create_selective_checkpoint_contexts,
-                                    _dots_policy)
-            return lambda h, *a: checkpoint(body, h, *a, use_reentrant=False,
-                                            context_fn=ctx)
-
-        def offloaded(h, *a):
-            with off.layer(h):
-                return checkpoint(body, h, *a, use_reentrant=False)
-        return offloaded
+        return wrap_remat(body, self.remat if mode is None else mode, off)
 
     # ------------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> dict:
@@ -269,19 +279,29 @@ class LM:
         return torch.arange(S, device=self.device)[None].expand(B, S)
 
     # ------------------------------------------------------------- apply
-    def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Full forward: tokens [B, S] → logits [B, S, padded_vocab]. Also
-        sets ``self._aux``, the MoE aux loss summed over the layers.
+    def apply(self, params: dict, tokens: torch.Tensor, *,
+              vision_embeds=None) -> torch.Tensor:
+        """Full forward: tokens [B, S] → logits [B, F + S, padded_vocab],
+        where ``vision_embeds`` [B, F, D] (dense and MoE families; a tensor
+        or an array) are prepended to the token embeddings in the
+        activation dtype and the positions run over all F + S. Also sets
+        ``self._aux``, the MoE aux loss summed over the layers.
 
         A layer's parameters are taken out of the stacked leaves inside
         its (recomputed) body, so that a leaf whose layer slice is computed
         (a LoRA merge, ``models/lora.py``) is recomputed with it."""
         cfg = self.cfg
-        B, S = tokens.shape
         self._aux = torch.zeros((), dtype=torch.float32, device=self.device)
         off = (ResidualOffload(self.device) if self.remat == "offload"
                else None)
         h = params["embed"][tokens]
+        if vision_embeds is not None:
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(f"a vision frontend feeds the dense and moe "
+                                 f"families, not {cfg.family!r}")
+            ve = torch.as_tensor(vision_embeds, device=self.device)
+            h = torch.cat([ve.to(h.dtype), h], dim=1)
+        B, S = h.shape[:2]
         positions = self._positions(B, S)
         if cfg.family in ("dense", "moe"):
             def block(hh, i):
@@ -330,14 +350,15 @@ class LM:
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """Mean next-token NLL of ``batch["tokens"]`` against
         ``batch["labels"]`` (both [B, S], tensors or arrays) over the true
-        vocabulary, in f32; plus ``0.01·aux / n_layers`` for MoE."""
+        vocabulary, in f32; plus ``0.01·aux / n_layers`` for MoE. With
+        ``batch["vision_embeds"]``, the frontend's positions take no
+        loss."""
         cfg = self.cfg
-        if batch.get("vision_embeds") is not None:
-            raise NotImplementedError("a vision frontend is not ported yet "
-                                      "(ROADMAP A12)")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        logits = self.apply(params, tokens.long()).float()
+        logits = self.apply(params, tokens.long(),
+                            vision_embeds=batch.get("vision_embeds"))
+        logits = logits[:, logits.shape[1] - labels.shape[1]:].float()
         iota = torch.arange(cfg.padded_vocab, device=self.device)
         logits = logits + torch.where(iota < cfg.vocab_size, 0.0, -1e30)
         logp = torch.log_softmax(logits, dim=-1)
@@ -476,31 +497,25 @@ class LM:
         if adapter_g is not None:
             x = x * adapter_g
         pa = p["attn"]
-        q = L._proj(x, pa, "wq", "bq").reshape(B, 1, cfg.n_heads, cfg.d_head)
-        k = L._proj(x, pa, "wk", "bk").reshape(B, 1, cfg.n_kv_heads,
-                                               cfg.d_head)
-        v = L._proj(x, pa, "wv", "bv").reshape(B, 1, cfg.n_kv_heads,
-                                               cfg.d_head)
-        pos = lens[:, None]
-        if cfg.rope_theta:
-            q = L.rope(q, pos, cfg.rope_theta)
-            k = L.rope(k, pos, cfg.rope_theta)
-        at = (sel, lens[sel])
-
-        def put(name: str, upd: torch.Tensor) -> torch.Tensor:
-            buf = cache[name][layer]
-            buf.index_put_(at, upd[sel, 0])
-            return buf
-
+        dims = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    d_head=cfg.d_head, rope_theta=cfg.rope_theta)
         if "k_scale" in cache:
+            q, k, v = L.decode_qkv(pa, x, lens[:, None], **dims)
             kq, ksc = _quant_int8(k)
             vq, vsc = _quant_int8(v)
+            at = (sel, lens[sel])
+
+            def put(name: str, upd: torch.Tensor) -> torch.Tensor:
+                return L.cache_put(cache[name][layer], upd, at)
+
             o = L.decode_attention_q8(q, put("k", kq), put("v", vq),
                                       put("k_scale", ksc),
                                       put("v_scale", vsc), lens + 1)
+            h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ pa["wo"]
         else:
-            o = L.decode_attention(q, put("k", k), put("v", v), lens + 1)
-        h = h + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ pa["wo"]
+            h = h + L.decode_attention_block(pa, x, cache["k"][layer],
+                                             cache["v"][layer], lens, sel,
+                                             **dims)
         return h + self._ffn(p, _norm(cfg, p, "ln2", h))[0]
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor,

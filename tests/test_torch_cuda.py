@@ -285,6 +285,31 @@ def test_flash_kernel_reads_strided_views_and_writes_out(cuda):
     assert float(buf[:, :, 0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_one_query_row_writes_only_its_row(cuda, dtype):
+    """decode_step's cross-attention: one query row a batch row against
+    1500 keys (head size 64, bidirectional) on the tensor-core instance,
+    written into rows of a wider buffer: the row within the attention
+    limit of the plain version, finite, and the buffer's other rows (those
+    a 128-row tile would cover past Sq) left as they were."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(4, 1, 16, 64, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(4, 1500, 16, 64, generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    buf = torch.full((4, 128, 16, 64), 7.0, dtype=dtype, device=cuda)
+    out = buf[:, :1]
+    n_tc = flash_attention.launches_tc
+    flash_attention(q, k, v, causal=False, out=out)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_tc == n_tc + 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    assert bool(torch.isfinite(out.float()).all())
+    name = str(dtype).removeprefix("torch.")
+    assert bool(((out.float() - want.float()).abs()
+                 <= attention_limit(want, name)).all())
+    assert bool((buf[:, 1:] == 7.0).all())
+
+
 def test_flash_wrapper_refuses_what_it_cannot_launch(cuda):
     q = torch.randn(1, 16, 4, 64, device=cuda)
     with pytest.raises(ValueError):
@@ -1526,3 +1551,144 @@ def test_offload_gradients_equal_full_remat_on_card(cuda):
             assert torch.equal(out["full"][1][k][n], out["offload"][1][k][n])
     nbytes = 2 * 256 * cfg.d_model * 2
     assert offload.moved == {"offloaded": nbytes, "reloaded": nbytes}
+
+
+# ------------------------------------------------------------------ A12
+# (arch, layers kept): seamless-m4t-large-v2 at full width with 2 encoder
+# and 2 decoder layers, internvl2-26b at full width with 2 layers
+A12_ARCHS = [("seamless-m4t-large-v2", 2), ("internvl2-26b", 2)]
+
+
+def _a12_model(cuda, arch: str, n_layers: int, dtype: str, remat=None):
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                              dtype=dtype)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_decoder_layers=n_layers)
+    return build_model(cfg, device=cuda, remat=remat)
+
+
+def _a12_batch(cfg, seed: int = 0) -> dict:
+    """64 text tokens and labels a row, two rows, with the frontend's
+    input (numpy seed): 100 frame embeddings, or n_frontend_tokens vision
+    embeddings, N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["encoder_embeds"] = rng.standard_normal(
+            (2, 100, cfg.d_model)).astype(np.float32)
+    else:
+        batch["vision_embeds"] = rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _a12_apply(model, params, batch):
+    toks = torch.as_tensor(batch["tokens"], device=model.device).long()
+    if model.cfg.family == "encdec":
+        return model.apply(params, toks,
+                           encoder_embeds=batch["encoder_embeds"])
+    return model.apply(params, toks, vision_embeds=batch["vision_embeds"])
+
+
+def _a12_flash_per_forward(cfg) -> int:
+    if cfg.family == "encdec":
+        return cfg.n_layers + 2 * cfg.n_decoder_layers
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch,n_layers", A12_ARCHS,
+                         ids=[a for a, _ in A12_ARCHS])
+def test_a12_logits_match_all_plain_on_card(cuda, monkeypatch, arch,
+                                            n_layers):
+    """float32 logits of ``apply`` with the frontend's input, the kernels
+    against every kernel swapped for its plain version (``_all_plain``):
+    within 1e-4 x max|plain|; flash (and, internvl, rmsnorm) launched as
+    many times as the forward has attentions (norms)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _a12_model(cuda, arch, n_layers, "float32")
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = _a12_batch(cfg)
+    with torch.no_grad():
+        n_fa, n_rms = flash_attention.launches, rmsnorm.launches
+        got = _a12_apply(model, params, batch)
+        torch.cuda.synchronize()
+        assert flash_attention.launches - n_fa == _a12_flash_per_forward(cfg)
+        assert rmsnorm.launches - n_rms == (
+            0 if cfg.norm != "rmsnorm" else 2 * cfg.n_layers + 1)
+        with monkeypatch.context() as mp:
+            _all_plain(mp)
+            want = _a12_apply(model, params, batch)
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch,n_layers", A12_ARCHS,
+                         ids=[a for a, _ in A12_ARCHS])
+def test_a12_lora_grad_matches_all_plain_on_card(cuda, monkeypatch, arch,
+                                                 n_layers):
+    """float32 LoRA loss and every adapter gradient (B drawn 0.01 N(0, 1))
+    with the kernels, forward and backward, against the all-plain run:
+    the loss within 1e-3 (relative), each gradient within 1e-3 x its
+    max|plain|; the flash backward launched once an attention."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.models.lora import lora_init, make_lora_loss
+    from repro_torch.train.step import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _a12_model(cuda, arch, n_layers, "float32")
+    base = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ad = lora_init(torch.Generator(device=cuda).manual_seed(1), base)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for v in ad.values():
+        v["B"] = torch.randn(v["B"].shape, generator=gen, device=cuda) * 0.01
+    batch = _a12_batch(model.cfg, seed=1)
+    n_fa, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    loss, grads = value_and_grad(make_lora_loss(model, base), ad, batch)
+    torch.cuda.synchronize()
+    per = _a12_flash_per_forward(model.cfg)
+    assert flash_attention.launches - n_fa == per
+    assert flash_attention_bwd.launches - n_bwd == per
+    with monkeypatch.context() as mp:
+        _all_plain(mp)
+        ploss, pgrads = value_and_grad(make_lora_loss(model, base), ad,
+                                       batch)
+    assert abs(loss.item() - ploss.item()) <= 1e-3 * abs(ploss.item())
+    for k in ad:
+        for n in ("A", "B"):
+            got, want = grads[k][n], pgrads[k][n]
+            assert bool(torch.isfinite(got).all()), (k, n)
+            scale = float(want.abs().max())
+            assert scale > 0, (k, n)
+            assert float((got - want).abs().max()) <= 1e-3 * scale, (k, n)
+
+
+def test_encdec_decode_step_is_byte_equal_on_card(cuda):
+    """A bfloat16 ``decode_step`` of seamless-m4t-large-v2 (full width,
+    2 + 2 layers) twice from the same cache: the same logits and cache,
+    byte for byte; the cross-attention launched once a layer, on the
+    tensor-core instance, with one query row."""
+    model = _a12_model(cuda, "seamless-m4t-large-v2", 2, "bfloat16")
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((4, 300, cfg.d_model)).astype(np.float32)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1)),
+                          device=cuda)
+    out = []
+    with torch.no_grad():
+        enc = model.encode(params, emb)
+        for _ in range(2):
+            cache = model.init_cache(4, 8, 300)
+            cache["enc_out"].copy_(enc)
+            n_tc = flash_attention.launches_tc
+            logits, cache = model.decode_step(params, cache, tok, 0)
+            torch.cuda.synchronize()
+            assert flash_attention.launches_tc - n_tc == cfg.n_decoder_layers
+            out.append((logits, cache))
+    (l0, c0), (l1, c1) = out
+    assert bool(torch.isfinite(l0.float()).all())
+    assert torch.equal(l0, l1)
+    for k in c0:
+        assert torch.equal(c0[k], c1[k]), k

@@ -50,7 +50,8 @@ def test_port_sources_exist():
     for mod in ("models/lora.py", "models/offload.py", "train/optim.py",
                 "train/step.py", "data/pipeline.py", "ckpt/store.py",
                 "ft/supervisor.py", "launch/train.py", "launch/mesh.py",
-                "serve/router.py", "kernels/plain_grad.py"):
+                "serve/router.py", "kernels/plain_grad.py",
+                "models/encdec.py"):
         assert (ROOT / "src/repro_torch" / mod).exists(), mod
 
 
@@ -80,7 +81,7 @@ def test_package_imports_without_jax():
         "repro_torch.data.pipeline, repro_torch.ckpt.store, "
         "repro_torch.ft.supervisor, repro_torch.launch.train, "
         "repro_torch.launch.mesh, repro_torch.serve.router, "
-        "repro_torch.kernels.plain_grad\n"
+        "repro_torch.kernels.plain_grad, repro_torch.models.encdec\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"

@@ -4,7 +4,9 @@ checkpoints; a run interrupted after its first checkpoint and resumed
 (``--resume``), and a run whose step raises once under the supervisor
 (right after a checkpoint, or after an unsaved step that it poisons),
 give the same losses and the same final state, byte for byte, as an
-uninterrupted run; the refused families."""
+uninterrupted run; the enc-dec model and the vision frontend train
+through it."""
+import math
 import os
 import pathlib
 import subprocess
@@ -118,7 +120,26 @@ def test_cli_entry_point(tmp_path):
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-26b"])
 def test_unported_families_raise(tmp_path, arch):
+    """The enc-dec model and the vision frontend run 3 reduced LoRA steps
+    through ``setup`` and ``run``, as ``main`` calls them, with the
+    stub frontend inputs: finite losses, checkpoints written. (The name
+    dates from when the launcher refused these two models.)"""
     args = T.parse_args(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--lora", "--remat", "offload", "--steps", "3",
+                         "--batch", "2", "--seq", "16", "--save-every", "2",
                          "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A12"):
-        T.setup(args)
+    r = T.setup(args)
+    b = r.batch_fn(0)
+    stub = ("encoder_embeds" if arch.startswith("seamless")
+            else "vision_embeds")
+    width = 16 if stub == "encoder_embeds" else r.model.cfg.n_frontend_tokens
+    assert tuple(b[stub].shape) == (2, width, r.model.cfg.d_model)
+    assert b[stub].dtype == torch.float32 and b[stub].device.type == "cpu"
+    # N(0, 1), a function of (seed, step) alone
+    assert torch.equal(b[stub], r.batch_fn(0)[stub])
+    assert not torch.equal(b[stub], r.batch_fn(1)[stub])
+    assert abs(float(b[stub].std()) - 1) < 0.1
+    _, report, losses = T.run(r, args, log=lambda s: None)
+    assert report.steps_run == 3 and len(losses) == 3
+    assert all(math.isfinite(x) for x in losses), losses
+    assert complete_steps(tmp_path) == [2, 3]

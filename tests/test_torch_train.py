@@ -128,6 +128,9 @@ def test_remat_modes_equal_no_remat(arch, remat):
 
 
 def test_loss_masks_the_vocab_padding_and_refuses_a_frontend():
+    """The loss over the true vocabulary; with ``vision_embeds``, the NLL
+    over the text positions alone. (The name dates from when the loss
+    refused a frontend.)"""
     cfg = dataclasses.replace(reduced(get_arch("llama-7b")), dtype="float32",
                               vocab_size=500)
     assert cfg.padded_vocab > cfg.vocab_size
@@ -139,8 +142,16 @@ def test_loss_masks_the_vocab_padding_and_refuses_a_frontend():
         logp = torch.log_softmax(logits[..., :cfg.vocab_size], dim=-1)
         want = -logp.gather(-1, torch.as_tensor(b["labels"]).long()[..., None])
         torch.testing.assert_close(pm.loss(pp, b), want.mean())
-    with pytest.raises(NotImplementedError, match="A12"):
-        pm.loss(pp, {**b, "vision_embeds": np.zeros((2, 4, 8), np.float32)})
+        # a frontend's positions take no loss: the NLL over the text
+        # positions of apply with the embeddings prepended
+        ve = np.random.default_rng(1).standard_normal(
+            (2, 4, cfg.d_model)).astype(np.float32)
+        logits = pm.apply(pp, torch.as_tensor(b["tokens"]).long(),
+                          vision_embeds=ve).float()[:, 4:]
+        logp = torch.log_softmax(logits[..., :cfg.vocab_size], dim=-1)
+        want = -logp.gather(-1, torch.as_tensor(b["labels"]).long()[..., None])
+        torch.testing.assert_close(pm.loss(pp, {**b, "vision_embeds": ve}),
+                                   want.mean())
 
 
 def _rand_tree(like: dict, seed: int) -> tuple[dict, dict]:
