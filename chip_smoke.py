@@ -267,6 +267,23 @@ failure:
    query row, 1500 rows, GQA 6) and rmsnorm at [4096, 6144] (RMS_A12),
    timed beside SDPA and ``F.rms_norm``.
 
+12. The dry run against the card (slice 13, ROADMAP A13; rules in
+   ``run_dry_cell``'s docstring): three cells, each lowered on meta
+   tensors (``launch.dryrun.lower_cell`` on a 1 x 1 mesh of a fake
+   process group), then built on the card and run through the meshed
+   path (DTensor state and inputs on ``make_smoke_mesh()`` over a one-rank
+   NCCL group, ``constrain``, ``local_map`` around the kernels) after the
+   same step un-meshed: a. llama-7b ``apply`` on 2 x 4096; b. llama-7b
+   ``decode_step``, 2 rows over a 32,768-token cache; c. a full-parameter
+   AdamW step, remat='full', of qwen2.5-3b at 1 x 4096, or of olmo-1b at
+   4 x 4096 when the dry run predicts qwen's peak above 70 GB. Each prints
+   its predicted and measured step peak, wall time, dry-run FLOPs and
+   TFLOP/s. Then qwen1.5-32b ``train_4k`` lowered on (16, 16) and on
+   (2, 16, 16), no card work, each record and lowering time printed.
+13. The examples' twins (slice 13, ROADMAP A14): ``examples/torch_*.py``,
+   each in a process of its own at its defaults; fatal if one fails or
+   prints an oracle check that is False.
+
 Placement (ROADMAP C2): every prefill and LoRA run asserts that the HBM it
 allocates beyond what was allocated before it (peak
 ``max_memory_allocated`` minus the base) is at most the arena, the
@@ -300,6 +317,9 @@ another checkout's (``ab_prefill``), for example the parent commit
 unpacked with ``git archive`` under ``build/``. ``--ab-train OTHER_ROOT``
 does the same for the training step of phase 10c (``ab_train``): step
 times and the step's device time by kernel, the two checkouts in turns.
+``--ab-decode OTHER_ROOT`` times the un-meshed llama-7b ``decode_step``
+of both checkouts in turns (``ab_decode``), the host cost the serving
+paths show.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
@@ -329,8 +349,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # an ab_prefill or ab_train worker (``--ab-worker SRC ...``,
 # ``--ab-train-worker SRC``) runs the port found in SRC
-_WORKER = next((f for f in ("--ab-worker", "--ab-train-worker")
-                if f in sys.argv), None)
+_WORKER = next((f for f in ("--ab-worker", "--ab-train-worker",
+                          "--ab-decode-worker") if f in sys.argv), None)
 SRC = (sys.argv[sys.argv.index(_WORKER) + 1] if _WORKER
        else os.path.join(ROOT, "src"))
 sys.path.insert(0, SRC)
@@ -619,13 +639,19 @@ def _median_ms(fn, torch, flush, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def rmsnorm_bound_ms(n_rows: int, d: int, itemsize: int) -> tuple[float, str]:
-    """Least time for rmsnorm on [n_rows, d]: read x and g once, write y
-    once; 4 f32 operations per element (square, sum, two scalings)."""
-    t_bytes = (2 * n_rows * d + d) * itemsize / HBM_BYTES_PER_S
-    t_ops = 4 * n_rows * d / F32_FLOPS
+def _bound(ops: int, nbytes: int, peak: float) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations over
+    ``peak``, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_bound_ms(n_rows: int, d: int, itemsize: int) -> tuple[float, str]:
+    """Least time for rmsnorm on [n_rows, d]: ``rmsnorm_cost`` (x and g
+    read once, y written once; 4 f32 operations an element)."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_cost
+    return _bound(*rmsnorm_cost(n_rows, d, itemsize), F32_FLOPS)
 
 
 def kernel_phase(torch, device) -> dict:
@@ -692,29 +718,20 @@ def kernel_phase(torch, device) -> dict:
 
 
 def flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
-    """The attention's operations: 4 per (query, visible key, channel)
-    (two products), the visible keys counted for these shapes (causal rows
-    see min(Skv, i + q_offset + 1)). The bfloat16 kernel's second P.V
-    product (P split into hi + lo) is not counted: it is the kernel's cost,
-    not the function's."""
-    if causal:
-        visible = sum(min(Skv, i + q_offset + 1) for i in range(Sq))
-    else:
-        visible = Sq * Skv
-    return 4 * B * Hq * visible * Dh
+    """The attention's operations (``flash_attention.ops.flash_ops``: 4 per
+    query, visible key and channel)."""
+    from repro_torch.kernels.flash_attention.ops import flash_ops as ops
+    return ops(B, Sq, Skv, Hq, Dh, causal, q_offset)
 
 
 def flash_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
                    itemsize) -> tuple[float, str]:
-    """Least time for the attention: q, k, v read once and o written once,
-    and flash_ops at the peak rate of the type."""
-    ops = flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset)
-    peak = F32_FLOPS if itemsize == 4 else F16_FLOPS
-    t_ops = ops / peak
-    t_bytes = (2 * B * Sq * Hq + 2 * B * Skv * Hkv) * Dh * itemsize \
-        / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least time for the attention: ``flash_cost`` (q, k, v read once
+    and o written once; flash_ops) at the peak rate of the type."""
+    from repro_torch.kernels.flash_attention.ops import flash_cost
+    return _bound(*flash_cost(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+                              itemsize),
+                  F32_FLOPS if itemsize == 4 else F16_FLOPS)
 
 
 def flash_phase(torch, device) -> dict:
@@ -801,13 +818,12 @@ def flash_phase(torch, device) -> dict:
 
 def gmm_bound_ms(rows: int, d: int, f: int, hit: int,
                  itemsize: int) -> tuple[float, str]:
-    """Least time for a grouped matmul: the rows of x read once, the output
-    written once, the weights of the ``hit`` experts that received a row
-    read once; 2 operations per (row, d, f)."""
-    t_bytes = (rows * d + rows * f + hit * d * f) * itemsize / HBM_BYTES_PER_S
-    t_ops = 2 * rows * d * f / (F32_FLOPS if itemsize == 4 else F16_FLOPS)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least time for a grouped matmul: ``gmm_cost`` (the rows of x read
+    once, the output written once, the weights of the ``hit`` experts that
+    received a row read once; 2 operations per row, d and f)."""
+    from repro_torch.kernels.moe_gmm.ops import gmm_cost
+    return _bound(*gmm_cost(rows, d, f, hit, itemsize),
+                  F32_FLOPS if itemsize == 4 else F16_FLOPS)
 
 
 def gmm_phase(torch, device) -> dict:
@@ -956,54 +972,29 @@ def gmm_phase(torch, device) -> dict:
 
 
 def ssd_ops(B, S, H, P, N, chunk) -> int:
-    """The SSD scan's operations: per chunk of n rows, per b, the lower
-    triangle's C.B products (n(n+1)/2 x N multiply-adds: B and C are
-    shared by the heads, so C.B is needed once for all of them), and per
-    (b, h) its weights (an exponential and two products each), its weighted
-    sum of x (x P), the incoming-state term and the state update (n x P x N
-    multiply-adds each): two operations a multiply-add, one an exponential
-    or a product."""
-    ops = 0
-    for t0 in range(0, S, chunk):
-        n = min(chunk, S - t0)
-        tri = n * (n + 1) // 2
-        ops += B * 2 * tri * N \
-            + B * H * (2 * tri * P + 3 * tri + 2 * 2 * n * P * N)
-    return ops
+    """The SSD scan's operations (``ssd_scan.ops.ssd_ops``)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_ops as ops
+    return ops(B, S, H, P, N, chunk)
 
 
 def ssd_bound_ms(B, S, H, P, N, chunk, itemsize) -> tuple[float, str]:
-    """Least time for the SSD scan: x, dt, B, C read once and y written
-    once, and ``ssd_ops`` at the f32 rate."""
-    t_ops = ssd_ops(B, S, H, P, N, chunk) / F32_FLOPS
-    t_bytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize \
-        / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least time for the SSD scan: ``ssd_cost`` (x, dt, B, C read once
+    and y written once; ssd_ops) at the f32 rate."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_cost
+    return _bound(*ssd_cost(B, S, H, P, N, chunk, itemsize), F32_FLOPS)
 
 
 def wkv6_ops(B, S, H, P, chunk) -> int:
-    """WKV6's operations: per chunk of n rows, per (b, h), the strict lower
-    triangle's A terms (n(n-1)/2 x P, each two products, a sum and an
-    exponential), A v (n(n-1)/2 x P multiply-adds), the bonus (5 n P), the
-    incoming-state term and the state update (n x P x P multiply-adds
-    each, and 2 n P for their decay factors)."""
-    ops = 0
-    for t0 in range(0, S, chunk):
-        n = min(chunk, S - t0)
-        tri = n * (n - 1) // 2
-        ops += 4 * tri * P + 2 * tri * P + 5 * n * P \
-            + 2 * 2 * n * P * P + 2 * 2 * n * P
-    return ops * B * H
+    """WKV6's operations (``rwkv6.ops.wkv6_ops``)."""
+    from repro_torch.kernels.rwkv6.ops import wkv6_ops as ops
+    return ops(B, S, H, P, chunk)
 
 
 def wkv6_bound_ms(B, S, H, P, chunk, itemsize) -> tuple[float, str]:
-    """Least time for WKV6: r, k, v, lw read once and y written once, and
-    ``wkv6_ops`` at the f32 rate."""
-    t_ops = wkv6_ops(B, S, H, P, chunk) / F32_FLOPS
-    t_bytes = 5 * B * S * H * P * itemsize / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least time for WKV6: ``wkv6_cost`` (r, k, v, lw read once and y
+    written once; wkv6_ops) at the f32 rate."""
+    from repro_torch.kernels.rwkv6.ops import wkv6_cost
+    return _bound(*wkv6_cost(B, S, H, P, chunk, itemsize), F32_FLOPS)
 
 
 def _check_close(label: str, got, want, tol) -> float:
@@ -2745,6 +2736,65 @@ def ab_worker(inputs_dir: str) -> int:
     return 0
 
 
+AB_DECODE = (8, 1024, 100)         # rows, cache length, timed steps
+
+
+def ab_decode(other_root: str, rounds: int = 2) -> int:
+    """The host cost of the un-meshed decode step, this checkout's port
+    against another checkout's (``other_root``), in separate processes
+    taken in turns (other, tree, tree, other, ``rounds`` times): each
+    worker (``ab_decode_worker``) builds llama-7b at full width and depth
+    (random weights from one seed), runs ``LM.decode_step`` for AB_DECODE
+    rows over a cache of that length, and times the steps (host clock,
+    a synchronise at the end). The serving paths are host-bound (ROADMAP
+    C8), so this is the time a change to the step's Python shows in."""
+    other_src = os.path.join(os.path.abspath(other_root), "src")
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        raise SystemExit(f"no port under {other_src}")
+    seen: dict[str, list[float]] = {}
+    for r in range(rounds):
+        for name in ("other", "tree", "tree", "other"):
+            src = other_src if name == "other" else os.path.join(ROOT, "src")
+            got = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--ab-decode-worker", src], capture_output=True, text=True,
+                env={k: v for k, v in os.environ.items()
+                     if k != "PYTHONPATH"}, cwd=ROOT, timeout=600)
+            lines = [ln for ln in got.stdout.splitlines()
+                     if ln.startswith("AB ")]
+            if got.returncode != 0 or not lines:
+                print(got.stdout[-3000:], got.stderr[-3000:], flush=True)
+                raise RuntimeError(f"ab decode worker {name} failed")
+            ms = json.loads(lines[-1][3:])["ms_per_step"]
+            print(f"ab decode round {r} {name}: {ms:.3f} ms a step",
+                  flush=True)
+            seen.setdefault(name, []).append(ms)
+    for name, v in seen.items():
+        print(f"ab decode median {name}: {statistics.median(v):.3f} ms a "
+              f"step over {len(v)} runs", flush=True)
+    return 0
+
+
+def ab_decode_worker() -> int:
+    """One ab_decode process: the port on ``sys.path`` (SRC)."""
+    import torch
+    device = torch.device("cuda", 0)
+    model, params = build_serving(torch, device)
+    rows, length, steps = AB_DECODE
+    cache = model.init_cache(rows, length)
+    token = torch.ones((rows, 1), dtype=torch.long, device=device)
+    for i in range(5):                                   # warm-up
+        model.decode_step(params, cache, token, i)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        model.decode_step(params, cache, token, 5 + i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / steps * 1e3
+    print("AB " + json.dumps({"ms_per_step": ms}), flush=True)
+    return 0
+
+
 AB_TRAIN_STEPS = 4                 # timed steps a worker, after a warm-up
 
 
@@ -2829,35 +2879,30 @@ def ab_train_worker() -> int:
 # training (slice 9, ROADMAP A11b)
 # --------------------------------------------------------------------------
 def train_ops_bwd(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
-    """The attention backward's operations: five products (recomputed
-    scores, dP, dV, dK, dQ) where the forward has two, 2.5 x flash_ops."""
-    return 5 * flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) // 2
+    """The attention backward's operations (``flash_bwd_ops``: five
+    products where the forward has two, 2.5 x flash_ops)."""
+    from repro_torch.kernels.flash_attention.ops import flash_bwd_ops
+    return flash_bwd_ops(B, Sq, Skv, Hq, Dh, causal, q_offset)
 
 
 def flash_bwd_bound_ms(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
                        itemsize) -> tuple[float, str]:
-    """Least time for the attention backward: q, o, dO, k, v and the f32
-    log-sum-exp read once, dQ, dK, dV written once; train_ops_bwd at the
-    peak rate of the type."""
-    ops = train_ops_bwd(B, Sq, Skv, Hq, Dh, causal, q_offset)
-    t_ops = ops / (F32_FLOPS if itemsize == 4 else F16_FLOPS)
-    q_elems, kv_elems = B * Sq * Hq * Dh, B * Skv * Hkv * Dh
-    t_bytes = ((4 * q_elems + 4 * kv_elems) * itemsize + 4 * B * Hq * Sq) \
-        / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least time for the attention backward: ``flash_bwd_cost`` (q, o,
+    dO, k, v and the f32 log-sum-exp read once, dQ, dK, dV written once;
+    the five products) at the peak rate of the type."""
+    from repro_torch.kernels.flash_attention.ops import flash_bwd_cost
+    return _bound(*flash_bwd_cost(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+                                  itemsize),
+                  F32_FLOPS if itemsize == 4 else F16_FLOPS)
 
 
 def rmsnorm_bwd_bound_ms(n_rows: int, d: int, itemsize: int,
                          dg: bool) -> tuple[float, str]:
-    """Least time for rmsnorm's VJP: x, dy and g read once, dx (and dg)
-    written once; 8 f32 operations per element (two sums, the dx formula;
-    three more for dg)."""
-    t_bytes = (3 * n_rows * d + (2 if dg else 1) * d) * itemsize \
-        / HBM_BYTES_PER_S
-    t_ops = (11 if dg else 8) * n_rows * d / F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least time for rmsnorm's VJP: ``rmsnorm_bwd_cost`` (x, dy and g read
+    once, dx and dγ written once; 8 f32 operations an element, 11 with
+    dγ)."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd_cost
+    return _bound(*rmsnorm_bwd_cost(n_rows, d, itemsize, dg), F32_FLOPS)
 
 
 def rmsnorm_bwd_phase(torch, device) -> dict:
@@ -3592,6 +3637,291 @@ def train_phase(torch, device, *, profile: bool) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# the dry run against the card (phase 12, slice 13, ROADMAP A13)
+# --------------------------------------------------------------------------
+DRY_TRAIN_LIMIT = 70e9          # (c) takes olmo-1b above this predicted peak
+DRY_PEAK_RTOL = 0.10            # measured step peak vs predicted: 10% ...
+DRY_PEAK_ATOL = 256 * 2**20     # ... + 256 MiB
+DRY_FLOPS_RTOL = 0.02           # (c)'s FLOPs vs the closed form
+DRY_PRODUCTION = (("qwen1.5-32b", "train_4k", False),
+                  ("qwen1.5-32b", "train_4k", True))
+KERNEL_WRAPPERS = (("rmsnorm", "rmsnorm.ops", "rmsnorm"),
+                   ("rmsnorm_bwd", "rmsnorm.ops", "rmsnorm_bwd"),
+                   ("flash_attention", "flash_attention.ops",
+                    "flash_attention"),
+                   ("flash_attention_bwd", "flash_attention.ops",
+                    "flash_attention_bwd"),
+                   ("moe_gmm", "moe_gmm.ops", "moe_gmm"),
+                   ("ssd_scan", "ssd_scan.ops", "ssd_scan"),
+                   ("wkv6", "rwkv6.ops", "wkv6"))
+
+
+def dry_cells():
+    """(label, arch, shape, remat) of phase 12's cells: a. llama-7b
+    ``apply`` on 2 x 4096; b. llama-7b ``decode_step``, 2 rows over a
+    32768-token cache (decode_32k's per-row cache); c. a full-parameter
+    AdamW step of qwen2.5-3b at 1 x 4096 under remat='full' (olmo-1b at
+    4 x 4096 when the dry run predicts qwen's peak above DRY_TRAIN_LIMIT)."""
+    from repro_torch.configs import ShapeConfig
+    return [("a", "llama-7b", ShapeConfig("apply-2x4096", 4096, 2,
+                                          "prefill"), None),
+            ("b", "llama-7b", ShapeConfig("decode-2x32768", 32768, 2,
+                                          "decode"), None),
+            ("c", "qwen2.5-3b", ShapeConfig("train-1x4096", 4096, 1,
+                                            "train"), "full")]
+
+
+def _wrappers() -> dict:
+    import importlib
+    return {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}"), attr)
+        for name, mod, attr in KERNEL_WRAPPERS}
+
+
+def _launch_counts(wrappers: dict) -> dict:
+    return {n: fn.launches for n, fn in wrappers.items()}
+
+
+def train_flops_closed_form(cfg, B: int, S: int) -> int:
+    """The FLOPs of one full-parameter training step under remat='full' of
+    a dense model: 6 T x (the products' weights: the layers' and the
+    unembedding's) + 2 T x (the layers' products recomputed in the
+    backward: all but the MLP's down projection, as torch's checkpoint
+    stops its recompute once the last saved tensor is rebuilt) + 2L
+    flash_ops (forward and recompute) + L flash_bwd_ops (the backward's
+    five products); with rmsnorm, 4L + 1 forward norms of 4 operations an
+    element (2L recomputed) and 2L + 1 backward norms of 11 (with dγ). The
+    embedding lookup, the loss and AdamW do no products."""
+    L, T, D = cfg.n_layers, B * S, cfg.d_model
+    H, K, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    layer = D * H * Dh + 2 * D * K * Dh + H * Dh * D \
+        + (3 if cfg.mlp == "swiglu" else 2) * D * F
+    total = 6 * T * (L * layer + D * cfg.padded_vocab) \
+        + 2 * T * L * (layer - F * D) \
+        + 2 * L * flash_ops(B, S, S, H, Dh, True, 0) \
+        + L * train_ops_bwd(B, S, S, H, Dh, True, 0)
+    if cfg.norm == "rmsnorm":
+        total += (4 * L + 1) * 4 * T * D + (2 * L + 1) * 11 * T * D
+    return total
+
+
+def _local_tree(tree):
+    """The local tensors of a tree of DTensors (on a 1 x 1 mesh, the very
+    tensors the DTensors wrap)."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t,
+                    tree)
+
+
+def _same(a, b) -> bool:
+    """Byte equality of two trees of tensors (DTensors compared by their
+    local tensors)."""
+    from torch.utils._pytree import tree_leaves
+    la, lb = tree_leaves(_local_tree(a)), tree_leaves(_local_tree(b))
+    return len(la) == len(lb) and all(
+        x.equal(y) if hasattr(x, "equal") else x == y
+        for x, y in zip(la, lb))
+
+
+def run_dry_cell(torch, device, mesh, card: str, label, arch, shape, remat,
+                 rec) -> None:
+    """One cell of phase 12 on the card: the same step the dry run traced,
+    through the same meshed code path (DTensor parameters and inputs on a
+    1 x 1 mesh, ``constrain``, ``local_map`` around the kernels), after the
+    same step un-meshed on the same tensors. Rules, each fatal: the meshed
+    outputs (logits; in training the loss, every gradient, the new
+    parameters and the metrics) byte-equal to the un-meshed ones; the
+    kernels' launch counts equal, and not all zero; the meshed step's peak
+    over its arguments (``max_memory_allocated`` minus the allocation just
+    before it) within DRY_PEAK_RTOL x predicted + DRY_PEAK_ATOL of the dry
+    run's ``temp_bytes``; in training the dry run's FLOPs within
+    DRY_FLOPS_RTOL of ``train_flops_closed_form``."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.sharding.rules import use_mesh
+    from repro_torch.train.step import value_and_grad
+
+    cfg = get_arch(arch)
+    wrappers = _wrappers()
+    t = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    step, args, model = build_cell(cfg, shape, mesh, remat=remat,
+                                   device=device, gen=gen)
+    plain = _local_tree(args)
+    torch.cuda.synchronize()
+    print(f"dry run {label}: {arch} {shape.name} built on the card in "
+          f"{time.perf_counter() - t:.2f} s; {torch.cuda.memory_allocated()}"
+          f" B allocated", flush=True)
+
+    def counted(fn, meshed: bool):
+        for w in wrappers.values():
+            reset_launches(w)
+        with use_mesh(mesh) if meshed else contextlib.nullcontext():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, _launch_counts(wrappers)
+
+    def check_launches(what, plain_n, mesh_n):
+        if plain_n != mesh_n or not any(mesh_n.values()):
+            raise AssertionError(f"dry run {label} {what}: launches "
+                                 f"{plain_n} un-meshed, {mesh_n} meshed")
+
+    if shape.kind == "train":
+        (l0, g0), n0 = counted(lambda: value_and_grad(
+            model.loss, plain[0]["params"], plain[1]), False)
+        (l1, g1), n1 = counted(lambda: value_and_grad(
+            model.loss, args[0]["params"], args[1]), True)
+        check_launches("loss and gradients", n0, n1)
+        if not (_same(l0, l1) and _same(g0, g1)):
+            raise AssertionError(f"dry run {label}: the meshed loss or a "
+                                 f"gradient differs from the un-meshed")
+        print(f"dry run {label}: loss {float(l0):.6f}; the loss and "
+              f"{len(tree_leaves(g0))} gradients byte-equal meshed and "
+              f"un-meshed; launches {n1}", flush=True)
+        del g0, g1
+        (state0, m0), n0 = counted(lambda: step(*plain), False)
+        want_out = (state0["params"], m0)
+        del state0
+    else:
+        out0, n0 = counted(lambda: step(*plain), False)
+        want_out = out0[0] if shape.kind == "decode" else out0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out1, n1 = counted(lambda: step(*args), True)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    check_launches("step", n0, n1)
+    got = ((out1[0]["params"], out1[1]) if shape.kind == "train"
+           else out1[0] if shape.kind == "decode" else out1)
+    if not _same(want_out, got):
+        raise AssertionError(f"dry run {label}: the meshed step's outputs "
+                             f"differ from the un-meshed step's")
+    want = rec["memory"]["temp_bytes"]
+    flops = rec["cost"]["flops"]
+    print(f"dry run {label}: {arch} {shape.name} ({card}): predicted step "
+          f"peak {want} B, measured {peak} B ({peak / max(want, 1):.4f} x); "
+          f"predicted arguments {rec['memory']['argument_bytes']} B, "
+          f"allocated before the step {base} B; wall {wall:.4f} s; "
+          f"dry-run FLOPs {flops}; achieved {flops / wall / 1e12:.2f} "
+          f"TFLOP/s; launches {n1} (equal meshed and un-meshed); outputs "
+          f"byte-equal", flush=True)
+    if abs(peak - want) > DRY_PEAK_RTOL * want + DRY_PEAK_ATOL:
+        raise AssertionError(f"dry run {label}: measured peak {peak} B is "
+                             f"not within {DRY_PEAK_RTOL:g} x {want} + "
+                             f"{DRY_PEAK_ATOL} B of the prediction")
+    if shape.kind == "train":
+        closed = train_flops_closed_form(cfg, shape.global_batch,
+                                         shape.seq_len)
+        print(f"dry run {label}: FLOPs {flops} vs closed form {closed} "
+              f"({flops / closed:.6f} x)", flush=True)
+        if abs(flops - closed) > DRY_FLOPS_RTOL * closed:
+            raise AssertionError(f"dry run {label}: FLOPs {flops} not within "
+                                 f"{DRY_FLOPS_RTOL:g} of {closed}")
+
+
+def dryrun_phase(torch, device) -> None:
+    """Phase 12: each of ``dry_cells`` lowered on meta tensors
+    (``launch.dryrun.lower_cell`` on a 1 x 1 mesh of a fake process group),
+    then run on the card through the meshed path under a one-rank NCCL
+    group (``run_dry_cell`` states the rules); then two production cells
+    lowered with no card work, their records and lowering times printed."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    card = card_line()
+    lowered = []
+    for label, arch, shape, remat in dry_cells():
+        t = time.perf_counter()
+        rec = lower_cell(arch, shape, mesh_shape=(1, 1), remat=remat)
+        if label == "c" and \
+                rec["memory"]["peak_bytes_per_device"] > DRY_TRAIN_LIMIT:
+            print(f"dry run c: {arch} {shape.name} predicts a peak of "
+                  f"{rec['memory']['peak_bytes_per_device']} B, above "
+                  f"{DRY_TRAIN_LIMIT:.0f} B: olmo-1b at 4 x 4096 instead",
+                  flush=True)
+            arch = "olmo-1b"
+            shape = ShapeConfig("train-4x4096", 4096, 4, "train")
+            rec = lower_cell(arch, shape, mesh_shape=(1, 1), remat=remat)
+        print(f"dry run {label}: {arch} {shape.name} lowered in "
+              f"{time.perf_counter() - t:.2f} s: {json.dumps(rec)}",
+              flush=True)
+        lowered.append((label, arch, shape, remat, rec))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=device)
+    try:
+        mesh = make_smoke_mesh()
+        for label, arch, shape, remat, rec in lowered:
+            run_dry_cell(torch, device, mesh, card, label, arch, shape,
+                         remat, rec)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for arch, shape, multi in DRY_PRODUCTION:
+        t = time.perf_counter()
+        rec = lower_cell(arch, shape, multi_pod=multi)
+        print(f"dry run production {arch} {shape} "
+              f"{'multi' if multi else 'single'}-pod: lowered in "
+              f"{time.perf_counter() - t:.2f} s: {json.dumps(rec)}",
+              flush=True)
+
+
+# --------------------------------------------------------------------------
+# the examples' twins (phase 13, slice 13, ROADMAP A14)
+# --------------------------------------------------------------------------
+EXAMPLES = ("torch_quickstart", "torch_offload_inference",
+            "torch_continuous_batching", "torch_lora_training")
+
+
+def oracle_checks(out: str) -> list[bool]:
+    """Every oracle check an example prints: ``... oracle: True|False`` and
+    the offload example's ``close`` column."""
+    import re
+    checks = [m == "True" for m in re.findall(r"oracle: (True|False)", out)]
+    checks += [m == "True" for m in re.findall(
+        r"^\s*[\d.]+\s+\d+\s+\d+\s+[\d.]+\s+(True|False)$", out, re.M)]
+    return checks
+
+
+def examples_phase() -> None:
+    """Phase 13: each twin of ``examples/`` in a process of its own on the
+    card at its defaults; fatal if one fails or prints an oracle check that
+    is False (the LoRA example's check: its run finishes after its one
+    injected failure)."""
+    for name in EXAMPLES:
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples", f"{name}.py")],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC),
+            capture_output=True, text=True, timeout=900)
+        for line in res.stdout.splitlines():
+            print(f"example {name}: {line}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"example {name} failed:\n"
+                                 f"{res.stderr[-4000:]}")
+        checks = oracle_checks(res.stdout)
+        if name == "torch_lora_training":
+            ok = "with 1 restart(s)" in res.stdout
+        else:
+            ok = bool(checks) and all(checks)
+        print(f"example {name}: {len(checks)} oracle checks, all True: "
+              f"{ok}; {time.perf_counter() - t:.2f} s", flush=True)
+        if not ok:
+            raise AssertionError(f"example {name}: an oracle check failed")
+
+
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3601,6 +3931,10 @@ def main(argv: list[str]) -> int:
         return ab_worker(argv[argv.index("--ab-worker") + 2])
     if "--ab-prefill" in argv:
         return ab_prefill(argv[argv.index("--ab-prefill") + 1])
+    if "--ab-decode-worker" in argv:
+        return ab_decode_worker()
+    if "--ab-decode" in argv:
+        return ab_decode(argv[argv.index("--ab-decode") + 1])
     if "--ab-train-worker" in argv:
         return ab_train_worker()
     if "--ab-train" in argv:
@@ -3777,6 +4111,15 @@ def main(argv: list[str]) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _phase("vision path", t)
+
+    t = time.perf_counter()
+    dryrun_phase(torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("dry run against the card", t)
+    t = time.perf_counter()
+    examples_phase()
+    _phase("examples", t)
 
     records = [
         dict(name="rmsnorm", route="cuda",

@@ -2,7 +2,8 @@
 
 Every entry point of the port runs on the card unless the caller asks for
 the CPU: ``device=None`` means ``"cuda"``, and asking for CUDA on a machine
-without it raises instead of quietly running on the CPU.
+without it raises instead of quietly running on the CPU. ``"meta"`` holds
+shapes only: the dry run (``launch/dryrun.py``) builds its models there.
 """
 from __future__ import annotations
 
@@ -22,6 +23,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "default; pass device='cpu' to run it on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -27,6 +27,10 @@ the ``torch.autograd.Function`` of the pair, with the same CPU/CUDA rule.
 ``flash_attention_bwd.launches`` counts calls on the card, by instance
 ``launches_tc`` (16-bit: the wgmma kernels) and ``launches_scalar``
 (float32), and ``kernel_launches`` the device launches.
+
+On a shape-only tensor (meta or fake, :mod:`..shape_only`) the forward and
+the backward return empty outputs and record :func:`flash_cost` and
+:func:`flash_bwd_cost`.
 """
 from __future__ import annotations
 
@@ -36,9 +40,12 @@ import threading
 
 import torch
 
+from ..shape_only import record, shape_only
+
 __all__ = ["flash_attention", "flash_attention_plain", "attention_limit",
            "gradient_limit", "lse_plain", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "FlashAttentionFn", "NEG_INF"]
+           "flash_attention_bwd_plain", "FlashAttentionFn", "NEG_INF",
+           "flash_ops", "flash_bwd_ops", "flash_cost", "flash_bwd_cost"]
 
 NEG_INF = -1e30                  # the TPU kernel's masked score (not -inf)
 HEAD_DIMS = (32, 64, 112, 128)
@@ -49,6 +56,52 @@ F32_TOL = (2e-5, 2e-4)
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fn = None
+
+
+def visible_keys(Sq: int, Skv: int, causal: bool, q_offset: int) -> int:
+    """The (query, key) pairs the attention reads: causal row i sees
+    min(Skv, i + q_offset + 1) keys (summed in closed form)."""
+    if not causal:
+        return Sq * Skv
+    a = q_offset + 1                # row 0 sees a keys while a <= Skv
+    n1 = min(max(Skv - a + 1, 0), Sq)    # rows below the cap
+    return n1 * a + n1 * (n1 - 1) // 2 + (Sq - n1) * Skv
+
+
+def flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
+    """The attention's operations: 4 per (query, visible key, channel)
+    (two products), the visible keys counted for these shapes. The
+    bfloat16 kernel's second P.V product (P split into hi + lo) is not
+    counted: it is the kernel's cost, not the function's."""
+    return 4 * B * Hq * visible_keys(Sq, Skv, causal, q_offset) * Dh
+
+
+def flash_bwd_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) -> int:
+    """The attention backward's operations: five products (recomputed
+    scores, dP, dV, dK, dQ) where the forward has two, 2.5 x flash_ops."""
+    return 5 * flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset) // 2
+
+
+def flash_cost(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+               itemsize) -> tuple[int, int]:
+    """(operations, bytes): q, k, v read once and o written once."""
+    return (flash_ops(B, Sq, Skv, Hq, Dh, causal, q_offset),
+            (2 * B * Sq * Hq + 2 * B * Skv * Hkv) * Dh * itemsize)
+
+
+def flash_bwd_cost(B, Sq, Skv, Hq, Hkv, Dh, causal, q_offset,
+                   itemsize) -> tuple[int, int]:
+    """(operations, bytes) of the backward: q, o, dO, k, v and the f32
+    log-sum-exp read once, dQ, dK, dV written once."""
+    q_elems, kv_elems = B * Sq * Hq * Dh, B * Skv * Hkv * Dh
+    return (flash_bwd_ops(B, Sq, Skv, Hq, Dh, causal, q_offset),
+            (4 * q_elems + 4 * kv_elems) * itemsize + 4 * B * Hq * Sq)
+
+
+def _shape_args(q, k, causal, q_offset) -> tuple:
+    B, Sq, Hq, Dh = q.shape
+    return (B, Sq, k.shape[1], Hq, k.shape[2], Dh, bool(causal),
+            int(q_offset), q.element_size())
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -238,6 +291,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``lse`` (float32 ``[B, Hq, Sq]``) when given."""
     _check(q, k, v, q_offset, out)
     _check_lse(lse, q)
+    if shape_only(q):
+        record("flash_attention", *flash_cost(*_shape_args(q, k, causal,
+                                                           q_offset)))
+        return torch.empty_like(q) if out is None else out
     if q.device.type == "cpu":
         o = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
         if lse is not None:
@@ -300,6 +357,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} must be "
                              f"{tuple(q.shape)} {q.dtype} on {q.device} with "
                              f"a contiguous last dimension")
+    if shape_only(q):
+        record("flash_attention_bwd", *flash_bwd_cost(
+            *_shape_args(q, k, causal, q_offset)))
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        # the kernel's f32 Di workspace, live during the call
+        torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                    dtype=torch.float32, device=q.device)
+        return dq, dk, dv
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          q_offset=q_offset)
@@ -352,7 +417,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
         lse = None
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and not shape_only(q):
             o = flash_attention_plain(q, k, v, causal=causal,
                                       q_offset=q_offset)
         else:
@@ -370,7 +435,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and not shape_only(q):
             dq, dk, dv = flash_attention_bwd_plain(
                 q, k, v, o, do, causal=ctx.causal, q_offset=ctx.q_offset)
         else:

@@ -19,6 +19,11 @@ counts the kernel's launches from both, and by instance:
 ``launches_scalar`` (float32). The kernel masks the ragged edges itself,
 so unlike the reference wrapper this one pads nothing.
 
+On a shape-only tensor (meta or fake, :mod:`..shape_only`) it returns an
+empty output and records :func:`gmm_cost`; the counts cannot be read
+there, so the rows counted are ``rows=`` (the caller's expectation), by
+default all of x's; the backward records its two plain products.
+
 Under grad on the card :func:`grouped_matmul` goes through
 :class:`GroupedMatmulFn`: the forward on the kernel, the gradient through
 :func:`grouped_matmul_plain` (:mod:`repro_torch.kernels.plain_grad`). The
@@ -28,18 +33,28 @@ routing, get none, as in the reference.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
 
 from ..plain_grad import needs_grad, plain_grads
+from ..shape_only import record, shape_only
 
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "moe_gmm",
-           "moe_gmm_plain", "GroupedMatmulFn"]
+           "moe_gmm_plain", "GroupedMatmulFn", "gmm_cost"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _count_lock = threading.Lock()
 _fn = None
+
+
+def gmm_cost(rows: int, d: int, f: int, hit: int,
+             itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of a grouped matmul: 2 operations per (row, d,
+    f); the rows of x read once, the output written once, the weights of
+    the ``hit`` experts that received a row read once."""
+    return 2 * rows * d * f, (rows * d + rows * f + hit * d * f) * itemsize
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -121,11 +136,22 @@ class GroupedMatmulFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, offsets, counts, kernel):
         ctx.save_for_backward(x, w, offsets, counts)
+        ctx.rows = getattr(kernel, "keywords", {}).get("rows")
         return kernel(x, w, offsets, counts)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, offsets, counts = ctx.saved_tensors
+        if shape_only(x):
+            rows = getattr(ctx, "rows", None) or x.shape[0]
+            # dx and dw, the plain version's two products per group
+            ops = 2 * gmm_cost(rows, w.shape[1], w.shape[2], w.shape[0],
+                               x.element_size())[0]
+            record("grouped_matmul_plain_bwd", ops,
+                   2 * gmm_cost(rows, w.shape[1], w.shape[2], w.shape[0],
+                                x.element_size())[1])
+            return (torch.empty_like(x), torch.empty_like(w), None, None,
+                    None)
         dx, dw = plain_grads(grouped_matmul_plain, (x, w),
                              ctx.needs_input_grad[:2], dy, offsets, counts)
         return dx, dw, None, None, None
@@ -133,32 +159,40 @@ class GroupedMatmulFn(torch.autograd.Function):
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                    counts: torch.Tensor, *,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
+                   out: torch.Tensor | None = None,
+                   rows: int | None = None) -> torch.Tensor:
     """``out[o:o+c] = x[o:o+c] @ w[e]`` for each group e with offset o and
     count c (int32, on x's device), accumulated in f32 and written in
     ``x.dtype``. The groups must be disjoint ranges of ``[0, R)``; rows in
     no group are left as they are in ``out`` (uninitialised on the card
     when ``out`` is None). Written into ``out`` when given, which autograd
-    cannot follow."""
+    cannot follow. ``rows`` is the number of rows the groups hold, counted
+    on shape-only tensors only."""
     _check(x, w, offsets, counts, out)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not shape_only(x):
         return grouped_matmul_plain(x, w, offsets, counts, out=out)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not shape_only(x):
         raise ValueError(f"grouped_matmul: no kernel for device {x.device}")
+    kernel = _launch if rows is None else functools.partial(_launch,
+                                                            rows=rows)
     if needs_grad(x, w):
         if out is not None:
             raise ValueError("grouped_matmul: out= under grad cannot be "
                              "differentiated")
-        return GroupedMatmulFn.apply(x, w, offsets, counts, _launch)
-    return _launch(x, w, offsets, counts, out)
+        return GroupedMatmulFn.apply(x, w, offsets, counts, kernel)
+    return kernel(x, w, offsets, counts, out)
 
 
-def _launch(x, w, offsets, counts, out=None) -> torch.Tensor:
+def _launch(x, w, offsets, counts, out=None, *, rows=None) -> torch.Tensor:
     """One launch of the kernel on checked CUDA tensors."""
     R, D = x.shape
     E, _, F = w.shape
     if out is None:
         out = torch.empty((R, F), dtype=x.dtype, device=x.device)
+    if shape_only(x):
+        record("moe_gmm", *gmm_cost(R if rows is None else rows, D, F, E,
+                                    x.element_size()))
+        return out
     if R == 0 or F == 0 or E == 0:
         return out
     err = _launcher()(
@@ -192,7 +226,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"be read as [E * C, D] rows without a copy") from e
     offsets = torch.arange(E, dtype=torch.int32, device=x.device) * C
     counts = torch.full((E,), C, dtype=torch.int32, device=x.device)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not shape_only(x):
         _check(rows, w, offsets, counts, None)
         return moe_gmm_plain(x, w)
     return grouped_matmul(rows, w, offsets, counts).view(E, C, w.shape[2])

@@ -4,7 +4,9 @@
 ``[D]``. On a CUDA tensor it launches ``csrc/rmsnorm.cu`` (built on first
 use, see :mod:`repro_torch.kernels.build`) or raises; there is no fallback.
 On a CPU tensor, and only there, it computes :func:`rmsnorm_plain`.
-``rmsnorm.launches`` counts the kernel's launches.
+On a shape-only tensor (meta or fake, :mod:`..shape_only`) it returns an
+empty output and records :func:`rmsnorm_cost`. ``rmsnorm.launches`` counts
+the kernel's launches.
 
 :func:`rmsnorm_bwd` is the VJP (dx, and dγ when asked), the same file's
 second entry point, with :func:`rmsnorm_bwd_plain` beside it and the same
@@ -21,8 +23,10 @@ import threading
 
 import torch
 
+from ..shape_only import record, shape_only
+
 __all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_bwd", "rmsnorm_bwd_plain",
-           "RMSNormFn"]
+           "RMSNormFn", "rmsnorm_cost", "rmsnorm_bwd_cost"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _count_lock = threading.Lock()
@@ -37,6 +41,22 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     """The accumulation type: float32, or float64 for float64 inputs (the
     autograd checks run in float64)."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def rmsnorm_cost(n_rows: int, d: int, itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of rmsnorm on [n_rows, d]: 4 f32 operations an
+    element (square, sum, two scalings); x and g read once, y written
+    once."""
+    return 4 * n_rows * d, (2 * n_rows * d + d) * itemsize
+
+
+def rmsnorm_bwd_cost(n_rows: int, d: int, itemsize: int,
+                     dg: bool) -> tuple[int, int]:
+    """(operations, bytes) of rmsnorm's VJP: 8 f32 operations an element
+    (two sums, the dx formula; three more for dγ); x, dy and g read once,
+    dx (and dγ) written once."""
+    return ((11 if dg else 8) * n_rows * d,
+            (3 * n_rows * d + (2 if dg else 1) * d) * itemsize)
 
 
 def rmsnorm_plain(x: torch.Tensor, g: torch.Tensor, *,
@@ -122,6 +142,10 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
         raise ValueError(f"rmsnorm: out must be {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}, got {tuple(out.shape)} {out.dtype} on "
                          f"{out.device}")
+    if shape_only(x):
+        record("rmsnorm", *rmsnorm_cost(x.numel() // max(D, 1), D,
+                                        x.element_size()))
+        return torch.empty_like(x) if out is None else out
     if x.device.type == "cpu":
         y = rmsnorm_plain(x, g, eps=eps)
         if out is None:
@@ -170,6 +194,11 @@ def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, *,
                             or out.device != x.device):
         raise ValueError(f"rmsnorm_bwd: out must be {tuple(x.shape)} "
                          f"{x.dtype} on {x.device}")
+    if shape_only(x):
+        record("rmsnorm_bwd", *rmsnorm_bwd_cost(
+            x.numel() // max(D, 1), D, x.element_size(), need_dg))
+        return (torch.empty_like(x) if out is None else out,
+                torch.empty_like(g) if need_dg else None)
     if x.device.type == "cpu":
         dx, dg = rmsnorm_bwd_plain(x, g, dy, eps=eps, need_dg=need_dg)
         return (dx if out is None else out.copy_(dx)), dg
@@ -214,7 +243,7 @@ class RMSNormFn(torch.autograd.Function):
     def forward(ctx, x, g, eps):
         ctx.save_for_backward(x, g)
         ctx.eps = eps
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not shape_only(x):
             return rmsnorm_plain(x, g, eps=eps)
         return rmsnorm(x, g, eps=eps)
 
@@ -224,7 +253,7 @@ class RMSNormFn(torch.autograd.Function):
         need_dx, need_dg = ctx.needs_input_grad[:2]
         if not (need_dx or need_dg):
             return None, None, None
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not shape_only(x):
             dx, dg = rmsnorm_bwd_plain(x, g, dy, eps=ctx.eps, need_dg=need_dg)
         else:
             dx, dg = rmsnorm_bwd(x, g, dy.contiguous(), eps=ctx.eps,

@@ -32,8 +32,9 @@ import threading
 import torch
 
 from ..plain_grad import needs_grad, plain_grads
+from ..shape_only import record, shape_only
 
-__all__ = ["wkv6", "wkv6_plain", "WKV6Fn"]
+__all__ = ["wkv6", "wkv6_plain", "WKV6Fn", "wkv6_ops", "wkv6_cost"]
 
 MAX_P = 64                 # what csrc/wkv6.cu is built for
 MAX_CHUNK = 64
@@ -42,6 +43,26 @@ KERNELS_PER_CALL = 3       # group states, state pass, outputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
+
+
+def wkv6_ops(B, S, H, P, chunk) -> int:
+    """WKV6's operations: per chunk of n rows, per (b, h), the strict lower
+    triangle's A terms (n(n-1)/2 x P, each two products, a sum and an
+    exponential), A v (n(n-1)/2 x P multiply-adds), the bonus (5 n P), the
+    incoming-state term and the state update (n x P x P multiply-adds
+    each, and 2 n P for their decay factors)."""
+    ops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        tri = n * (n - 1) // 2
+        ops += 4 * tri * P + 2 * tri * P + 5 * n * P \
+            + 2 * 2 * n * P * P + 2 * 2 * n * P
+    return ops * B * H
+
+
+def wkv6_cost(B, S, H, P, chunk, itemsize) -> tuple[int, int]:
+    """(operations, bytes): r, k, v, lw read once and y written once."""
+    return wkv6_ops(B, S, H, P, chunk), 5 * B * S * H * P * itemsize
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,9 +165,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)``. Returns ``[B, S, H, P]``
     in ``r.dtype``."""
     _check(r, k, v, lw, u, chunk)
-    if r.device.type == "cpu":
+    if r.device.type == "cpu" and not shape_only(r):
         return wkv6_plain(r, k, v, lw, u, chunk=chunk)
-    if r.device.type != "cuda":
+    if r.device.type != "cuda" and not shape_only(r):
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     if needs_grad(r, k, v, lw, u):
         return WKV6Fn.apply(r, k, v, lw, u, chunk, _launch)
@@ -156,6 +177,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(r, k, v, lw, u, chunk) -> torch.Tensor:
     """The kernel's three launches on checked CUDA tensors."""
     B, S, H, P = r.shape
+    if shape_only(r):
+        record("wkv6", *wkv6_cost(B, S, H, P, min(int(chunk), S),
+                                  r.element_size()))
+        return torch.empty_like(r)
     for name, t in (("k", k), ("v", v), ("lw", lw)):
         if t.dtype != r.dtype:
             raise ValueError(f"wkv6: {name} is {t.dtype}, r {r.dtype}")

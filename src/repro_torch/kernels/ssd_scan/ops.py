@@ -31,8 +31,10 @@ import threading
 import torch
 
 from ..plain_grad import needs_grad, plain_grads
+from ..shape_only import record, shape_only
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "SSDScanFn"]
+__all__ = ["ssd_scan", "ssd_scan_plain", "SSDScanFn", "ssd_ops",
+           "ssd_cost"]
 
 MAX_P = 64                 # what csrc/ssd_scan.cu is built for
 MAX_N = 64
@@ -41,6 +43,29 @@ KERNELS_PER_CALL = 3       # chunk states, state pass, outputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
+
+
+def ssd_ops(B, S, H, P, N, chunk) -> int:
+    """The SSD scan's operations: per chunk of n rows, per b, the lower
+    triangle's C.B products (n(n+1)/2 x N multiply-adds: B and C are
+    shared by the heads, so C.B is needed once for all of them), and per
+    (b, h) its weights (an exponential and two products each), its weighted
+    sum of x (x P), the incoming-state term and the state update (n x P x N
+    multiply-adds each): two operations a multiply-add, one an exponential
+    or a product."""
+    ops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        tri = n * (n + 1) // 2
+        ops += B * 2 * tri * N \
+            + B * H * (2 * tri * P + 3 * tri + 2 * 2 * n * P * N)
+    return ops
+
+
+def ssd_cost(B, S, H, P, N, chunk, itemsize) -> tuple[int, int]:
+    """(operations, bytes): x, dt, B, C read once and y written once."""
+    return (ssd_ops(B, S, H, P, N, chunk),
+            (2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize)
 
 
 def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -146,9 +171,9 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     sum of ``dt * A`` within a chunk. Returns ``[B, S, H, P]`` in
     ``xh.dtype``."""
     _check(xh, dt, A, Bm, Cm, chunk)
-    if xh.device.type == "cpu":
+    if xh.device.type == "cpu" and not shape_only(xh):
         return ssd_scan_plain(xh, dt, A, Bm, Cm, chunk=chunk)
-    if xh.device.type != "cuda":
+    if xh.device.type != "cuda" and not shape_only(xh):
         raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
     if needs_grad(xh, dt, A, Bm, Cm):
         return SSDScanFn.apply(xh, dt, A, Bm, Cm, chunk, _launch)
@@ -159,6 +184,10 @@ def _launch(xh, dt, A, Bm, Cm, chunk) -> torch.Tensor:
     """The kernel's three launches on checked CUDA tensors."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
+    if shape_only(xh):
+        record("ssd_scan", *ssd_cost(B, S, H, P, N, min(int(chunk), S),
+                                     xh.element_size()))
+        return torch.empty_like(xh)
     for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if t.dtype != xh.dtype:
             raise ValueError(f"ssd_scan: {name} is {t.dtype}, xh {xh.dtype}")

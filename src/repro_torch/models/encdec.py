@@ -39,8 +39,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..sharding.rules import constrain, embed_rows, fsdp_gather
 from . import layers as L
-from .lm import _norm, _norm_init, _with_prefix, layer_params, wrap_remat
+from .lm import (_norm, _norm_init, _with_prefix, layer_params, token_nll,
+                 wrap_remat)
 from .offload import ResidualOffload
 
 __all__ = ["EncDec"]
@@ -141,7 +143,8 @@ class EncDec:
             lp = layer_params(params["enc_layers"], i)
             hh = hh + self._attn(lp["attn"], _norm(cfg, lp, "ln1", hh),
                                  positions, causal=False)
-            return hh + self._mlp(lp, _norm(cfg, lp, "ln2", hh))
+            hh = hh + self._mlp(lp, _norm(cfg, lp, "ln2", hh))
+            return constrain(hh, ("pod", "data"), "model", None)  # SP
         body = self._wrap_remat(body, self._offload())
         for i in range(cfg.n_layers):
             h = body(h, i)
@@ -152,20 +155,25 @@ class EncDec:
         """Teacher-forced decoder: tokens [B, S] over ``enc_out`` → logits
         [B, S, padded_vocab]."""
         cfg = self.cfg
-        h = params["embed"][torch.as_tensor(tokens, device=self.device)
-                            .long()]
+        h = embed_rows(params["embed"], torch.as_tensor(
+            tokens, device=self.device).long())
+        h = constrain(h, ("pod", "data"), None, None)
         positions = self._positions(*h.shape[:2])
 
         def body(hh, i):
             lp = layer_params(params["dec_layers"], i)
             hh = hh + self._attn(lp["self_attn"], _norm(cfg, lp, "ln1", hh),
                                  positions, causal=True)
-            return self._cross_mlp(lp, hh, enc_out, positions)
+            hh = self._cross_mlp(lp, hh, enc_out, positions)
+            return constrain(hh, ("pod", "data"), "model", None)  # SP
         body = self._wrap_remat(body, self._offload())
         for i in range(cfg.n_decoder_layers):
             h = body(h, i)
-        h = _norm(cfg, params, "ln_f", h)
-        return h @ params["unembed"]
+        # the sequence gathered before the head (``LM.apply``)
+        h = constrain(_norm(cfg, params, "ln_f", h), ("pod", "data"), None,
+                      None)
+        return constrain(h @ fsdp_gather(params["unembed"]), ("pod", "data"),
+                         None, "model")
 
     def apply(self, params: dict, tokens: torch.Tensor, *,
               encoder_embeds) -> torch.Tensor:
@@ -181,10 +189,7 @@ class EncDec:
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         logits = self.apply(params, batch["tokens"],
                             encoder_embeds=batch["encoder_embeds"]).float()
-        iota = torch.arange(cfg.padded_vocab, device=self.device)
-        logits = logits + torch.where(iota < cfg.vocab_size, 0.0, -1e30)
-        logp = torch.log_softmax(logits, dim=-1)
-        return -torch.gather(logp, -1, labels[..., None]).mean()
+        return token_nll(logits, labels, cfg.vocab_size).mean()
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int, enc_len: int) -> dict:
@@ -207,8 +212,8 @@ class EncDec:
         ``cache`` in place, which is returned."""
         cfg, dev = self.cfg, self.device
         B = token.shape[0]
-        h = params["embed"][torch.as_tensor(token, device=dev)
-                            .long()]                      # [B, 1, D]
+        h = embed_rows(params["embed"],
+                       torch.as_tensor(token, device=dev).long())                      # [B, 1, D]
         enc_out = cache["enc_out"]
         lens = torch.full((B,), int(cache_len), dtype=torch.int64,
                           device=dev)

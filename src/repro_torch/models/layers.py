@@ -24,6 +24,7 @@ from the reference's ``jax.random`` draws.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -35,6 +36,8 @@ from ..kernels.flash_attention.ops import (FlashAttentionFn, NEG_INF,
 from ..kernels.moe_gmm.ops import grouped_matmul
 from ..kernels.plain_grad import needs_grad
 from ..kernels.rmsnorm.ops import RMSNormFn, rmsnorm as _rmsnorm_kernel
+from ..sharding.rules import (active_mesh, constrain, merge_last, meshed,
+                              split_dim, split_last)
 
 __all__ = ["rmsnorm", "layernorm", "rope", "blockwise_attention",
            "decode_attention", "decode_attention_q8", "AttnParamsSpec",
@@ -43,11 +46,21 @@ __all__ = ["rmsnorm", "layernorm", "rope", "blockwise_attention",
            "moe_route", "moe_block", "randn"]
 
 
+def _local():
+    """The kernels' meshed call sites (imports ``torch.distributed``; only
+    reached under an active mesh)."""
+    from ..sharding import local
+    return local
+
+
 def randn(gen: torch.Generator, shape, dtype: torch.dtype, scale: float,
           device=None) -> torch.Tensor:
     """``normal(shape) * scale`` drawn from ``gen`` on ``device`` (default
-    CUDA). The draw happens on the generator's device."""
+    CUDA). The draw happens on the generator's device; on the meta device
+    nothing is drawn."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
     t = torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
     return t.mul_(scale).to(dev)
 
@@ -63,6 +76,15 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None,
     if gamma is None:
         var = x.float().square().mean(dim=-1, keepdim=True)
         return x * torch.rsqrt(var + eps).to(x.dtype)
+    if active_mesh() is not None and meshed(x):
+        return _local().rmsnorm(_rmsnorm, x, gamma, eps)
+    if needs_grad(x, gamma):
+        return RMSNormFn.apply(x, gamma, eps)
+    return _rmsnorm_kernel(x, gamma, eps=eps)
+
+
+def _rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float):
+    """The norm on plain tensors (a local shard under a mesh)."""
     if needs_grad(x, gamma):
         return RMSNormFn.apply(x, gamma, eps)
     return _rmsnorm_kernel(x, gamma, eps=eps)
@@ -116,6 +138,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's XLA block size; the kernel keeps its own tiles, so it is
     accepted and not used."""
     del block_kv
+    if meshed(q):
+        return _local().attention(_attention, q, k, v, causal, int(q_offset))
+    return _attention(q, k, v, causal, int(q_offset))
+
+
+def _attention(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, int(q_offset))
     # no gradient: the forward alone, without the log-sum-exp
@@ -135,7 +163,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     _, Smax, Hkv, _ = k_cache.shape
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(Dh)
-    qg = q.reshape(B, Sq, Hkv, G, Dh)
+    qg = split_dim(q, 2, Hkv).reshape(B, Sq, Hkv, G, Dh)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache) * scale
     mask = _mask_len(cache_len, Smax, q.device)
     s = s.float().masked_fill(~mask[:, None, None, None, :], NEG_INF)
@@ -153,7 +181,7 @@ def decode_attention_q8(q: torch.Tensor, k_cache: torch.Tensor,
     _, Smax, Hkv, _ = k_cache.shape
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(Dh)
-    qg = q.reshape(B, Sq, Hkv, G, Dh).float()
+    qg = split_dim(q, 2, Hkv).reshape(B, Sq, Hkv, G, Dh).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * scale
     s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]     # [B,Hkv,1,1,S]
     mask = _mask_len(cache_len, Smax, q.device)
@@ -204,15 +232,33 @@ def attention_block(p: dict, x: torch.Tensor, *, n_heads: int,
     B, S, _ = x.shape
     src = x if kv is None else kv
     Skv = src.shape[1]
-    q = _proj(x, p, "wq", "bq").reshape(B, S, n_heads, d_head)
-    k = _proj(src, p, "wk", "bk").reshape(B, Skv, n_kv_heads, d_head)
-    v = _proj(src, p, "wv", "bv").reshape(B, Skv, n_kv_heads, d_head)
+    q = split_last(_proj(x, p, "wq", "bq"), B, S, n_heads, d_head)
+    k = split_last(_proj(src, p, "wk", "bk"), B, Skv, n_kv_heads, d_head)
+    v = split_last(_proj(src, p, "wv", "bv"), B, Skv, n_kv_heads, d_head)
+    # head-sharded attention (Megatron TP) keeps the whole attention local
+    # per device; constrain is the identity un-meshed or when the heads do
+    # not divide 'model'
+    q = constrain(q, ("pod", "data"), None, "model", None, require="model")
+    k = constrain(k, ("pod", "data"), None, "model", None, require="model")
+    v = constrain(v, ("pod", "data"), None, "model", None, require="model")
     if kv is None and rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
     o = blockwise_attention(q, k, v, causal=causal and kv is None,
                             block_kv=block_kv)
-    return o.reshape(B, S, n_heads * d_head) @ p["wo"]
+    o = constrain(o, ("pod", "data"), None, "model", None, require="model")
+    return _batch_sharded(merge_last(o, B, S, n_heads * d_head) @ p["wo"])
+
+
+_BATCH = (("pod", "data"), None, None)
+
+
+def _batch_sharded(y: torch.Tensor) -> torch.Tensor:
+    """A block's output [B, S, D] placed by batch alone before its
+    residual add: the add's gradient then comes back to the product that
+    made ``y`` with its sequence whole, so that the product's backward
+    flattens no sharded sequence. The identity un-meshed."""
+    return constrain(y, *_BATCH)
 
 
 def decode_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
@@ -222,9 +268,9 @@ def decode_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     [B, 1, Hq, Dh] and k, v [B, 1, Hkv, Dh], RoPE applied when
     ``rope_theta``."""
     B = x.shape[0]
-    q = _proj(x, p, "wq", "bq").reshape(B, 1, n_heads, d_head)
-    k = _proj(x, p, "wk", "bk").reshape(B, 1, n_kv_heads, d_head)
-    v = _proj(x, p, "wv", "bv").reshape(B, 1, n_kv_heads, d_head)
+    q = split_last(_proj(x, p, "wq", "bq"), B, 1, n_heads, d_head)
+    k = split_last(_proj(x, p, "wk", "bk"), B, 1, n_kv_heads, d_head)
+    v = split_last(_proj(x, p, "wv", "bv"), B, 1, n_kv_heads, d_head)
     if rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
@@ -235,7 +281,11 @@ def cache_put(buf: torch.Tensor, upd: torch.Tensor,
               at: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """Write ``upd[sel, 0]`` into a layer's cache ``buf`` [B, Smax, ...]
     in place, at ``at = (sel, lens[sel])``: each row ``sel`` at its own
-    position; the other rows stay untouched. Returns ``buf``."""
+    position; the other rows stay untouched. Returns ``buf``. Under a mesh
+    every row writes (``sel`` is all of them) into its local shard
+    (``sharding.local.cache_put``)."""
+    if meshed(buf):
+        return _local().cache_put(buf, upd, at[1])
     buf.index_put_(at, upd[at[0], 0])
     return buf
 
@@ -262,12 +312,13 @@ def decode_attention_block(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
 # MLPs
 # --------------------------------------------------------------------------
 def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    return _batch_sharded(
+        (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"])
 
 
 def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.gelu(_proj(x, p, "wi", "bi"), approximate="tanh")
-    return _proj(h, p, "wo", "bo")
+    return _batch_sharded(_proj(h, p, "wo", "bo"))
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
@@ -360,13 +411,32 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     logits are rounded from an f64 product, so that a token's experts do
     not depend on the other rows of its batch. With a capacity, a
     pair whose position is C or more is simply not routed: its expert's
-    count is cut to C, so the kernel neither reads nor writes its row."""
+    count is cut to C, so the kernel neither reads nor writes its row.
+
+    Under a mesh (``sharding.local.moe_experts``) every rank routes every
+    token and computes only the rows of its window of experts and tokens;
+    the output and the aux loss are partial sums over the mesh."""
+    args = (x, p["router"], p["wi_gate"], p["wi_up"], p["wo"])
+    fn = functools.partial(_moe_rows, n_experts=n_experts, top_k=top_k,
+                           capacity_factor=capacity_factor)
+    if meshed(x):
+        y, aux = _local().moe_experts(fn, *args, n_experts)
+        return _batch_sharded(y), aux
+    return fn(*args, None)
+
+
+def _moe_rows(x, router, wi_gate, wi_up, wo, window, *, n_experts: int,
+              top_k: int, capacity_factor: float | None):
+    """:func:`moe_block` on plain tensors. ``window = (e0, e1, t0, t1)``
+    computes only the pairs of experts [e0, e1) and flattened tokens
+    [t0, t1) (whose rows, within each expert's queue, are one range), and
+    this share of the aux loss; ``None`` is every pair."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
     # through f64: cuBLAS's f32 product sums a row in an order that depends
     # on the number of rows, which could move a token to other experts
-    logits = (xt.double() @ p["router"].double()).float()
+    logits = (xt.double() @ router.double()).float()
     probs = torch.softmax(logits, dim=-1)                        # [T, E]
     gate, expert, perm, offsets, counts_all = moe_route(probs, top_k)
     counts = counts_all
@@ -379,16 +449,40 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         keep = (pos < C).view(T, top_k)
         gate = gate * keep
     off32, cnt32 = offsets.int(), counts.int()
+    frac_tokens = counts_all.float() / (T * top_k)
+    mine = None
+    if window is not None:
+        e0, e1, t0, t1 = window
+        lo, hi = (torch.zeros(n_experts, dtype=torch.int64, device=x.device)
+                  .index_add_(0, expert[:t].reshape(-1),
+                              torch.ones_like(expert[:t].reshape(-1)))
+                  for t in (t0, t1))        # pairs before t0, before t1
+        if capacity_factor is not None:
+            lo, hi = lo.clamp(max=C), hi.clamp(max=C)
+        sorted_e = expert.reshape(-1)[perm]
+        q = torch.arange(T * top_k, device=x.device) - offsets[sorted_e]
+        mine = ((sorted_e >= e0) & (sorted_e < e1) & (q >= lo[sorted_e])
+                & (q < hi[sorted_e]))[:, None]
+        off32 = (offsets + lo)[e0:e1].int()
+        cnt32 = (hi - lo)[e0:e1].int()     # the weights hold [e0, e1)
     xs = xt[perm // top_k]                                       # [T*k, D]
-    h = F.silu(grouped_matmul(xs, p["wi_gate"], off32, cnt32)) \
-        * grouped_matmul(xs, p["wi_up"], off32, cnt32)
-    y_rows = grouped_matmul(h, p["wo"], off32, cnt32)
+    rows = None
+    if window is not None:      # counted on shape-only tensors: balanced
+        rows = (t1 - t0) * top_k * (e1 - e0) // n_experts
+    h = F.silu(grouped_matmul(xs, wi_gate, off32, cnt32, rows=rows)) \
+        * grouped_matmul(xs, wi_up, off32, cnt32, rows=rows)
+    y_rows = grouped_matmul(h, wo, off32, cnt32, rows=rows)
+    if mine is not None:        # rows outside the window are not computed
+        y_rows = torch.where(mine, y_rows, 0)
     y_pairs = torch.empty_like(y_rows).index_copy_(0, perm, y_rows)
     if capacity_factor is not None:     # dropped rows were never computed
         y_pairs = y_pairs.masked_fill(~keep.view(-1, 1), 0)
     y = (y_pairs.view(T, top_k, D) * gate.to(x.dtype)[..., None]).sum(dim=1)
 
     # load-balance aux loss (Switch): E * mean(frac_tokens * frac_probs)
-    frac_tokens = counts_all.float() / (T * top_k)
-    aux = n_experts * (frac_tokens * probs.mean(dim=0)).sum()
+    if window is None:
+        aux = n_experts * (frac_tokens * probs.mean(dim=0)).sum()
+    else:
+        aux = n_experts * (frac_tokens[e0:e1]
+                           * probs[t0:t1, e0:e1].sum(dim=0) / T).sum()
     return y.reshape(B, S, D), aux

@@ -72,12 +72,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..sharding.rules import (active_mesh, constrain, embed_rows,
+                              fsdp_gather, meshed, shard_dim)
 from . import layers as L
 from . import rwkv as R
 from . import ssm as SSM
 from .offload import ResidualOffload
 
-__all__ = ["LM", "REMAT_MODES"]
+__all__ = ["LM", "REMAT_MODES", "token_nll"]
 
 _KV_DTYPES = ("bf16", "int8")
 _FAMILIES = ("dense", "moe", "rwkv", "zamba")
@@ -114,11 +116,17 @@ def wrap_remat(body, mode: str | None,
 
 
 def _norm(cfg: ArchConfig, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """The block's norm of ``x`` [B, S, D]. Under a mesh the norm runs on
+    the sequence-parallel shards and its output is gathered over the
+    sequence (Megatron's sequence parallelism), so that no product has to
+    flatten a sharded sequence into its rows."""
     if cfg.norm == "rmsnorm":
-        return L.rmsnorm(x, p[key + "_g"])
-    if cfg.norm == "layernorm":
-        return L.layernorm(x, p[key + "_g"], p[key + "_b"])
-    return L.layernorm(x, None, None)       # layernorm_np (OLMo)
+        y = L.rmsnorm(x, p[key + "_g"])
+    elif cfg.norm == "layernorm":
+        y = L.layernorm(x, p[key + "_g"], p[key + "_b"])
+    else:
+        y = L.layernorm(x, None, None)      # layernorm_np (OLMo)
+    return constrain(y, ("pod", "data"), None, None)
 
 
 def _norm_init(cfg: ArchConfig, d: int, dtype, leading=(), device=None) -> dict:
@@ -144,8 +152,63 @@ def _quant_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """``-log softmax(logits)[label]`` per position, [..., 1], over the
+    first ``vocab`` entries of f32 ``logits`` (the padding masked with
+    −1e30, as the reference does). Where a mesh of more than one device
+    shards the vocabulary, the log-sum-exp and the label's logit are
+    reduced over the shards (vocabulary-parallel), so that no device holds
+    a whole row of the vocabulary and the backward stays sharded; else
+    ``log_softmax`` and ``gather``."""
+    iota = _vocab_iota(logits)
+    logits = logits + torch.where(iota < vocab, 0.0, -1e30)
+    if not _vocab_sharded(logits):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels[..., None])
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)) + m
+    picked = torch.where(iota == labels[..., None], logits, 0.0)
+    # batch-sharded, so that the mean's gradient comes back sharded
+    return constrain(lse - picked.sum(dim=-1, keepdim=True),
+                     ("pod", "data"), None, None)
+
+
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    if not meshed(logits):
+        return False
+    last = logits.dim() - 1
+    mesh = logits.device_mesh
+    return any(shard_dim(p) in (last, -1) and mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _vocab_iota(logits: torch.Tensor) -> torch.Tensor:
+    """``arange`` over the last dimension of ``logits``, placed as that
+    dimension (a DTensor under a mesh)."""
+    n = logits.shape[-1]
+    if not meshed(logits):
+        return torch.arange(n, device=logits.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    pl = tuple(Shard(0) if p.is_shard() and p.dim in (last, -1)
+               else Replicate() for p in logits.placements)
+    lo, size = 0, n
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            size //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * size
+    local = torch.arange(lo, lo + size, device=logits.to_local().device)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=(n,), stride=(1,))
+
+
 def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked ``[L, ...]`` parameter tree (views)."""
+    """Layer ``i`` of a stacked ``[L, ...]`` parameter tree (views; under a
+    mesh their FSDP shards gathered, ``sharding.rules.fsdp_gather``)."""
+    if active_mesh() is not None:
+        return {k: layer_params(v, i) if isinstance(v, dict)
+                else fsdp_gather(v[i]) for k, v in layers.items()}
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
 
@@ -294,19 +357,21 @@ class LM:
         self._aux = torch.zeros((), dtype=torch.float32, device=self.device)
         off = (ResidualOffload(self.device) if self.remat == "offload"
                else None)
-        h = params["embed"][tokens]
+        h = embed_rows(params["embed"], tokens)
         if vision_embeds is not None:
             if cfg.family not in ("dense", "moe"):
                 raise ValueError(f"a vision frontend feeds the dense and moe "
                                  f"families, not {cfg.family!r}")
             ve = torch.as_tensor(vision_embeds, device=self.device)
             h = torch.cat([ve.to(h.dtype), h], dim=1)
+        h = constrain(h, ("pod", "data"), None, None)
         B, S = h.shape[:2]
         positions = self._positions(B, S)
         if cfg.family in ("dense", "moe"):
             def block(hh, i):
-                return self._attn_mlp_block(
+                hh, aux = self._attn_mlp_block(
                     layer_params(params["layers"], i), hh, positions)
+                return constrain(hh, ("pod", "data"), "model", None), aux  # SP
             block = self._wrap_remat(block, off=off)
             for i in range(cfg.n_layers):
                 h, aux = block(h, i)
@@ -317,7 +382,8 @@ class LM:
                 lp = layer_params(params["layers"], i)
                 hh = hh + R.rwkv6_time_mix(lp, _norm(cfg, lp, "ln1", hh),
                                            headdim=cfg.rwkv_headdim)
-                return hh + R.rwkv6_channel_mix(lp, _norm(cfg, lp, "ln2", hh))
+                hh = hh + R.rwkv6_channel_mix(lp, _norm(cfg, lp, "ln2", hh))
+                return constrain(hh, ("pod", "data"), "model", None)  # SP
             body = self._wrap_remat(body, off=off)
             for i in range(cfg.n_layers):
                 h = body(h, i)
@@ -328,7 +394,8 @@ class LM:
                 lp = params[key]
                 for j in idx:
                     lp = layer_params(lp, j)
-                return hh + self._mamba(lp, hh)
+                return constrain(hh + self._mamba(lp, hh),
+                                 ("pod", "data"), "model", None)  # SP
             mamba = self._wrap_remat(mamba, off=off)
 
             def shared(hh, g):
@@ -343,8 +410,12 @@ class LM:
                     h = mamba(h, "mamba", g, j)
             for j in range(tail):
                 h = mamba(h, "mamba_tail", j)
-        h = _norm(cfg, params, "ln_f", h)
-        return h @ params["unembed"]
+        # the sequence gathered before the head, so that the logits come
+        # out of the product in their own layout (batch x vocabulary)
+        h = constrain(_norm(cfg, params, "ln_f", h), ("pod", "data"), None,
+                      None)
+        return constrain(h @ fsdp_gather(params["unembed"]), ("pod", "data"),
+                         None, "model")
 
     # -------------------------------------------------------------- loss
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -359,11 +430,7 @@ class LM:
         logits = self.apply(params, tokens.long(),
                             vision_embeds=batch.get("vision_embeds"))
         logits = logits[:, logits.shape[1] - labels.shape[1]:].float()
-        iota = torch.arange(cfg.padded_vocab, device=self.device)
-        logits = logits + torch.where(iota < cfg.vocab_size, 0.0, -1e30)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, labels.long()[..., None])
-        loss = nll.mean()
+        loss = token_nll(logits, labels.long(), cfg.vocab_size).mean()
         if cfg.family == "moe":
             loss = loss + 0.01 * self._aux / cfg.n_layers
         return loss
@@ -452,7 +519,7 @@ class LM:
                              f"(got {cfg.family!r})")
         B, S = tokens.shape
         K, Dh = cfg.n_kv_heads, cfg.d_head
-        h = params["embed"][tokens]
+        h = embed_rows(params["embed"], tokens)
         positions = self._positions(B, S)
         ks = torch.empty((cfg.n_layers, B, S, K, Dh), dtype=h.dtype,
                          device=h.device)
@@ -535,6 +602,9 @@ class LM:
         if active is not None and cfg.family not in ("dense", "moe"):
             raise ValueError(
                 "active-row masking requires a KV-cache family (dense/moe)")
+        if active is not None and meshed(token):
+            raise ValueError("under a mesh every row of a decode step "
+                             "writes its cache: no active-row mask")
         B = token.shape[0]
         dev = self.device
         lens = torch.as_tensor(cache_len, dtype=torch.int64,
@@ -542,7 +612,7 @@ class LM:
         sel = (torch.arange(B, device=dev) if active is None
                else torch.nonzero(torch.as_tensor(active, device=dev)
                                   ).flatten())
-        h = params["embed"][token]                         # [B, 1, D]
+        h = embed_rows(params["embed"], token)              # [B, 1, D]
         if cfg.family in ("dense", "moe"):
             for i in range(cfg.n_layers):
                 h = self._attn_decode_block(layer_params(params["layers"], i),

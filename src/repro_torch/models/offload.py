@@ -86,7 +86,8 @@ class ResidualOffload:
         if (h is None or t.numel() == 0 or t.data_ptr() != h.data_ptr()
                 or t.shape != h.shape or t.dtype != h.dtype):
             return ("keep", t)
-        nbytes = t.numel() * t.element_size()
+        local = getattr(t, "_local_tensor", t)      # a DTensor's shard
+        nbytes = local.numel() * local.element_size()
         if not self.cuda:
             self._slots.append({"host": t.detach().clone(), "dev": None})
         else:
@@ -107,7 +108,8 @@ class ResidualOffload:
     def _reload(self, i: int) -> None:
         s = self._slots[i]
         host = s["host"]
-        _count("reloaded", host.numel() * host.element_size())
+        local = getattr(host, "_local_tensor", host)
+        _count("reloaded", local.numel() * local.element_size())
         if not self.cuda:
             s["dev"] = host.clone()
             return

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..kernels.rwkv6.ops import wkv6
+from ..sharding.rules import constrain, meshed, split_last
 from . import layers as L
 
 __all__ = ["rwkv6_init", "wkv6_chunked", "rwkv6_time_mix",
@@ -144,28 +145,33 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
     xs = _token_shift(x, prev)
     dx = xs - x
     # data-dependent mixing coefficients (5 heads of a shared LoRA)
-    lr = torch.tanh(x @ p["mix_lora_A"]).reshape(B, S, 5, -1)
+    lr = split_last(torch.tanh(x @ p["mix_lora_A"]), B, S, 5, -1)
     mixes = p["mix_rkvwg"][None, None] + torch.einsum(
         "bsfr,frd->bsfd", lr, p["mix_lora_B"])        # [B, S, 5, D]
     xr, xk, xv, xw, xg = (x + dx * mixes[:, :, i] for i in range(5))
 
-    r = (xr @ p["wr"]).reshape(B, S, H, Pd).float()
-    k = (xk @ p["wk"]).reshape(B, S, H, Pd).float()
-    v = (xv @ p["wv"]).reshape(B, S, H, Pd).float()
+    r = split_last(xr @ p["wr"], B, S, H, Pd).float()
+    k = split_last(xk @ p["wk"], B, S, H, Pd).float()
+    v = split_last(xv @ p["wv"], B, S, H, Pd).float()
     g = F.silu(xg @ p["wg"])
     # data-dependent decay w in (0, 1): log w = -exp(...) (<= 0 always)
     lw = p["w_base"] + (torch.tanh(xw @ p["w_lora_A"]) @ p["w_lora_B"]
                         ).float()
-    lw = -torch.exp(lw).reshape(B, S, H, Pd)
+    lw = split_last(-torch.exp(lw), B, S, H, Pd)
 
     if state is None and not return_state:
-        y = wkv6(r, k, v, lw, p["bonus_u"], chunk=chunk)
+        if meshed(r):
+            from ..sharding.local import wkv6 as meshed_wkv6
+            y = meshed_wkv6(wkv6, r, k, v, lw, p["bonus_u"], chunk)
+        else:
+            y = wkv6(r, k, v, lw, p["bonus_u"], chunk=chunk)
     else:
         y, sT = wkv6_chunked(r, k, v, lw, p["bonus_u"], chunk=chunk,
                              s0=state[1] if state is not None else None)
     y = y.reshape(B, S, D).to(x.dtype)
     y = L.rmsnorm(y, p["ln_x_g"]) * g    # GroupNorm ~ per-head rmsnorm
-    out = y @ p["wo"]
+    # placed by batch before the residual add (``layers._batch_sharded``)
+    out = constrain(y @ p["wo"], ("pod", "data"), None, None)
     if return_state or state is not None:
         return out, (x[:, -1:], sT)
     return out
@@ -182,7 +188,8 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor, *,
     xr = x + dx * p["cmix_r"]
     k = torch.square(torch.relu(xk @ p["ck"]))
     kv = k @ p["cv"]
-    out = torch.sigmoid(xr @ p["cr"]) * kv
+    out = constrain(torch.sigmoid(xr @ p["cr"]) * kv, ("pod", "data"), None,
+                    None)
     if return_state or state is not None:
         return out, x[:, -1:]
     return out

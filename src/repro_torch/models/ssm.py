@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..kernels.ssd_scan.ops import ssd_scan
+from ..sharding.rules import constrain, meshed, split_last
 from . import layers as L
 
 __all__ = ["ssd_init", "ssd_block"]
@@ -123,7 +124,9 @@ def ssd_block(p: dict, x: torch.Tensor, *, d_state: int = 64,
     d_inner = expand * D
     H = d_inner // headdim
     N = d_state
-    proj = x @ p["in_proj"]
+    # under a mesh the sequence-parallel input is gathered over the
+    # sequence first, as a norm's output is (``lm._norm``)
+    proj = constrain(x, ("pod", "data"), None, None) @ p["in_proj"]
     z, xr, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, N, N, H],
                                     dim=-1)
     conv_in = torch.cat([xr, Bm, Cm], dim=-1)          # [B, S, convdim]
@@ -143,17 +146,21 @@ def ssd_block(p: dict, x: torch.Tensor, *, d_state: int = 64,
 
     A = -torch.exp(p["A_log"])                          # [H]
     dt = F.softplus(dt.float() + p["dt_bias"])
-    xh = xr.reshape(Bsz, S, H, headdim).float()
+    xh = split_last(xr, Bsz, S, H, headdim).float()
     Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
     c = min(chunk, max(S, 1))
     if state is None and not return_state:
-        y = ssd_scan(xh.contiguous(), dt, A, Bf, Cf, chunk=c)
+        if meshed(xh):
+            from ..sharding.local import ssd_scan as meshed_scan
+            y = meshed_scan(ssd_scan, xh.contiguous(), dt, A, Bf, Cf, c)
+        else:
+            y = ssd_scan(xh.contiguous(), dt, A, Bf, Cf, chunk=c)
     else:
         y, hT = _ssd_chunked(xh, dt, A, Bf, Cf, chunk=c, h0=state)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     y = L.rmsnorm(y * F.silu(z), p["norm_g"])
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], ("pod", "data"), None, None)
     if return_state or state is not None:
         return out, (hT, new_conv_state)
     return out

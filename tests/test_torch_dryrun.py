@@ -1,0 +1,234 @@
+"""The dry run on meta tensors (``repro_torch.launch.dryrun``).
+
+Reduced cells run in a subprocess: a fake process group is process-wide,
+and none may outlive a test under xdist's workers. The record's keys are
+the reference's (its own dry run, on four placeholder devices, of a
+reduced cell); the FLOPs of a reduced dense cell equal a closed form
+exactly; ``comm_analysis`` counts the result bytes of a hand-built DTensor
+program; the kernels' op counts (moved out of ``chip_smoke.py``) keep
+their values.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.configs import get_arch, reduced
+from repro_torch.kernels.flash_attention.ops import (flash_bwd_ops,
+                                                     flash_ops, visible_keys)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+B, S = 4, 32
+
+_CELLS = """
+import json, sys
+from repro_torch.configs import get_arch, reduced, ShapeConfig
+from repro_torch.launch.dryrun import lower_cell
+cells = json.loads(sys.argv[1])
+out = {}
+for key, (arch, kind, mesh, remat) in cells.items():
+    out[key] = lower_cell(reduced(get_arch(arch)),
+                          ShapeConfig(kind, %d, %d, kind),
+                          mesh_shape=tuple(mesh[-2:]), remat=remat,
+                          multi_pod=len(mesh) == 3)
+print(json.dumps(out))
+""" % (S, B)
+
+CELLS = {
+    "dense-prefill-1x1": ("llama-7b", "prefill", (1, 1), "full"),
+    "dense-train-1x1": ("llama-7b", "train", (1, 1), "full"),
+    "dense-train-2x2": ("llama-7b", "train", (2, 2), "full"),
+    "dense-decode-2x2": ("llama-7b", "decode", (2, 2), "full"),
+    "moe-train-2x2": ("granite-moe-1b-a400m", "train", (2, 2), "full"),
+    "zamba-train-2x2": ("zamba2-7b", "train", (2, 2), "full"),
+    "rwkv-decode-2x2": ("rwkv6-7b", "decode", (2, 2), "full"),
+    "encdec-prefill-2x2": ("seamless-m4t-large-v2", "prefill", (2, 2),
+                           "full"),
+    "multipod-train": ("qwen2.5-3b", "train", (2, 2, 2), "dots"),
+}
+
+
+def _run(code: str, *args: str, env_extra=None) -> str:
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), **(env_extra or {}))
+    res = subprocess.run([sys.executable, "-c", code, *args], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout.strip().splitlines()[-1]
+
+
+@pytest.fixture(scope="module")
+def records() -> dict:
+    return json.loads(_run(_CELLS, json.dumps(CELLS)))
+
+
+@pytest.fixture(scope="module")
+def reference_record() -> dict:
+    """The reference's own record of the reduced dense train cell on a
+    2 x 2 mesh of placeholder devices."""
+    code = """
+import os, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import repro.launch.dryrun as D
+from repro.configs import get_arch, reduced, ShapeConfig
+cfg = reduced(get_arch("llama-7b"))
+D.get_arch = lambda name: cfg
+D.SHAPES = {"train": ShapeConfig("train", %d, %d, "train")}
+print(json.dumps(D.lower_cell("llama-7b", "train", mesh_shape=(2, 2))))
+""" % (S, B)
+    return json.loads(_run(code, env_extra={"JAX_PLATFORMS": "cpu"}))
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_cells_lower(records, cell):
+    rec = records[cell]
+    mem = rec["memory"]
+    assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
+    assert mem["peak_bytes_per_device"] == (mem["argument_bytes"]
+                                            + mem["temp_bytes"])
+    assert rec["cost"]["flops"] > rec["cost"]["aten_flops"] > 0
+    n = 1
+    for d in CELLS[cell][2]:
+        n *= d
+    assert rec["n_devices"] == n
+    if n > 1 and CELLS[cell][1] == "train":
+        assert rec["collectives"]["total_bytes"] > 0
+
+
+def test_record_keys_are_the_reference(records, reference_record):
+    """The port's record has the reference's keys, but for XLA's own raw
+    counts, which the aten ops' counts and the kernels' replace."""
+    rec, ref = records["dense-train-2x2"], reference_record
+    assert set(rec) == set(ref)
+    assert set(rec["memory"]) == set(ref["memory"])
+    assert set(rec["collectives"]) == set(ref["collectives"])
+    assert set(rec["model"]) == set(ref["model"])
+    assert set(ref["cost"]) - set(rec["cost"]) == {"xla_raw_flops",
+                                                  "xla_raw_bytes"}
+    assert set(rec["cost"]) - set(ref["cost"]) == {"aten_flops",
+                                                  "aten_bytes", "kernels"}
+    # the same rules shard the same state: the same argument bytes
+    assert rec["memory"]["argument_bytes"] == \
+        ref["memory"]["argument_bytes"]
+
+
+def _products(cfg) -> tuple[int, int]:
+    """(weights in one layer's products, in the unembedding)."""
+    D, H, K, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                      cfg.d_ff)
+    return (D * H * Dh + 2 * D * K * Dh + H * Dh * D + 3 * D * F,
+            D * cfg.padded_vocab)
+
+
+def test_dense_flops_closed_form(records):
+    """apply: 2 T x (products) + L x flash_ops + (2L + 1) rmsnorms of 4
+    operations an element. The training step with remat='full': 6 T x
+    (products) + 2 T x (the layers' products, recomputed, but for the MLP's
+    down projection: the checkpoint stops its recompute once the last
+    saved tensor is rebuilt) + 2L flash forwards (one recomputed) + L
+    backwards + the rmsnorms: 4L + 1 forward calls (2L recomputed), 2L + 1
+    backward calls with dγ."""
+    cfg = reduced(get_arch("llama-7b"))
+    L, T, D = cfg.n_layers, B * S, cfg.d_model
+    layer, unembed = _products(cfg)
+    fa = flash_ops(B, S, S, cfg.n_heads, cfg.d_head, True, 0)
+    fb = flash_bwd_ops(B, S, S, cfg.n_heads, cfg.d_head, True, 0)
+    prefill = 2 * T * (L * layer + unembed) + L * fa + (2 * L + 1) * 4 * T * D
+    assert records["dense-prefill-1x1"]["cost"]["flops"] == prefill
+    train = (6 * T * (L * layer + unembed)
+             + 2 * T * L * (layer - cfg.d_ff * D)
+             + 2 * L * fa + L * fb
+             + (4 * L + 1) * 4 * T * D + (2 * L + 1) * 11 * T * D)
+    assert records["dense-train-1x1"]["cost"]["flops"] == train
+    k = records["dense-train-1x1"]["cost"]["kernels"]
+    assert k["flash_attention"]["calls"] == 2 * L
+    assert k["flash_attention_bwd"]["calls"] == L
+    assert k["rmsnorm"]["calls"] == 4 * L + 1
+    assert k["rmsnorm_bwd"]["calls"] == 2 * L + 1
+
+
+def test_visible_keys_closed_form():
+    """flash_ops' closed form equals the row-by-row sum it replaced."""
+    for Sq, Skv, off in [(1, 1, 0), (7, 7, 0), (5, 9, 4), (9, 5, 0),
+                         (4, 4, 10), (130, 300, 170), (3, 8, 2)]:
+        want = sum(min(Skv, i + off + 1) for i in range(Sq))
+        assert visible_keys(Sq, Skv, True, off) == want
+        assert visible_keys(Sq, Skv, False, off) == Sq * Skv
+
+
+_COMM = """
+import json
+import torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from repro_torch.launch.comm_analysis import CommCounter, asked_collectives
+from repro_torch.launch.dryrun import fake_mesh
+with fake_mesh((4,), ("data",)) as mesh:
+    def dt(pl, shape):
+        return DTensor.from_local(torch.empty(shape, device="meta"), mesh,
+                                  (pl,), run_check=False,
+                                  shape=torch.Size([8, 16]),
+                                  stride=(16, 1))
+    with CommCounter() as c, asked_collectives():
+        dt(Shard(0), (2, 16)).redistribute(mesh, (Replicate(),))
+        dt(Partial(), (8, 16)).redistribute(mesh, (Replicate(),))
+        dt(Partial(), (8, 16)).redistribute(mesh, (Shard(0),))
+        dt(Shard(0), (2, 16)).redistribute(mesh, (Shard(1),))
+    print(json.dumps(c.record()))
+"""
+
+
+def test_comm_analysis_result_bytes():
+    """On a 4-way mesh, a [8, 16] f32 tensor: Shard(0) -> Replicate is an
+    all-gather of 512 B, Partial -> Replicate an all-reduce of 512 B,
+    Partial -> Shard(0) a reduce-scatter of 128 B, Shard(0) -> Shard(1) an
+    all-to-all of 128 B (the one DTensor asks for, not the CPU group's
+    all-gather fallback)."""
+    rec = json.loads(_run(_COMM))
+    assert rec == {"by_kind": {"all-gather": 512, "all-reduce": 512,
+                               "all-to-all": 128, "reduce-scatter": 128},
+                   "counts": {"all-gather": 1, "all-reduce": 1,
+                              "all-to-all": 1, "reduce-scatter": 1},
+                   "total_bytes": 1280}
+
+
+def test_fake_cuda_tensors_take_the_shape_only_branch():
+    """Under ``FakeTensorMode`` a fake CUDA tensor reports
+    ``device.type == "cuda"``: every kernel wrapper must still return
+    empty outputs and record its cost, never reach a launcher (without a
+    card a launch would raise)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.moe_gmm.ops import grouped_matmul
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.shape_only import recording
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    seen = []
+    with FakeTensorMode(), recording(lambda *a: seen.append(a[0])):
+        def t(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device="cuda")
+        q = t(2, 16, 4, 32)
+        lse = t(2, 4, 16, dtype=torch.float32)
+        assert flash_attention(q, q, q).shape == q.shape
+        assert flash_attention_bwd(q, q, q, q, q, lse)[0].shape == q.shape
+        x, g = t(8, 32), t(32)
+        assert rmsnorm(x, g).shape == x.shape
+        assert rmsnorm_bwd(x, g, x)[0].shape == x.shape
+        off = t(2, dtype=torch.int32)
+        assert grouped_matmul(x, t(2, 32, 16), off, off).shape == (8, 16)
+        xh = t(2, 16, 4, 8, dtype=torch.float32)
+        bm = t(2, 16, 4, dtype=torch.float32)
+        assert ssd_scan(xh, t(2, 16, 4, dtype=torch.float32),
+                        t(4, dtype=torch.float32), bm, bm).shape == xh.shape
+        assert wkv6(xh, xh, xh, xh, t(4, 8, dtype=torch.float32)).shape \
+            == xh.shape
+    assert seen == ["flash_attention", "flash_attention_bwd", "rmsnorm",
+                    "rmsnorm_bwd", "moe_gmm", "ssd_scan", "wkv6"]

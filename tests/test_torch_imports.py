@@ -15,7 +15,8 @@ BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    return files + [ROOT / "chip_smoke.py"] + examples
 
 
 def _banned_imports(path: pathlib.Path) -> list[str]:
@@ -38,6 +39,7 @@ def _banned_imports(path: pathlib.Path) -> list[str]:
 
 def test_port_sources_exist():
     files = _port_files()
+    assert len([f for f in files if f.parent.name == "examples"]) == 4
     assert len(files) >= 20
     assert (ROOT / "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu").exists()
     assert (ROOT / "src/repro_torch/kernels/flash_attention/csrc/"
@@ -51,7 +53,9 @@ def test_port_sources_exist():
                 "train/step.py", "data/pipeline.py", "ckpt/store.py",
                 "ft/supervisor.py", "launch/train.py", "launch/mesh.py",
                 "serve/router.py", "kernels/plain_grad.py",
-                "models/encdec.py"):
+                "models/encdec.py", "sharding/rules.py", "sharding/local.py",
+                "launch/dryrun.py", "launch/comm_analysis.py",
+                "kernels/shape_only.py"):
         assert (ROOT / "src/repro_torch" / mod).exists(), mod
 
 
@@ -81,7 +85,10 @@ def test_package_imports_without_jax():
         "repro_torch.data.pipeline, repro_torch.ckpt.store, "
         "repro_torch.ft.supervisor, repro_torch.launch.train, "
         "repro_torch.launch.mesh, repro_torch.serve.router, "
-        "repro_torch.kernels.plain_grad, repro_torch.models.encdec\n"
+        "repro_torch.kernels.plain_grad, repro_torch.models.encdec, "
+        "repro_torch.sharding.rules, repro_torch.sharding.local, "
+        "repro_torch.launch.dryrun, repro_torch.launch.comm_analysis, "
+        "repro_torch.kernels.shape_only\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.') or m.startswith('jax.')]\n"
         "assert not bad, bad\n"

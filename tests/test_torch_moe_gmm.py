@@ -140,9 +140,16 @@ def test_wrappers_refuse_what_the_kernel_cannot_take():
         grouped_matmul(x, torch.zeros(2, 4, 16).transpose(1, 2), off, cnt)
     with pytest.raises(ValueError, match="out must be"):
         grouped_matmul(x, w, off, cnt, out=torch.zeros(8, 5))
-    with pytest.raises(ValueError, match="no kernel for device"):
-        grouped_matmul(x.to("meta"), w.to("meta"), off.to("meta"),
-                       cnt.to("meta"))
+    # a meta tensor holds shapes only: no launch, an empty output and the
+    # kernel's counted work for the dry run (kernels/shape_only.py)
+    from repro_torch.kernels.moe_gmm.ops import gmm_cost
+    from repro_torch.kernels.shape_only import recording
+    seen = []
+    with recording(lambda *a: seen.append(a)):
+        y = grouped_matmul(x.to("meta"), w.to("meta"), off.to("meta"),
+                           cnt.to("meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == (8, 4)
+    assert seen == [("moe_gmm", *gmm_cost(8, 16, 4, 2, 4))]
     with pytest.raises(ValueError, match=r"\[E, C, D\]"):
         moe_gmm(x, w)
     with pytest.raises(ValueError, match="without a copy"):

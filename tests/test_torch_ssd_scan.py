@@ -122,8 +122,15 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         ssd_scan(x, dt, A, Bm, Cm[..., :2])
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan(x, dt, A, Bm, Cm, chunk=0)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ssd_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm)))
+    # a meta tensor holds shapes only: no launch, an empty output and the
+    # kernel's counted work for the dry run (kernels/shape_only.py)
+    from repro_torch.kernels.shape_only import recording
+    from repro_torch.kernels.ssd_scan.ops import ssd_cost
+    seen = []
+    with recording(lambda *a: seen.append(a)):
+        y = ssd_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm)))
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert seen == [("ssd_scan", *ssd_cost(1, 8, 2, 4, 3, 8, 4))]
 
 
 # --- the CUDA kernel's design, emulated on the CPU -------------------------

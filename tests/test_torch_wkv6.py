@@ -124,8 +124,15 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         wkv6(r, k, v, lw, u[:1])
     with pytest.raises(ValueError, match="chunk"):
         wkv6(r, k, v, lw, u, chunk=0)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        wkv6(*(t.to("meta") for t in (r, k, v, lw, u)))
+    # a meta tensor holds shapes only: no launch, an empty output and the
+    # kernel's counted work for the dry run (kernels/shape_only.py)
+    from repro_torch.kernels.rwkv6.ops import wkv6_cost
+    from repro_torch.kernels.shape_only import recording
+    seen = []
+    with recording(lambda *a: seen.append(a)):
+        y = wkv6(*(t.to("meta") for t in (r, k, v, lw, u)))
+    assert y.device.type == "meta" and y.shape == r.shape
+    assert seen == [("wkv6", *wkv6_cost(1, 8, 2, 4, 8, 4))]
 
 
 # --- the CUDA kernel's design, emulated on the CPU -------------------------
