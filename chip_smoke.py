@@ -268,7 +268,7 @@ failure:
    timed beside SDPA and ``F.rms_norm``.
 
 12. The dry run against the card (slice 13, ROADMAP A13; rules in
-   ``run_dry_cell``'s docstring): three cells, each lowered on meta
+   ``run_dry_cell``'s docstring): four cells, each lowered on meta
    tensors (``launch.dryrun.lower_cell`` on a 1 x 1 mesh of a fake
    process group), then built on the card and run through the meshed
    path (DTensor state and inputs on ``make_smoke_mesh()`` over a one-rank
@@ -276,9 +276,13 @@ failure:
    same step un-meshed: a. llama-7b ``apply`` on 2 x 4096; b. llama-7b
    ``decode_step``, 2 rows over a 32,768-token cache; c. a full-parameter
    AdamW step, remat='full', of qwen2.5-3b at 1 x 4096, or of olmo-1b at
-   4 x 4096 when the dry run predicts qwen's peak above 70 GB. Each prints
-   its predicted and measured step peak, wall time, dry-run FLOPs and
-   TFLOP/s. Then qwen1.5-32b ``train_4k`` lowered on (16, 16) and on
+   4 x 4096 when the dry run predicts qwen's peak above 70 GB; d. a
+   full-parameter AdamW step, remat='full', of granite-moe-1b-a400m at
+   4 x 4096 (2 rows, then 1, when the dry run predicts more than 70 GB):
+   the meshed MoE block (``sharding.local.moe_experts``) through the
+   grouped-matmul kernel, every 16-bit launch on its wgmma instance. Each
+   prints its predicted and measured step peak, wall time, dry-run FLOPs
+   and TFLOP/s. Then qwen1.5-32b ``train_4k`` lowered on (16, 16) and on
    (2, 16, 16), no card work, each record and lowering time printed.
 13. The examples' twins (slice 13, ROADMAP A14): ``examples/torch_*.py``,
    each in a process of its own at its defaults; fatal if one fails or
@@ -3640,7 +3644,8 @@ def train_phase(torch, device, *, profile: bool) -> dict:
 # --------------------------------------------------------------------------
 # the dry run against the card (phase 12, slice 13, ROADMAP A13)
 # --------------------------------------------------------------------------
-DRY_TRAIN_LIMIT = 70e9          # (c) takes olmo-1b above this predicted peak
+DRY_TRAIN_LIMIT = 70e9          # (c) takes olmo-1b, (d) fewer rows, above
+                                # this predicted peak
 DRY_PEAK_RTOL = 0.10            # measured step peak vs predicted: 10% ...
 DRY_PEAK_ATOL = 256 * 2**20     # ... + 256 MiB
 DRY_FLOPS_RTOL = 0.02           # (c)'s FLOPs vs the closed form
@@ -3662,14 +3667,18 @@ def dry_cells():
     ``apply`` on 2 x 4096; b. llama-7b ``decode_step``, 2 rows over a
     32768-token cache (decode_32k's per-row cache); c. a full-parameter
     AdamW step of qwen2.5-3b at 1 x 4096 under remat='full' (olmo-1b at
-    4 x 4096 when the dry run predicts qwen's peak above DRY_TRAIN_LIMIT)."""
+    4 x 4096 when the dry run predicts qwen's peak above DRY_TRAIN_LIMIT);
+    d. the same step of granite-moe-1b-a400m at 4 x 4096 (2 rows, then 1,
+    above DRY_TRAIN_LIMIT)."""
     from repro_torch.configs import ShapeConfig
     return [("a", "llama-7b", ShapeConfig("apply-2x4096", 4096, 2,
                                           "prefill"), None),
             ("b", "llama-7b", ShapeConfig("decode-2x32768", 32768, 2,
                                           "decode"), None),
             ("c", "qwen2.5-3b", ShapeConfig("train-1x4096", 4096, 1,
-                                            "train"), "full")]
+                                            "train"), "full"),
+            ("d", "granite-moe-1b-a400m", ShapeConfig("train-4x4096", 4096,
+                                                      4, "train"), "full")]
 
 
 def _wrappers() -> dict:
@@ -3735,8 +3744,11 @@ def run_dry_cell(torch, device, mesh, card: str, label, arch, shape, remat,
     kernels' launch counts equal, and not all zero; the meshed step's peak
     over its arguments (``max_memory_allocated`` minus the allocation just
     before it) within DRY_PEAK_RTOL x predicted + DRY_PEAK_ATOL of the dry
-    run's ``temp_bytes``; in training the dry run's FLOPs within
-    DRY_FLOPS_RTOL of ``train_flops_closed_form``."""
+    run's ``temp_bytes``; in training a dense model's dry-run FLOPs
+    within DRY_FLOPS_RTOL of ``train_flops_closed_form``. With experts,
+    every moe_gmm launch of each run on the wgmma instance
+    (``assert_gmm_on_wgmma``); their closed form would need the routing,
+    which only the run knows, so the FLOPs rule is the dense cells'."""
     from torch.utils._pytree import tree_leaves
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import build_cell
@@ -3761,6 +3773,8 @@ def run_dry_cell(torch, device, mesh, card: str, label, arch, shape, remat,
         with use_mesh(mesh) if meshed else contextlib.nullcontext():
             out = fn()
         torch.cuda.synchronize()
+        if cfg.family == "moe":
+            assert_gmm_on_wgmma(wrappers["moe_gmm"])
         return out, _launch_counts(wrappers)
 
     def check_launches(what, plain_n, mesh_n):
@@ -3808,13 +3822,14 @@ def run_dry_cell(torch, device, mesh, card: str, label, arch, shape, remat,
           f"predicted arguments {rec['memory']['argument_bytes']} B, "
           f"allocated before the step {base} B; wall {wall:.4f} s; "
           f"dry-run FLOPs {flops}; achieved {flops / wall / 1e12:.2f} "
-          f"TFLOP/s; launches {n1} (equal meshed and un-meshed); outputs "
-          f"byte-equal", flush=True)
+          f"TFLOP/s; launches {n1} (equal meshed and un-meshed"
+          + ("; every moe_gmm launch on wgmma" if cfg.family == "moe"
+             else "") + "); outputs byte-equal", flush=True)
     if abs(peak - want) > DRY_PEAK_RTOL * want + DRY_PEAK_ATOL:
         raise AssertionError(f"dry run {label}: measured peak {peak} B is "
                              f"not within {DRY_PEAK_RTOL:g} x {want} + "
                              f"{DRY_PEAK_ATOL} B of the prediction")
-    if shape.kind == "train":
+    if shape.kind == "train" and cfg.family == "dense":
         closed = train_flops_closed_form(cfg, shape.global_batch,
                                          shape.seq_len)
         print(f"dry run {label}: FLOPs {flops} vs closed form {closed} "
@@ -3841,6 +3856,14 @@ def dryrun_phase(torch, device) -> None:
     for label, arch, shape, remat in dry_cells():
         t = time.perf_counter()
         rec = lower_cell(arch, shape, mesh_shape=(1, 1), remat=remat)
+        while label == "d" and shape.global_batch > 1 and \
+                rec["memory"]["peak_bytes_per_device"] > DRY_TRAIN_LIMIT:
+            rows = shape.global_batch // 2
+            print(f"dry run d: {arch} {shape.name} predicts a peak of "
+                  f"{rec['memory']['peak_bytes_per_device']} B, above "
+                  f"{DRY_TRAIN_LIMIT:.0f} B: {rows} rows instead", flush=True)
+            shape = ShapeConfig(f"train-{rows}x4096", 4096, rows, "train")
+            rec = lower_cell(arch, shape, mesh_shape=(1, 1), remat=remat)
         if label == "c" and \
                 rec["memory"]["peak_bytes_per_device"] > DRY_TRAIN_LIMIT:
             print(f"dry run c: {arch} {shape.name} predicts a peak of "

@@ -60,7 +60,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-from ..configs import (ARCHS, ASSIGNED, SHAPES, ArchConfig, ShapeConfig,
+from ..configs import (ASSIGNED, SHAPES, ArchConfig, ShapeConfig,
                        applicable_shapes, get_arch, input_specs)
 from ..kernels.shape_only import recording
 from ..models import build_model

@@ -413,9 +413,12 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     pair whose position is C or more is simply not routed: its expert's
     count is cut to C, so the kernel neither reads nor writes its row.
 
-    Under a mesh (``sharding.local.moe_experts``) every rank routes every
-    token and computes only the rows of its window of experts and tokens;
-    the output and the aux loss are partial sums over the mesh."""
+    Under a mesh (``sharding.local.moe_experts``) each rank routes only its
+    own tokens and computes only the rows of its experts; its place in each
+    expert's queue comes from the per-expert counts of the ranks before it,
+    so the pairs dropped are the un-meshed ones. The output and the aux loss
+    are partial sums over the mesh dimensions that split the experts (or
+    share the tokens)."""
     args = (x, p["router"], p["wi_gate"], p["wi_up"], p["wo"])
     fn = functools.partial(_moe_rows, n_experts=n_experts, top_k=top_k,
                            capacity_factor=capacity_factor)
@@ -425,64 +428,90 @@ def moe_block(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     return fn(*args, None)
 
 
-def _moe_rows(x, router, wi_gate, wi_up, wo, window, *, n_experts: int,
+def _moe_dispatch(probs, top_k: int, n_experts: int,
+                  capacity_factor: float | None, n_tokens: int, shard):
+    """Routing of the rows of ``probs`` [T, E] (:func:`moe_route`) and each
+    pair's place in its expert's queue: ``(gate, expert, perm, offsets,
+    counts_all, counts, keep, total)``. ``counts`` [E] are the pairs each
+    expert computes, the first of its rows: all of them, or with a capacity
+    ``C = max(1, int(capacity_factor * n_tokens * top_k / n_experts))``
+    those whose place is below C (``keep`` [T, k]; None when dropless).
+    ``total`` [E] counts the pairs of all ``n_tokens``. Under a mesh
+    ``shard.exchange`` gives the pairs that the ranks before this one hold
+    (their tokens come first in flattened order) and all ranks' pairs."""
+    gate, expert, perm, offsets, counts_all = moe_route(probs, top_k)
+    lo, total = (None, counts_all) if shard is None else \
+        shard.exchange(counts_all)
+    counts, keep = counts_all, None
+    if capacity_factor is not None:
+        C = max(1, int(capacity_factor * n_tokens * top_k / n_experts))
+        sorted_e = expert.reshape(-1)[perm]
+        place = torch.arange(perm.shape[0], device=perm.device) \
+            - offsets[sorted_e]
+        if lo is None:
+            counts = counts_all.clamp(max=C)
+        else:
+            place = place + lo[sorted_e]
+            counts = torch.minimum(counts_all, (C - lo).clamp(min=0))
+        pos = torch.empty_like(perm).index_copy_(0, perm, place)
+        keep = (pos < C).view(expert.shape)
+        gate = gate * keep
+    return gate, expert, perm, offsets, counts_all, counts, keep, total
+
+
+def _moe_rows(x, router, wi_gate, wi_up, wo, shard, *, n_experts: int,
               top_k: int, capacity_factor: float | None):
-    """:func:`moe_block` on plain tensors. ``window = (e0, e1, t0, t1)``
-    computes only the pairs of experts [e0, e1) and flattened tokens
-    [t0, t1) (whose rows, within each expert's queue, are one range), and
-    this share of the aux loss; ``None`` is every pair."""
+    """:func:`moe_block` on plain tensors. ``shard``
+    (``sharding.local.MoEShard``) is this rank's part under a mesh: the
+    window ``[w0, w1)`` of x's flattened tokens that it routes, its experts
+    ``[e0, e1)``, the batch's token count and the count exchange; the
+    output is x's shape, zero outside the window, and the aux loss this
+    part's share. ``None`` is the whole batch and every expert."""
     B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D)
+    xt = x.reshape(B * S, D)
+    T, e0, e1 = B * S, 0, n_experts
+    if shard is not None:
+        T, (e0, e1) = shard.n_tokens, shard.experts
+        xt = xt[shard.window[0]:shard.window[1]]
+    Tw, P = xt.shape[0], xt.shape[0] * top_k
     # through f64: cuBLAS's f32 product sums a row in an order that depends
     # on the number of rows, which could move a token to other experts
     logits = (xt.double() @ router.double()).float()
-    probs = torch.softmax(logits, dim=-1)                        # [T, E]
-    gate, expert, perm, offsets, counts_all = moe_route(probs, top_k)
-    counts = counts_all
-    if capacity_factor is not None:
-        C = max(1, int(capacity_factor * T * top_k / n_experts))
-        counts = counts_all.clamp(max=C)
-        rows = torch.arange(T * top_k, device=x.device)
-        pos = torch.empty_like(perm).index_copy_(
-            0, perm, rows - offsets[expert.reshape(-1)[perm]])
-        keep = (pos < C).view(T, top_k)
-        gate = gate * keep
-    off32, cnt32 = offsets.int(), counts.int()
-    frac_tokens = counts_all.float() / (T * top_k)
-    mine = None
-    if window is not None:
-        e0, e1, t0, t1 = window
-        lo, hi = (torch.zeros(n_experts, dtype=torch.int64, device=x.device)
-                  .index_add_(0, expert[:t].reshape(-1),
-                              torch.ones_like(expert[:t].reshape(-1)))
-                  for t in (t0, t1))        # pairs before t0, before t1
-        if capacity_factor is not None:
-            lo, hi = lo.clamp(max=C), hi.clamp(max=C)
-        sorted_e = expert.reshape(-1)[perm]
-        q = torch.arange(T * top_k, device=x.device) - offsets[sorted_e]
-        mine = ((sorted_e >= e0) & (sorted_e < e1) & (q >= lo[sorted_e])
-                & (q < hi[sorted_e]))[:, None]
-        off32 = (offsets + lo)[e0:e1].int()
-        cnt32 = (hi - lo)[e0:e1].int()     # the weights hold [e0, e1)
-    xs = xt[perm // top_k]                                       # [T*k, D]
-    rows = None
-    if window is not None:      # counted on shape-only tensors: balanced
-        rows = (t1 - t0) * top_k * (e1 - e0) // n_experts
+    probs = torch.softmax(logits, dim=-1)                        # [Tw, E]
+    gate, expert, perm, offsets, counts_all, counts, keep, total = \
+        _moe_dispatch(probs, top_k, n_experts, capacity_factor, T, shard)
+    frac_tokens = total.float() / (T * top_k)
+    every = (e0, e1) == (0, n_experts)
+    src, off32, cnt32, rows = perm, offsets.int(), counts.int(), None
+    if not every:
+        # experts [e0, e1) hold the sorted rows start .. end - 1; a token
+        # picks each expert once, so there are at most Tw * (e1 - e0)
+        start = offsets[e0]
+        end = offsets[e1 - 1] + counts_all[e1 - 1]
+        j = start + torch.arange(min(P, Tw * (e1 - e0)), device=x.device)
+        inside = j < end
+        src = perm[j.clamp(max=P - 1)]
+        off32, cnt32 = (offsets[e0:e1] - start).int(), counts[e0:e1].int()
+        rows = P * (e1 - e0) // n_experts   # counted on shape-only tensors
+    xs = xt[src // top_k]                        # [P or fewer rows, D]
     h = F.silu(grouped_matmul(xs, wi_gate, off32, cnt32, rows=rows)) \
         * grouped_matmul(xs, wi_up, off32, cnt32, rows=rows)
     y_rows = grouped_matmul(h, wo, off32, cnt32, rows=rows)
-    if mine is not None:        # rows outside the window are not computed
-        y_rows = torch.where(mine, y_rows, 0)
-    y_pairs = torch.empty_like(y_rows).index_copy_(0, perm, y_rows)
-    if capacity_factor is not None:     # dropped rows were never computed
+    if every:
+        y_pairs = torch.empty_like(y_rows).index_copy_(0, perm, y_rows)
+    else:       # the rows past ``end`` (never computed) go to a spare row
+        y_pairs = y_rows.new_zeros(P + 1, D).index_copy_(
+            0, torch.where(inside, src, P), y_rows)[:P]
+    if keep is not None:                # dropped rows were never computed
         y_pairs = y_pairs.masked_fill(~keep.view(-1, 1), 0)
-    y = (y_pairs.view(T, top_k, D) * gate.to(x.dtype)[..., None]).sum(dim=1)
+    y = (y_pairs.view(Tw, top_k, D) * gate.to(x.dtype)[..., None]).sum(dim=1)
 
     # load-balance aux loss (Switch): E * mean(frac_tokens * frac_probs)
-    if window is None:
+    if shard is None:
         aux = n_experts * (frac_tokens * probs.mean(dim=0)).sum()
-    else:
-        aux = n_experts * (frac_tokens[e0:e1]
-                           * probs[t0:t1, e0:e1].sum(dim=0) / T).sum()
+        return y.reshape(B, S, D), aux
+    aux = n_experts * (frac_tokens[e0:e1]
+                       * probs[:, e0:e1].sum(dim=0) / T).sum()
+    w0, w1 = shard.window
+    y = F.pad(y, (0, 0, w0, B * S - w1))
     return y.reshape(B, S, D), aux

@@ -17,12 +17,16 @@ launches or raises).
 * the decode cache's write (``layers.cache_put``): each rank writes the
   rows of its batch shard, at their positions where its shard of the
   sequence holds them, into its shard of the heads and features.
-* grouped matmul: experts over ``'model'`` (when they divide), tokens over
-  the other mesh dimensions. Every rank routes every token (the router
-  is a [D, E] product) and computes the rows of its experts and tokens;
-  each routed row comes from one expert, so the outputs (and the MoE aux
-  loss, split the same way) are partial sums over the whole mesh
-  (``models/layers.py::moe_block``).
+* grouped matmul: experts over ``'model'`` (when they divide), tokens
+  over the other mesh dimensions. Each rank routes only its own tokens
+  (its batch shard; the ranks along a dimension that does not split the
+  batch share it by windows) and computes the rows of its experts. An
+  all-gather of the per-expert pair counts over the token dimensions
+  gives each pair its place in its expert's queue across the whole batch,
+  so a capacity drops what it drops un-meshed (:class:`MoEShard`). The
+  outputs stay batch-sharded, partial sums over the dimensions that split
+  the experts or share the tokens; the MoE aux loss is a partial sum over
+  the whole mesh (``models/layers.py::moe_block``).
 
 Batch dimensions shard as the batch rule does (``rules.batch_spec``):
 over ``('pod', 'data')`` when that divides, else ``'data'``, else not.
@@ -36,7 +40,7 @@ from torch.distributed.tensor.experimental import local_map
 from .rules import _data_axes, _div, axis_size
 
 __all__ = ["rmsnorm", "attention", "ssd_scan", "wkv6", "moe_experts",
-           "cache_put"]
+           "MoEShard", "cache_put"]
 
 
 def _batch_dims(mesh, B: int) -> tuple[int, ...]:
@@ -165,36 +169,83 @@ def wkv6(fn, r, k, v, lw, u, chunk: int):
                      redistribute_inputs=True)(r, k, v, lw, u)
 
 
-def moe_experts(fn, x, router, wi_gate, wi_up, wo, n_experts: int):
-    """``fn(x, router, wi_gate, wi_up, wo, window)`` (the MoE block's
-    routing and experts) with the experts over ``'model'`` and the tokens
-    over the other mesh dimensions: ``window = (e0, e1, t0, t1)`` is this
-    rank's range of experts and of flattened tokens. Returns the partial
-    sums ``(y, aux)``."""
-    mesh = x.device_mesh
-    m = _model_dim(mesh, n_experts)
-    rep = (Replicate(),) * mesh.ndim
-    every = range(mesh.ndim)
-    wpl = _pl(mesh, {m: 0} if m is not None else {})
-    wgrad = _partial_over(mesh, wpl, [i for i in every if i != m])
-    tok_dims = [i for i in every if i != m]
-    T = x.shape[0] * x.shape[1]
+class MoEShard:
+    """One rank's part of a meshed MoE block (``layers._moe_rows``):
+    ``experts = (e0, e1)``, the experts whose weights it holds;
+    ``window = (w0, w1)``, the flattened local tokens it routes (all of its
+    batch shard, or its share where ranks along a token dimension that does
+    not split the batch hold the same rows); ``n_tokens``, the batch's
+    tokens; ``start``, where its window begins in the batch's flattened
+    token order."""
 
-    def local(xl, rl, wg, wu, wol):
+    def __init__(self, mesh, m, bat: list[int], rep: list[int],
+                 n_experts: int, n_tokens: int, local_tokens: int) -> None:
         coord = mesh.get_coordinate()
-        e0, e1 = 0, n_experts
+        self.mesh, self.n_tokens = mesh, n_tokens
+        self.experts = (0, n_experts)
         if m is not None:
             per = n_experts // mesh.size(m)
-            e0, e1 = coord[m] * per, (coord[m] + 1) * per
-        idx, n = 0, 1
-        for i in tok_dims:
-            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
-        window = (e0, e1, T * idx // n, T * (idx + 1) // n)
-        return fn(xl, rl, wg, wu, wol, window)
-    full = _partial_over(mesh, rep, every)
-    return local_map(local, out_placements=(full, full),
-                     in_placements=(rep, rep, wpl, wpl, wpl),
-                     in_grad_placements=(full, full, wgrad, wgrad, wgrad),
+            self.experts = (coord[m] * per, (coord[m] + 1) * per)
+        # the gathered counts come in this order of the token dimensions:
+        # batch shards first (in mesh order, as Shard(0) lays them out),
+        # then the windows of a shard: the order of the windows' starts
+        self.order = bat + rep
+        b = j = 0
+        for i in bat:
+            b = b * mesh.size(i) + coord[i]
+        n_rep = 1
+        for i in rep:
+            j, n_rep = j * mesh.size(i) + coord[i], n_rep * mesh.size(i)
+        self.window = (local_tokens * j // n_rep,
+                       local_tokens * (j + 1) // n_rep)
+        self.start = b * local_tokens + self.window[0]
+        self.rank = b * n_rep + j
+
+    def exchange(self, counts: torch.Tensor):
+        """``(before, total)`` [E]: the pairs of each expert that the ranks
+        whose windows come first hold, and that all ranks hold. Every rank
+        along the token dimensions passes its own ``counts`` [E]."""
+        c10d = torch.ops._c10d_functional
+        t = counts
+        for i in reversed(self.order):
+            t = t[None]
+            if self.mesh.size(i) > 1:
+                group = self.mesh.get_group(i)
+                t = c10d.wait_tensor(c10d.all_gather_into_tensor(
+                    t, group.size(), group.group_name))
+        table = t.reshape(-1, counts.shape[0])
+        return table[:self.rank].sum(0), table.sum(0)
+
+
+def moe_experts(fn, x, router, wi_gate, wi_up, wo, n_experts: int):
+    """``fn(x, router, wi_gate, wi_up, wo, shard)`` (the MoE block's
+    routing and experts) with x batch-sharded, the experts over ``'model'``
+    and ``shard`` this rank's :class:`MoEShard` (None on a mesh of one
+    device). Returns ``(y, aux)``: y batch-sharded, partial over the
+    dimensions that split the experts or share the tokens; aux partial
+    over the whole mesh."""
+    mesh = x.device_mesh
+    B, S = x.shape[0], x.shape[1]
+    m = _model_dim(mesh, n_experts)
+    every = range(mesh.ndim)
+    bat = sorted(_batch_dims(mesh, B))
+    rep = [i for i in every if i != m and i not in bat]
+    xpl = _pl(mesh, {i: 0 for i in bat})
+    ypl = _partial_over(mesh, xpl, [i for i in every if i not in bat])
+    wpl = _pl(mesh, {m: 0} if m is not None else {})
+    wgrad = _partial_over(mesh, wpl, [i for i in every if i != m])
+    rep_pl = (Replicate(),) * mesh.ndim
+    full = _partial_over(mesh, rep_pl, every)
+
+    def local(xl, rl, wg, wu, wol):
+        shard = None
+        if mesh.size() > 1:
+            shard = MoEShard(mesh, m, bat, rep, n_experts, B * S,
+                             xl.shape[0] * xl.shape[1])
+        return fn(xl, rl, wg, wu, wol, shard)
+    return local_map(local, out_placements=(ypl, full),
+                     in_placements=(xpl, rep_pl, wpl, wpl, wpl),
+                     in_grad_placements=(ypl, full, wgrad, wgrad, wgrad),
                      redistribute_inputs=True)(x, router, wi_gate, wi_up, wo)
 
 

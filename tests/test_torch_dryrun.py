@@ -6,7 +6,8 @@ the reference's (its own dry run, on four placeholder devices, of a
 reduced cell); the FLOPs of a reduced dense cell equal a closed form
 exactly; ``comm_analysis`` counts the result bytes of a hand-built DTensor
 program; the kernels' op counts (moved out of ``chip_smoke.py``) keep
-their values.
+their values; a meshed MoE block's peak falls with the ranks that split
+its tokens.
 """
 from __future__ import annotations
 
@@ -232,3 +233,46 @@ def test_fake_cuda_tensors_take_the_shape_only_branch():
             == xh.shape
     assert seen == ["flash_attention", "flash_attention_bwd", "rmsnorm",
                     "rmsnorm_bwd", "moe_gmm", "ssd_scan", "wkv6"]
+
+
+_MOE_PEAK = """
+import json, torch
+from repro_torch.launch.dryrun import fake_mesh, trace_step
+from repro_torch.models.layers import moe_block
+from repro_torch.sharding.rules import param_spec, shard_tree, use_mesh
+B, S, D, F, E, K = 4, 1024, 256, 128, 16, 8
+out = {}
+for shape in ((4, 2), (1, 2)):
+    with fake_mesh(shape, ("data", "model")) as mesh:
+        p = {"router": torch.empty(D, E, device="meta"),
+             "wi_gate": torch.empty(E, D, F, device="meta"),
+             "wi_up": torch.empty(E, D, F, device="meta"),
+             "wo": torch.empty(E, F, D, device="meta")}
+        p = shard_tree(p, param_spec(p, mesh), mesh)
+        x = shard_tree({"x": torch.empty(B, S, D, device="meta")},
+                       {"x": ("data", None, None)}, mesh)["x"]
+        leaves = [x, *p.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+
+        def step(p, x):
+            y, aux = moe_block(p, x, n_experts=E, top_k=K)
+            return torch.autograd.grad(y.sum() + aux, leaves)
+        with use_mesh(mesh):
+            rec, _ = trace_step(step, (p, x))
+        out["x".join(map(str, shape))] = rec
+print(json.dumps(out))
+"""
+
+
+def test_meshed_moe_block_peak_falls_with_its_token_ranks():
+    """One meshed ``moe_block``, forward and backward, on meta tensors:
+    4 x 1024 tokens of 256, 16 experts of 128, top-8, where the routed rows
+    dominate. On (4, 2) each rank routes its quarter of the tokens, so its
+    peak live bytes beyond the arguments are at most 0.35 x those on
+    (1, 2), where one rank routes them all (a rank that routed every token
+    would hold about as much on both); the counts' all-gather is there."""
+    rec = json.loads(_run(_MOE_PEAK))
+    small, whole = (rec[m]["memory"]["temp_bytes"] for m in ("4x2", "1x2"))
+    assert small <= 0.35 * whole, (small, whole)
+    assert rec["4x2"]["collectives"]["counts"]["all-gather"] > 0
