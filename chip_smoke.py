@@ -73,7 +73,12 @@ failure:
    unbatched ``naive_generate`` on the card and the policies against each
    other (first-token logits within 2e-2 x max|logit|; tokens equal up to
    the first near tie, a step whose reference top-two logits differ by
-   less than that).
+   less than that). Then once more under ``critical-path`` with
+   ``fuse_dma=True`` (the DMA streams issue up to ``max_fuse_dma`` pending
+   copies as one batch, one completion wait each): fatal unless some batch
+   held more than one copy and its tokens equal the unfused run's by the
+   same rule; its wall and ``fused_dma_batches`` printed beside the
+   unfused run's.
 4b. Fleet path (slice 11): the same llama-7b model, one copy of its
    parameters, behind ``Router`` with three ``Engine`` replicas on the
    card, each worker thread on a CUDA stream of its own, each replica
@@ -282,8 +287,12 @@ failure:
    the meshed MoE block (``sharding.local.moe_experts``) through the
    grouped-matmul kernel, every 16-bit launch on its wgmma instance. Each
    prints its predicted and measured step peak, wall time, dry-run FLOPs
-   and TFLOP/s. Then qwen1.5-32b ``train_4k`` lowered on (16, 16) and on
-   (2, 16, 16), no card work, each record and lowering time printed.
+   and TFLOP/s. Then production cells lowered with no card work under the
+   installed torch, each record, lowering time and the five largest
+   storages live at its peak (with the ops that made them) printed:
+   qwen1.5-32b ``train_4k`` on (16, 16) and on (2, 16, 16), olmo-1b
+   ``train_4k`` on (2, 16, 16), rwkv6-7b ``decode_32k`` and zamba2-7b
+   ``prefill_32k`` on (16, 16).
 13. The examples' twins (slice 13, ROADMAP A14): ``examples/torch_*.py``,
    each in a process of its own at its defaults; fatal if one fails or
    prints an oracle check that is False.
@@ -1253,10 +1262,12 @@ class RouteGaps:
 
 def run_serving(torch, device, model, params, prompts, *,
                 max_new: int = SERVE_MAX_NEW, checked: int = SERVE_CHECKED,
-                profile: bool = False) -> dict:
+                profile: bool = False, fused: bool = False) -> dict:
     """The serving path under each reload policy, held against the port's
     naive_generate and across policies (for the MoE family by phase 5's
-    rule). Returns each kernel's launches over the policy runs."""
+    rule); with ``fused``, once more under ``critical-path`` with fused DMA
+    submissions, held against the unfused run. Returns each kernel's
+    launches over the unfused policy runs."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -1306,7 +1317,10 @@ def run_serving(torch, device, model, params, prompts, *,
                               "moe_gmm_mma"], 0)
     streams: dict[str, list[list[int]]] = {}
     margins_of: dict[str, dict[int, list]] = {}
-    for policy in SERVE_POLICIES:
+    runs: dict[str, tuple] = {}
+    for policy, fuse in ([(p, False) for p in SERVE_POLICIES]
+                         + ([("critical-path", True)] if fused else [])):
+        label = policy + (" fuse_dma=True" if fuse else "")
         margins: dict[int, list] = {i: [] for i in range(len(prompts))}
         first: dict[int, np.ndarray] = {}
 
@@ -1315,7 +1329,8 @@ def run_serving(torch, device, model, params, prompts, *,
             if req.rid < checked and req.rid not in first:
                 first[req.rid] = row.copy()
 
-        eng = Engine(model, params, serve_config(policy))
+        eng = Engine(model, params, dataclasses.replace(
+            serve_config(policy), fuse_dma=fuse))
         eng.on_emit = on_emit
         gc.collect()               # the last run's engine and its cache
         if cuda:
@@ -1352,13 +1367,14 @@ def run_serving(torch, device, model, params, prompts, *,
         if moe:
             counts += (f" moe_gmm_launches_wgmma {gmm_wgmma} "
                        f"moe_gmm_launches_mma {gmm_mma}")
-        print(f"serve {cfg.name} policy={policy}: wall_s {wall:.3f} "
+        print(f"serve {cfg.name} policy={label}: wall_s {wall:.3f} "
               f"prefill_time_s {st.prefill_time:.3f} decode_time_s "
               f"{st.decode_time:.3f} stall_time_s {st.stall_time:.3f} "
               f"decode_tok_s {st.decode_tok_s:.2f} tokens {st.tokens} "
               f"prefill_calls {st.prefill_calls} decode_steps "
               f"{st.decode_steps} swaps {st.swaps} offload_bytes "
               f"{st.offload_bytes} reload_bytes {st.reload_bytes} "
+              f"fused_dma_batches {st.fused_dma_batches} "
               f"peak_allocated_bytes {peak} {counts} "
               f"first_token_logits_max_err/max|logit| "
               f"{[f'{e:.3g}' for e in first_err]} (tol {SERVE_RTOL:g}) "
@@ -1378,6 +1394,17 @@ def run_serving(torch, device, model, params, prompts, *,
             if 0 not in route_ties[i]:
                 assert first_err[i] <= SERVE_RTOL, \
                     f"first-token logits of request {i} disagree"
+        runs[label] = (wall, st.fused_dma_batches)
+        if fuse:
+            assert st.fused_dma_batches > 0, "no DMA batch held two copies"
+            full = sum(agree_to_first_tie(streams[policy][i], out[i],
+                                          margins_of[policy][i])
+                       for i in range(len(prompts)))
+            print(f"serve {cfg.name} policy={label} vs {policy}: wall_s "
+                  f"{wall:.3f} vs {runs[policy][0]:.3f} fused_dma_batches "
+                  f"{st.fused_dma_batches} vs {runs[policy][1]} "
+                  f"match_in_full {full}/{len(prompts)}", flush=True)
+            continue
         for name in kernels:
             launches[name] += n[name]
         launches["flash_attention_tc"] += fa_tc
@@ -3650,7 +3677,11 @@ DRY_PEAK_RTOL = 0.10            # measured step peak vs predicted: 10% ...
 DRY_PEAK_ATOL = 256 * 2**20     # ... + 256 MiB
 DRY_FLOPS_RTOL = 0.02           # (c)'s FLOPs vs the closed form
 DRY_PRODUCTION = (("qwen1.5-32b", "train_4k", False),
-                  ("qwen1.5-32b", "train_4k", True))
+                  ("qwen1.5-32b", "train_4k", True),
+                  ("olmo-1b", "train_4k", True),
+                  ("rwkv6-7b", "decode_32k", False),
+                  ("zamba2-7b", "prefill_32k", False))
+DRY_TOP_LIVE = 5                # storages printed at a production peak
 KERNEL_WRAPPERS = (("rmsnorm", "rmsnorm.ops", "rmsnorm"),
                    ("rmsnorm_bwd", "rmsnorm.ops", "rmsnorm_bwd"),
                    ("flash_attention", "flash_attention.ops",
@@ -3843,8 +3874,9 @@ def dryrun_phase(torch, device) -> None:
     """Phase 12: each of ``dry_cells`` lowered on meta tensors
     (``launch.dryrun.lower_cell`` on a 1 x 1 mesh of a fake process group),
     then run on the card through the meshed path under a one-rank NCCL
-    group (``run_dry_cell`` states the rules); then two production cells
-    lowered with no card work, their records and lowering times printed."""
+    group (``run_dry_cell`` states the rules); then the production cells
+    lowered with no card work, their records, lowering times and largest
+    storages live at the peak printed."""
     import socket
     import torch.distributed as dist
     from repro_torch.configs import ShapeConfig, get_arch
@@ -3893,11 +3925,14 @@ def dryrun_phase(torch, device) -> None:
         dist.destroy_process_group()
     for arch, shape, multi in DRY_PRODUCTION:
         t = time.perf_counter()
-        rec = lower_cell(arch, shape, multi_pod=multi)
-        print(f"dry run production {arch} {shape} "
-              f"{'multi' if multi else 'single'}-pod: lowered in "
+        rec = lower_cell(arch, shape, multi_pod=multi, top_live=DRY_TOP_LIVE)
+        cell = f"{arch} {shape} {'multi' if multi else 'single'}-pod"
+        print(f"dry run production {cell}: lowered in "
               f"{time.perf_counter() - t:.2f} s: {json.dumps(rec)}",
               flush=True)
+        for w in rec["memory"]["top_live"]:
+            print(f"dry run production {cell}: live at peak {w['bytes']} B "
+                  f"{w['dtype']} {w['shape']} {w['op']}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -4067,7 +4102,7 @@ def main(argv: list[str]) -> int:
     _phase("serving model", t)
     t = time.perf_counter()
     run_serving(torch, device, model, params, prompts,
-                profile="--profile" in argv)
+                profile="--profile" in argv, fused=True)
     _phase("serving path", t)
     t = time.perf_counter()
     fleet_phase(torch, device, model, params, prompts,

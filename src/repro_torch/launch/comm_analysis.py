@@ -84,7 +84,6 @@ def asked_collectives():
     """DTensor's shard-to-shard redistribution issues its all-to-all
     operator on shape-only tensors, where a CPU process group would fall
     back to an all-gather."""
-    import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import placement_types
 
     orig = getattr(placement_types, "shard_dim_alltoall", None)
@@ -95,9 +94,8 @@ def asked_collectives():
     def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
         if input.device.type != "meta":
             return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
-        group = funcol._resolve_group((mesh, mesh_dim))
         return torch.ops._dtensor.shard_dim_alltoall(
-            input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
 
     placement_types.shard_dim_alltoall = alltoall
     try:

@@ -23,7 +23,10 @@ The record has the reference's keys (``dryrun.py:149-182``):
   take the old one's place (the reference donates it; the port's step
   keeps the old state until it returns, so this does not lower the
   peak); ``host_temp_bytes``, the bytes ``remat='offload'`` moves to
-  pinned host memory; ``peak_bytes_per_device`` = argument + temp.
+  pinned host memory; ``peak_bytes_per_device`` = argument + temp. With
+  ``top_live`` (``--top-live N``), also ``top_live``: the N largest
+  storages live at the peak, each with its shape, dtype, bytes and the
+  aten op that made it (``"argument"`` for the step's inputs).
 * ``cost``: ``flops``, the products' operations counted from the aten ops
   (``torch.utils.flop_counter``'s formulas, on local shapes) plus each
   hand-written kernel's own count (``flash_ops``, the backward's five
@@ -42,11 +45,14 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
         --shape train_4k [--multipod] [--out experiments/dryrun_torch]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-7b \
+        --shape prefill_32k --top-live 5      # what the peak holds
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import heapq
 import json
 import pathlib
 import time
@@ -82,19 +88,25 @@ class StepTracker(TorchDispatchMode):
     aten ops a step runs. An op on DTensors is left to DTensor (the mode
     returns ``NotImplemented``, as ``CommDebugMode`` does), so the mode
     sees the local ops it runs, collectives included, with local shapes.
-    The fake-tensor ops DTensor runs to propagate shapes are not counted."""
+    The fake-tensor ops DTensor runs to propagate shapes are not counted.
+    With ``top`` > 0 it also keeps ``top_live``, the ``top`` largest
+    storages live at the peak: (op, shape, dtype, bytes)."""
 
-    def __init__(self) -> None:
+    def __init__(self, top: int = 0) -> None:
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.live = 0
         self.peak = 0
+        self.top = top
+        self.top_live: list[tuple] = []
         self._seen: dict[int, weakref.ref] = {}
+        self._what: dict[int, tuple] = {}
 
-    def track(self, t: torch.Tensor, exact: bool = False) -> None:
+    def track(self, t: torch.Tensor, exact: bool = False,
+              op: str = "argument") -> None:
         """Count ``t``'s storage as live until it is freed (``exact``: only
-        ``t``'s own bytes of it)."""
+        ``t``'s own bytes of it); ``op`` made it."""
         st = _local(t).untyped_storage()
         key = id(st)
         if key in self._seen:
@@ -103,10 +115,18 @@ class StepTracker(TorchDispatchMode):
 
         def freed(_, key=key, n=n):
             self._seen.pop(key, None)
+            self._what.pop(key, None)
             self.live -= n
         self._seen[key] = weakref.ref(st, freed)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.top:
+            self._what[key] = (op, tuple(_local(t).shape),
+                               str(t.dtype).replace("torch.", ""), n)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.top:
+                self.top_live = heapq.nlargest(self.top, self._what.values(),
+                                               key=lambda w: w[3])
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -132,43 +152,8 @@ class StepTracker(TorchDispatchMode):
         # gathered buffer; the card's collective writes the chunk alone
         exact = pkt is torch.ops._dtensor.shard_dim_alltoall
         for t in outs:
-            self.track(t, exact)
+            self.track(t, exact, str(func) if self.top else "")
         return out
-
-
-@contextlib.contextmanager
-def _priced_strided_shards():
-    """DTensor prices every candidate strategy of an op by the
-    redistribution it needs; with a ``_StridedShard`` placement (a
-    flattened [batch x sequence] dimension sharded over ('pod', 'data')
-    and 'model') it plans each by a graph search that grows beyond reach
-    on a three-dimensional mesh. Inside this block such a candidate is
-    priced by the bytes its differing mesh dimensions move; the
-    redistribution DTensor then runs is its own."""
-    from torch.distributed.tensor import _utils
-    from torch.distributed.tensor._collective_utils import spec_to_bytes
-    from torch.distributed.tensor._ops import utils as op_utils
-    from torch.distributed.tensor.placement_types import _StridedShard
-
-    orig = getattr(op_utils, "redistribute_cost", None)
-    if orig is None or not hasattr(_utils, "redistribute_cost"):
-        yield                   # a torch whose planner this does not know
-        return
-
-    def cost(src, dst):
-        if not any(isinstance(p, _StridedShard)
-                   for p in (*src.placements, *dst.placements)):
-            return orig(src, dst)
-        if src.mesh != dst.mesh:
-            return float("inf")
-        gib = spec_to_bytes(src) / src.num_shards / 2**30
-        return sum(gib for a, b in zip(src.placements, dst.placements)
-                   if a != b)
-    op_utils.redistribute_cost = _utils.redistribute_cost = cost
-    try:
-        yield
-    finally:
-        op_utils.redistribute_cost = _utils.redistribute_cost = orig
 
 
 @contextlib.contextmanager
@@ -283,11 +268,12 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     return serve_step, (params, cache, token), model
 
 
-def trace_step(step, args) -> dict:
+def trace_step(step, args, top_live: int = 0) -> dict:
     """Run ``step(*args)`` under the trackers; the memory, cost and
-    collectives entries of a record."""
+    collectives entries of a record (with ``top_live``, the largest
+    storages live at the peak)."""
     from ..models import offload
-    tracker = StepTracker()
+    tracker = StepTracker(top_live)
     kernels: dict[str, list[int]] = defaultdict(lambda: [0, 0, 0])
 
     def on_kernel(name, ops, nbytes):
@@ -308,11 +294,16 @@ def trace_step(step, args) -> dict:
             and "opt" in out[0]:                    # (state, metrics)
         alias = min(_nbytes(out[0]), _nbytes(args[0]))
     temp = tracker.peak - arg_bytes
+    memory = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
+              "temp_bytes": temp, "alias_bytes": alias,
+              "host_temp_bytes": offload.moved["offloaded"],
+              "peak_bytes_per_device": arg_bytes + temp}
+    if top_live:
+        memory["top_live"] = [{"op": op, "shape": list(shape),
+                               "dtype": dtype, "bytes": n}
+                              for op, shape, dtype, n in tracker.top_live]
     return {
-        "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                   "temp_bytes": temp, "alias_bytes": alias,
-                   "host_temp_bytes": offload.moved["offloaded"],
-                   "peak_bytes_per_device": arg_bytes + temp},
+        "memory": memory,
         "cost": {"flops": tracker.flops + sum(k[1] for k in
                                               kernels.values()),
                  "bytes_accessed": tracker.bytes + sum(k[2] for k in
@@ -328,11 +319,13 @@ def lower_cell(arch: str | ArchConfig, shape: str | ShapeConfig, *,
                multi_pod: bool = False, remat: str | None = "full",
                block_kv: int = 1024, kv_cache_dtype: str = "bf16",
                extra_tag: str = "",
-               mesh_shape: tuple[int, ...] | None = None) -> dict:
+               mesh_shape: tuple[int, ...] | None = None,
+               top_live: int = 0) -> dict:
     """Trace one (arch x shape) cell on one rank of the production mesh
     (or ``mesh_shape``); returns the record. ``arch`` and ``shape`` are
     names or configs. ``block_kv`` is the reference's XLA block size: the
-    flash kernel keeps its own tiles, so it is recorded and not used."""
+    flash kernel keeps its own tiles, so it is recorded and not used.
+    ``top_live`` > 0 adds ``memory.top_live``."""
     cfg = arch if isinstance(arch, ArchConfig) else get_arch(arch)
     shp = shape if isinstance(shape, ShapeConfig) else SHAPES[shape]
     dims, names = _mesh_axes(multi_pod, mesh_shape)
@@ -340,10 +333,8 @@ def lower_cell(arch: str | ArchConfig, shape: str | ShapeConfig, *,
     with fake_mesh(dims, names) as mesh:
         step, args, _ = build_cell(cfg, shp, mesh, remat=remat,
                                    kv_cache_dtype=kv_cache_dtype)
-        priced = (_priced_strided_shards() if len(dims) > 2
-                  else contextlib.nullcontext())
-        with use_mesh(mesh), priced:
-            rec, _ = trace_step(step, args)
+        with use_mesh(mesh):
+            rec, _ = trace_step(step, args, top_live)
     n_dev = 1
     for d in dims:
         n_dev *= d
@@ -371,6 +362,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--mesh-shape", default=None,
                     help="override (data,model), e.g. 32x8")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--top-live", type=int, default=0,
+                    help="record and print the N largest storages live at "
+                         "the peak, with the ops that made them")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
@@ -401,13 +395,17 @@ def main(argv: list[str] | None = None) -> None:
             rec = lower_cell(a, s, multi_pod=args.multipod, remat=remat,
                              block_kv=args.block_kv,
                              kv_cache_dtype=args.kv_cache_dtype,
-                             extra_tag=args.tag, mesh_shape=ms)
+                             extra_tag=args.tag, mesh_shape=ms,
+                             top_live=args.top_live)
             fn.write_text(json.dumps(rec, indent=1))
             m = rec["memory"]["peak_bytes_per_device"] / 2**30
             print(f"OK   {a:24s} {s:12s} {pod}: peak {m:.2f} GiB/dev, "
                   f"flops {rec['cost']['flops']:.3e}, "
                   f"coll {rec['collectives']['total_bytes']:.3e} B "
                   f"(lower {rec['lower_s']}s)", flush=True)
+            for w in rec["memory"].get("top_live", []):
+                print(f"     live at peak: {w['bytes']:>14d} B {w['dtype']:9s} "
+                      f"{w['shape']} {w['op']}", flush=True)
         except Exception as e:
             failures += 1
             fn.with_suffix(".err").write_text(traceback.format_exc())

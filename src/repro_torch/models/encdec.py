@@ -39,10 +39,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from ..sharding.rules import constrain, embed_rows, fsdp_gather
+from ..sharding.rules import constrain, embed_rows, unembed
 from . import layers as L
-from .lm import (_norm, _norm_init, _with_prefix, layer_params, token_nll,
-                 wrap_remat)
+from .lm import (_norm, _norm_init, _with_prefix, layer_params, positions,
+                 token_nll, wrap_remat)
 from .offload import ResidualOffload
 
 __all__ = ["EncDec"]
@@ -129,7 +129,7 @@ class EncDec:
         return h + self._mlp(lp, _norm(cfg, lp, "ln3", h))
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
-        return torch.arange(S, device=self.device)[None].expand(B, S)
+        return positions(B, S, self.device)
 
     # -------------------------------------------------------------- apply
     def encode(self, params: dict, encoder_embeds) -> torch.Tensor:
@@ -169,11 +169,8 @@ class EncDec:
         body = self._wrap_remat(body, self._offload())
         for i in range(cfg.n_decoder_layers):
             h = body(h, i)
-        # the sequence gathered before the head (``LM.apply``)
-        h = constrain(_norm(cfg, params, "ln_f", h), ("pod", "data"), None,
-                      None)
-        return constrain(h @ fsdp_gather(params["unembed"]), ("pod", "data"),
-                         None, "model")
+        # the norm gathers the sequence before the head (``LM.apply``)
+        return unembed(_norm(cfg, params, "ln_f", h), params["unembed"])
 
     def apply(self, params: dict, tokens: torch.Tensor, *,
               encoder_embeds) -> torch.Tensor:
@@ -214,7 +211,10 @@ class EncDec:
         B = token.shape[0]
         h = embed_rows(params["embed"],
                        torch.as_tensor(token, device=dev).long())                      # [B, 1, D]
-        enc_out = cache["enc_out"]
+        # the encoder's output placed by batch alone: the cache rules shard
+        # its sequence over 'model', which the K/V products would flatten
+        # into their rows as a strided shard
+        enc_out = constrain(cache["enc_out"], ("pod", "data"), None, None)
         lens = torch.full((B,), int(cache_len), dtype=torch.int64,
                           device=dev)
         rows = torch.arange(B, device=dev)

@@ -158,7 +158,12 @@ def _mask_len(cache_len, Smax: int, device) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len) -> torch.Tensor:
-    """One-token attention against a [B, Smax, Hkv, Dh] cache."""
+    """One-token attention against a [B, Smax, Hkv, Dh] cache. Under a
+    mesh of more than one device it runs on the cache's local shards
+    (``sharding.local.decode_attention``)."""
+    if meshed(k_cache) and k_cache.device_mesh.size() > 1:
+        return _local().decode_attention(q, k_cache, v_cache, cache_len,
+                                         NEG_INF)
     B, Sq, Hq, Dh = q.shape
     _, Smax, Hkv, _ = k_cache.shape
     G = Hq // Hkv

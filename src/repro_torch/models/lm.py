@@ -73,13 +73,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from ..sharding.rules import (active_mesh, constrain, embed_rows,
-                              fsdp_gather, meshed, shard_dim)
+                              fsdp_gather, meshed, shard_dim, unembed)
 from . import layers as L
 from . import rwkv as R
 from . import ssm as SSM
 from .offload import ResidualOffload
 
-__all__ = ["LM", "REMAT_MODES", "token_nll"]
+__all__ = ["LM", "REMAT_MODES", "token_nll", "positions"]
 
 _KV_DTYPES = ("bf16", "int8")
 _FAMILIES = ("dense", "moe", "rwkv", "zamba")
@@ -158,20 +158,17 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor,
     first ``vocab`` entries of f32 ``logits`` (the padding masked with
     −1e30, as the reference does). Where a mesh of more than one device
     shards the vocabulary, the log-sum-exp and the label's logit are
-    reduced over the shards (vocabulary-parallel), so that no device holds
-    a whole row of the vocabulary and the backward stays sharded; else
-    ``log_softmax`` and ``gather``."""
-    iota = _vocab_iota(logits)
+    reduced over the shards (vocabulary-parallel,
+    ``sharding.local.token_nll``), so that no device holds a whole row of
+    the vocabulary and the backward stays sharded; else ``log_softmax``
+    and ``gather``."""
+    if _vocab_sharded(logits):
+        from ..sharding.local import token_nll as vocab_parallel
+        return vocab_parallel(logits, labels, vocab)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
     logits = logits + torch.where(iota < vocab, 0.0, -1e30)
-    if not _vocab_sharded(logits):
-        logp = torch.log_softmax(logits, dim=-1)
-        return -torch.gather(logp, -1, labels[..., None])
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True)) + m
-    picked = torch.where(iota == labels[..., None], logits, 0.0)
-    # batch-sharded, so that the mean's gradient comes back sharded
-    return constrain(lse - picked.sum(dim=-1, keepdim=True),
-                     ("pod", "data"), None, None)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])
 
 
 def _vocab_sharded(logits: torch.Tensor) -> bool:
@@ -183,24 +180,13 @@ def _vocab_sharded(logits: torch.Tensor) -> bool:
                for i, p in enumerate(logits.placements))
 
 
-def _vocab_iota(logits: torch.Tensor) -> torch.Tensor:
-    """``arange`` over the last dimension of ``logits``, placed as that
-    dimension (a DTensor under a mesh)."""
-    n = logits.shape[-1]
-    if not meshed(logits):
-        return torch.arange(n, device=logits.device)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh, last = logits.device_mesh, logits.dim() - 1
-    pl = tuple(Shard(0) if p.is_shard() and p.dim in (last, -1)
-               else Replicate() for p in logits.placements)
-    lo, size = 0, n
-    for i, p in enumerate(pl):
-        if p.is_shard():
-            size //= mesh.size(i)
-            lo += mesh.get_local_rank(i) * size
-    local = torch.arange(lo, lo + size, device=logits.to_local().device)
-    return DTensor.from_local(local, mesh, pl, run_check=False,
-                              shape=(n,), stride=(1,))
+def positions(B: int, S: int, device) -> torch.Tensor:
+    """The positions 0..S-1 of B rows, [B, S]. Under a mesh, one [1, S]
+    row that the rows broadcast: a plain [B, S] tensor would meet the
+    batch-sharded activations as a replicated one, and the rope tables
+    made from it would hold every row of the batch on every device."""
+    pos = torch.arange(S, device=device)[None]
+    return pos if active_mesh() is not None else pos.expand(B, S)
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -339,7 +325,7 @@ class LM:
         return h + y, aux
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
-        return torch.arange(S, device=self.device)[None].expand(B, S)
+        return positions(B, S, self.device)
 
     # ------------------------------------------------------------- apply
     def apply(self, params: dict, tokens: torch.Tensor, *,
@@ -410,12 +396,9 @@ class LM:
                     h = mamba(h, "mamba", g, j)
             for j in range(tail):
                 h = mamba(h, "mamba_tail", j)
-        # the sequence gathered before the head, so that the logits come
-        # out of the product in their own layout (batch x vocabulary)
-        h = constrain(_norm(cfg, params, "ln_f", h), ("pod", "data"), None,
-                      None)
-        return constrain(h @ fsdp_gather(params["unembed"]), ("pod", "data"),
-                         None, "model")
+        # the norm gathers the sequence: the logits come out of the head's
+        # product in their own layout (batch x vocabulary)
+        return unembed(_norm(cfg, params, "ln_f", h), params["unembed"])
 
     # -------------------------------------------------------------- loss
     def loss(self, params: dict, batch: dict) -> torch.Tensor:

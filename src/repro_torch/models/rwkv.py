@@ -165,6 +165,10 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
             y = meshed_wkv6(wkv6, r, k, v, lw, p["bonus_u"], chunk)
         else:
             y = wkv6(r, k, v, lw, p["bonus_u"], chunk=chunk)
+    elif state is not None and meshed(r):
+        from ..sharding.local import wkv6 as meshed_wkv6
+        y, sT = meshed_wkv6(wkv6_chunked, r, k, v, lw, p["bonus_u"], chunk,
+                            state=state[1])
     else:
         y, sT = wkv6_chunked(r, k, v, lw, p["bonus_u"], chunk=chunk,
                              s0=state[1] if state is not None else None)

@@ -10,6 +10,7 @@ recurrence in plain torch (no TPU kernel takes or returns a state).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -101,6 +102,40 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+def _heads_split(x: torch.Tensor, n_heads: int) -> bool:
+    """Whether a mesh of more than one device splits the heads over
+    ``'model'`` for ``x``'s block (``sharding.local.ssd_in``)."""
+    if not meshed(x):
+        return False
+    names = list(x.device_mesh.mesh_dim_names)
+    n = x.device_mesh.size(names.index("model")) if "model" in names else 1
+    return n > 1 and n_heads % n == 0
+
+
+def _in_conv(x: torch.Tensor, w: torch.Tensor, conv_w: torch.Tensor,
+             conv_b: torch.Tensor, cols: torch.Tensor, conv_cols: torch.Tensor,
+             *, n_state: int):
+    """``(z, x, B, C, Δ)`` of the in-projection's columns ``cols`` of ``w``
+    (one rank's share of z, x and Δ, and all of B and C), x, B and C
+    through the causal depthwise convolution's columns ``conv_cols``: the
+    sequence forward of :func:`ssd_block` on a rank's local tensors."""
+    S, N = x.shape[1], n_state
+    dl = conv_cols.numel() - 2 * N
+    proj = x @ w[:, cols]
+    z, xr, Bm, Cm, dt = torch.split(proj, [dl, dl, N, N,
+                                           cols.numel() - 2 * dl - 2 * N],
+                                    dim=-1)
+    conv_in = torch.cat([xr, Bm, Cm], dim=-1)
+    conv_in_full = F.pad(conv_in, (0, 0, conv_w.shape[0] - 1, 0))
+    cw = conv_w[:, conv_cols]
+    conv = torch.zeros_like(conv_in)
+    for j in range(cw.shape[0]):
+        conv = conv + conv_in_full[:, j:j + S] * cw[j]
+    conv = F.silu(conv + conv_b[conv_cols])
+    xr, Bm, Cm = torch.split(conv, [dl, N, N], dim=-1)
+    return z, xr, Bm, Cm, dt
+
+
 def ssd_block(p: dict, x: torch.Tensor, *, d_state: int = 64,
               headdim: int = 64, expand: int = 2, chunk: int = 128,
               state: torch.Tensor | None = None,
@@ -124,25 +159,33 @@ def ssd_block(p: dict, x: torch.Tensor, *, d_state: int = 64,
     d_inner = expand * D
     H = d_inner // headdim
     N = d_state
-    # under a mesh the sequence-parallel input is gathered over the
-    # sequence first, as a norm's output is (``lm._norm``)
-    proj = constrain(x, ("pod", "data"), None, None) @ p["in_proj"]
-    z, xr, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, N, N, H],
-                                    dim=-1)
-    conv_in = torch.cat([xr, Bm, Cm], dim=-1)          # [B, S, convdim]
     dconv = p["conv_w"].shape[0]
-    if conv_state is not None:
-        conv_in_full = torch.cat([conv_state, conv_in], dim=1)
-        new_conv_state = conv_in_full[:, -(dconv - 1):]
+    new_conv_state = None
+    if conv_state is None and not return_state and _heads_split(x, H):
+        # under a mesh: z, x and Δ sharded by heads, B and C whole
+        from ..sharding.local import ssd_in
+        z, xr, Bm, Cm, dt = ssd_in(
+            functools.partial(_in_conv, n_state=N), x, p["in_proj"],
+            p["conv_w"], p["conv_b"], d_inner, N, H)
     else:
-        conv_in_full = F.pad(conv_in, (0, 0, dconv - 1, 0))
-        new_conv_state = (conv_in_full[:, -(dconv - 1):] if return_state
-                          else None)
-    conv = torch.zeros_like(conv_in)
-    for j in range(dconv):
-        conv = conv + conv_in_full[:, j:j + S] * p["conv_w"][j]
-    conv = F.silu(conv + p["conv_b"])
-    xr, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
+        # under a mesh the sequence-parallel input is gathered over the
+        # sequence first, as a norm's output is (``lm._norm``)
+        proj = constrain(x, ("pod", "data"), None, None) @ p["in_proj"]
+        z, xr, Bm, Cm, dt = torch.split(proj, [d_inner, d_inner, N, N, H],
+                                        dim=-1)
+        conv_in = torch.cat([xr, Bm, Cm], dim=-1)      # [B, S, convdim]
+        if conv_state is not None:
+            conv_in_full = torch.cat([conv_state, conv_in], dim=1)
+            new_conv_state = conv_in_full[:, -(dconv - 1):]
+        else:
+            conv_in_full = F.pad(conv_in, (0, 0, dconv - 1, 0))
+            new_conv_state = (conv_in_full[:, -(dconv - 1):] if return_state
+                              else None)
+        conv = torch.zeros_like(conv_in)
+        for j in range(dconv):
+            conv = conv + conv_in_full[:, j:j + S] * p["conv_w"][j]
+        conv = F.silu(conv + p["conv_b"])
+        xr, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
 
     A = -torch.exp(p["A_log"])                          # [H]
     dt = F.softplus(dt.float() + p["dt_bias"])
@@ -155,6 +198,9 @@ def ssd_block(p: dict, x: torch.Tensor, *, d_state: int = 64,
             y = meshed_scan(ssd_scan, xh.contiguous(), dt, A, Bf, Cf, c)
         else:
             y = ssd_scan(xh.contiguous(), dt, A, Bf, Cf, chunk=c)
+    elif state is not None and meshed(xh):
+        from ..sharding.local import ssd_scan as meshed_scan
+        y, hT = meshed_scan(_ssd_chunked, xh, dt, A, Bf, Cf, c, state=state)
     else:
         y, hT = _ssd_chunked(xh, dt, A, Bf, Cf, chunk=c, h0=state)
     y = y + xh * p["D"][None, None, :, None]

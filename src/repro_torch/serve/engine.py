@@ -67,9 +67,19 @@ fault seams; ``drain_tickets``, ``export_one_swapped`` and
 copies of the offload tier, each handed to the store only after its d2h
 copy finished, so a ticket never carries a block still in flight; a
 killed replica's run loop joins its DMA threads before it returns, and
-:meth:`Engine.close` drops its device cache. The reference's fused DMA
-submissions (``fuse_dma``), which no test or benchmark turns on, are not
-ported.
+:meth:`Engine.close` drops its device cache.
+
+Fused DMA submissions (``ServeConfig.fuse_dma``, the reference's rule): a
+stream that wakes with several transfers pending takes up to
+``max_fuse_dma`` of them, in the policy's pop order, as one batch. On the
+CPU it sleeps once for the batch, the latency plus every member's bytes
+over the bandwidth. On CUDA it issues the batch's copies back to back on
+its stream, records one event and waits for it once (the GIL released);
+only then is any block of the batch handed to the store or posted to the
+main loop, so a ticket or a reload never sees a copy still in flight
+(ROADMAP C3). Service order is pop order, so the token streams are the
+same with fusion on or off; ``ServeStats.fused_dma_batches`` counts the
+batches of more than one transfer.
 """
 from __future__ import annotations
 
@@ -170,6 +180,11 @@ class ServeConfig:
     h2d_bw: float = 12e9
     d2h_bw: float = 12e9
     dma_latency: float = 10e-6
+    # fused DMA submissions: a stream drains up to max_fuse_dma pending
+    # transfers a wake and issues them as one batch, one completion wait
+    # for all of them (timing only: tokens are the same either way)
+    fuse_dma: bool = False
+    max_fuse_dma: int = 8
     seed: int = 0
 
 
@@ -214,6 +229,8 @@ class ServeStats:
     disk_load_bytes: int = 0          # disk→host tier traffic
     prefetch_bytes: int = 0           # disk→host bytes staged ahead of a
     #                                   resume (subset of disk_load_bytes)
+    fused_dma_batches: int = 0        # batches of more than one transfer
+    #                                   (ServeConfig.fuse_dma)
     kv_bytes_written: int = 0
     migrations_in: int = 0            # warm tickets imported (router fleet)
     migrations_out: int = 0           # warm tickets exported off this
@@ -332,16 +349,20 @@ def get_reload_policy(policy: str | ReloadPolicy | None, *,
 class _DmaStream(threading.Thread):
     """A dedicated transfer engine for one direction.
 
-    Pops the best-ranked pending transfer (the policy's choice), then runs
-    the service callback, which does the copy off the engine lock. On
-    CUDA the thread runs inside its own CUDA stream (``cuda_stream``; the
-    current stream is per thread). With ``simulate`` (a model on the CPU)
-    it first sleeps the wire time, as the reference does."""
+    Pops the best-ranked pending transfer (the policy's choice), with
+    ``fuse`` up to ``max_fuse`` of them in pop order, then runs the
+    service callback on the batch, which does the copies off the engine
+    lock. ``on_batch`` is called (the lock held) for each batch of more
+    than one. On CUDA the thread runs inside its own CUDA stream
+    (``cuda_stream``; the current stream is per thread). With
+    ``simulate`` (a model on the CPU) it first sleeps the batch's wire
+    time, one latency plus every member's bytes, as the reference does."""
 
     def __init__(self, kind: str, bw: float, latency: float,
                  policy: ReloadPolicy, service, lock, *,
                  cuda_stream: torch.cuda.Stream | None = None,
-                 simulate: bool = False) -> None:
+                 simulate: bool = False, fuse: bool = False,
+                 max_fuse: int = 8, on_batch=None) -> None:
         super().__init__(name=f"serve-dma-{kind}")
         self.kind = kind
         self.bw = bw
@@ -354,6 +375,9 @@ class _DmaStream(threading.Thread):
         self.cond = threading.Condition(lock)
         self.stopped = False
         self.error: BaseException | None = None
+        self.fuse = fuse
+        self.max_fuse = max_fuse
+        self.on_batch = on_batch
 
     def submit(self, tr: _Transfer) -> None:
         """Engine lock held."""
@@ -377,10 +401,16 @@ class _DmaStream(threading.Thread):
                             self.cond.wait()
                         if self.stopped:
                             return
-                        tr = self.policy.pick(self.pending)
+                        batch = [self.policy.pick(self.pending)]
+                        while (self.fuse and self.pending
+                               and len(batch) < self.max_fuse):
+                            batch.append(self.policy.pick(self.pending))
+                        if len(batch) > 1 and self.on_batch is not None:
+                            self.on_batch(len(batch))
                     if self.simulate:
-                        time.sleep(self.latency + tr.nbytes / self.bw)
-                    self.service(tr)
+                        time.sleep(self.latency
+                                   + sum(t.nbytes for t in batch) / self.bw)
+                    self.service(batch)
         except BaseException as e:       # surface in the engine loop — a
             with self.cond:              # silently dead stream would wedge
                 self.error = e           # every waiter forever
@@ -867,7 +897,14 @@ class Engine:
                 if self._cuda and kind in (D2H, H2D) else None)
         return _DmaStream(kind, bw, self.cfg.dma_latency, pol, service,
                           self._lock, cuda_stream=cuda,
-                          simulate=not self._cuda)
+                          simulate=not self._cuda, fuse=self.cfg.fuse_dma,
+                          max_fuse=self.cfg.max_fuse_dma,
+                          on_batch=self._on_fused_batch)
+
+    def _on_fused_batch(self, n: int) -> None:
+        """A DMA stream issued ``n`` > 1 transfers as one batch (engine
+        lock held)."""
+        self.stats.fused_dma_batches += 1
 
     def run(self, *, seed: int | None = None) -> ServeStats:
         """Drain the queue: admit → prefill → decode, with offload and
@@ -941,84 +978,103 @@ class Engine:
 
     # -------------------------------------------------- DMA service hooks
     # (run on stream threads; the main loop owns cache mutation)
-    def _copy_to_host(self, src: dict[str, torch.Tensor], written):
-        """Copy a block's device slices into host tensors, complete. On
-        CUDA: on this thread's d2h stream, after the compute stream's
-        latest write (``written``), waited for with the GIL released."""
+    def _copy_to_host(self, blocks: list):
+        """Copy each ``(device slices, written)`` block of a batch into host
+        tensors, all complete. On CUDA: back to back on this thread's d2h
+        stream, each after the compute stream's latest write to it
+        (``written``), then one event, waited for with the GIL released."""
         if not self._cuda:
-            return self.host._host_copy(src)
+            return [self.host._host_copy(src) for src, _ in blocks]
         stream = torch.cuda.current_stream(self.device)
-        if written is not None:
-            stream.wait_event(written)
-        data = self.host._host_copy(src)
+        datas = []
+        for src, written in blocks:
+            if written is not None:
+                stream.wait_event(written)
+            datas.append(self.host._host_copy(src))
         done = torch.cuda.Event()
         done.record(stream)
         done.synchronize()
-        return data
+        return datas
 
-    def _copy_to_device(self, data: dict[str, torch.Tensor]):
-        """Copy a pinned host block into fresh device tensors on this
-        thread's h2d stream, complete (CUDA); the host block itself on the
-        CPU (host copies are never written)."""
+    def _copy_to_device(self, blocks: list[dict[str, torch.Tensor]]):
+        """Copy each pinned host block of a batch into fresh device tensors
+        on this thread's h2d stream, back to back, then wait once for all
+        of them (CUDA); the host blocks themselves on the CPU (host copies
+        are never written)."""
         if not self._cuda:
-            return data
-        staged = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                  for k, v in data.items()}
-        for k, v in data.items():
-            staged[k].copy_(v, non_blocking=True)
+            return blocks
+        staged = []
+        for data in blocks:
+            dev = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                   for k, v in data.items()}
+            for k, v in data.items():
+                dev[k].copy_(v, non_blocking=True)
+            staged.append(dev)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
         done.synchronize()
         return staged
 
-    def _service_d2h(self, tr: _Transfer) -> None:
+    def _service_d2h(self, batch: list[_Transfer]) -> None:
+        jobs, blocks = [], []
         with self._lock:
-            req = self.reqs.get(tr.rid)
-            if req is None:                           # released mid-flight
-                self._release_key_locked((tr.rid, tr.blk))
-                self._wake.notify_all()
-                return
-            if req.state == DONE or req.slot < 0:
-                req.inflight.discard(tr.blk)
-                self._release_key_locked((tr.rid, tr.blk))
-                self._wake.notify_all()
-                return
-            slot = req.slot
-            # views of the current leaves: they keep the leaves alive if
-            # grow() replaces them while the copy is in flight
-            src = self.kv.read_block(slot, tr.blk)
-            written = self.kv.written
-        # the copy runs off the engine lock so it overlaps under decode;
-        # the slot cannot be reassigned while this block is in flight
+            for tr in batch:
+                req = self.reqs.get(tr.rid)
+                if req is None:                       # released mid-flight
+                    self._release_key_locked((tr.rid, tr.blk))
+                    continue
+                if req.state == DONE or req.slot < 0:
+                    req.inflight.discard(tr.blk)
+                    self._release_key_locked((tr.rid, tr.blk))
+                    continue
+                # views of the current leaves: they keep the leaves alive
+                # if grow() replaces them while the copy is in flight
+                jobs.append((tr, req, req.slot))
+                blocks.append((self.kv.read_block(req.slot, tr.blk),
+                               self.kv.written))
+            self._wake.notify_all()
+        if not jobs:
+            return
+        # the copies run off the engine lock so they overlap under decode;
+        # a slot cannot be reassigned while a block of it is in flight
         # (swap-out completes only once `inflight` drains)
-        data = self._copy_to_host(src, written)
-        del src
+        datas = self._copy_to_host(blocks)
+        del blocks
         with self._lock:
-            req.inflight.discard(tr.blk)
-            if req.state != DONE and req.slot == slot:
-                self.host.put_offload((tr.rid, tr.blk), data, copy=False)
-                # counted here, not as a HostStore delta: a runtime sharing
-                # the store must not have its traffic attributed to serving
-                self.stats.offload_bytes += tr.nbytes
-                req.mirrored.add(tr.blk)
-                if req.state == SWAPPING and not req.inflight:
-                    self._events.append(("swap-done", tr.rid))
-            else:
-                # payload dropped: its reservation has nothing behind it
-                self._release_key_locked((tr.rid, tr.blk))
-            self._wake.notify_all()
-
-    def _service_h2d(self, tr: _Transfer) -> None:
-        data = self._copy_to_device(self.host.get_offload((tr.rid, tr.blk)))
-        with self._lock:
-            self.stats.reload_bytes += tr.nbytes
-            req = self.reqs.get(tr.rid)
-            if req is not None:
+            for (tr, req, slot), data in zip(jobs, datas):
                 req.inflight.discard(tr.blk)
-                self._events.append(("reload", tr.rid, tr.blk, data))
+                if req.state != DONE and req.slot == slot:
+                    self.host.put_offload((tr.rid, tr.blk), data, copy=False)
+                    # counted here, not as a HostStore delta: a runtime
+                    # sharing the store must not have its traffic
+                    # attributed to serving
+                    self.stats.offload_bytes += tr.nbytes
+                    req.mirrored.add(tr.blk)
+                    if req.state == SWAPPING and not req.inflight:
+                        self._events.append(("swap-done", tr.rid))
+                else:
+                    # payload dropped: its reservation has nothing behind it
+                    self._release_key_locked((tr.rid, tr.blk))
             self._wake.notify_all()
 
-    def _service_disk(self, tr: _Transfer) -> None:
+    def _service_h2d(self, batch: list[_Transfer]) -> None:
+        datas = self._copy_to_device([self.host.get_offload((tr.rid, tr.blk))
+                                      for tr in batch])
+        with self._lock:
+            for tr, data in zip(batch, datas):
+                self.stats.reload_bytes += tr.nbytes
+                req = self.reqs.get(tr.rid)
+                if req is not None:
+                    req.inflight.discard(tr.blk)
+                    self._events.append(("reload", tr.rid, tr.blk, data))
+            self._wake.notify_all()
+
+    def _service_disk(self, batch: list[_Transfer]) -> None:
+        """Disk-stream service of a batch, one transfer after another."""
+        for tr in batch:
+            self._service_disk_one(tr)
+
+    def _service_disk_one(self, tr: _Transfer) -> None:
         """Disk-stream service: ``spill`` moves a cold host block to the
         file tier, ``load`` stages a disk block back into host RAM and
         chains the h2d hop, ``prefetch`` stages ahead of admission. Load

@@ -35,8 +35,8 @@ __all__ = ["param_spec", "batch_spec", "cache_spec", "state_spec",
            "to_placements", "param_sharding", "batch_sharding",
            "cache_sharding", "shard_tree", "axis_size", "constrain",
            "use_mesh", "active_mesh", "meshed", "split_last",
-           "split_dim", "merge_last", "embed_rows", "shard_dim",
-           "fsdp_gather"]
+           "split_dim", "merge_last", "embed_rows", "unembed",
+           "shard_dim", "fsdp_gather"]
 
 Spec = tuple
 
@@ -458,17 +458,29 @@ def merge_last(x, *shape):
 
 def embed_rows(table, ids):
     """``table[ids]``: the rows of an embedding table. Under a mesh of
-    more than one device the table is gathered whole and looked up by
-    ``F.embedding``, so that each device looks up the rows of its own
-    shard of ``ids`` and the gradient is a partial sum reduce-scattered
-    back; DTensor's strategies for indexing a sharded table, and for the
-    backward of ``table[ids]``, fail in its redistributions."""
+    more than one device the lookup runs on the local shards
+    (``sharding.local.embed``): the table keeps its vocabulary shard over
+    ``'model'``, only its FSDP shard is gathered, and the rows looked up
+    on each shard are summed over ``'model'``; its gradient comes back as
+    a shard. DTensor's own strategies for indexing a sharded table, and
+    for the backward of ``table[ids]``, fail in their redistributions."""
     if meshed(table) and table.device_mesh.size() > 1:
-        from torch.distributed.tensor import Replicate
-        table = table.redistribute(table.device_mesh,
-                                   [Replicate()] * table.device_mesh.ndim)
-        return torch.nn.functional.embedding(ids, table)
+        from .local import embed
+        return embed(table, ids)
     return table[ids]
+
+
+def unembed(h, w):
+    """``h @ w``, the head's product of h [B, S, D] and the unembedding
+    [D, V]: logits over the batch and, under a mesh, the vocabulary over
+    ``'model'``. Under a mesh of more than one device the product runs on
+    the local shards (``sharding.local.head``), so that no rank holds a
+    row of logits over the whole vocabulary and DTensor plans no strategy
+    of its own for it."""
+    if meshed(h) and h.device_mesh.size() > 1:
+        from .local import head
+        return head(h, w)
+    return constrain(h @ fsdp_gather(w), ("pod", "data"), None, "model")
 
 
 def fsdp_gather(w):

@@ -7,10 +7,15 @@ reduced cell); the FLOPs of a reduced dense cell equal a closed form
 exactly; ``comm_analysis`` counts the result bytes of a hand-built DTensor
 program; the kernels' op counts (moved out of ``chip_smoke.py``) keep
 their values; a meshed MoE block's peak falls with the ranks that split
-its tokens.
+its tokens. The meshed step holds only its own share: a dense cell whose
+logits dominate halves its temporaries from (2, 2) to (2, 2, 2) and stays
+within 2x of the reference's own peak; a recurrent decode cell never
+holds its whole embedding table; a meshed Mamba block's peak falls with
+the ranks that split its heads.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -276,3 +281,126 @@ def test_meshed_moe_block_peak_falls_with_its_token_ranks():
     small, whole = (rec[m]["memory"]["temp_bytes"] for m in ("4x2", "1x2"))
     assert small <= 0.35 * whole, (small, whole)
     assert rec["4x2"]["collectives"]["counts"]["all-gather"] > 0
+
+
+# a vocabulary large enough that the logits dominate a reduced dense cell
+# (8 heads of 32, 8 x 256 tokens), and that the embedding table is a
+# reduced rwkv model's largest leaf
+BIG_VOCAB = 32768
+VB, VS = 8, 256
+# (data, model) of the 2-D mesh; the 3-D one puts 2 pods before it. On
+# (2, 2, 2) DTensor's own plan of the head's product held its share too;
+# on (2, 2, 4) it held the logits of the rank's tokens over the whole
+# vocabulary
+VOCAB_MESHES = ((2, 2), (2, 4))
+_DENSE = """
+import dataclasses
+from {pkg}.configs import get_arch, reduced, ShapeConfig
+dense = dataclasses.replace(reduced(get_arch("llama-7b")), vocab_size=%d,
+                            d_model=256, d_ff=512, n_heads=8, n_kv_heads=8)
+train = ShapeConfig("train", %d, %d, "train")
+""" % (BIG_VOCAB, VS, VB)
+_VOCAB_CELLS = _DENSE.format(pkg="repro_torch") + """
+import json
+from repro_torch.launch.dryrun import lower_cell
+out = {}
+for mesh in %r:
+    for pods in (False, True):
+        key = ("2x" if pods else "") + "x".join(map(str, mesh))
+        out[key] = lower_cell(dense, train, mesh_shape=mesh, multi_pod=pods)
+rwkv = dataclasses.replace(reduced(get_arch("rwkv6-7b")), vocab_size=%d,
+                           dtype="bfloat16")
+out["rwkv-decode-2x2"] = lower_cell(rwkv, ShapeConfig("decode", %d, %d,
+                                                      "decode"),
+                                    mesh_shape=(2, 2))
+print(json.dumps(out))
+""" % (VOCAB_MESHES, BIG_VOCAB, S, B)
+
+
+@pytest.fixture(scope="module")
+def vocab_records() -> dict:
+    return json.loads(_run(_VOCAB_CELLS))
+
+
+def _reference_vocab_record(mesh) -> dict:
+    """The reference's own record of the big-vocabulary dense train cell
+    on 2 pods of ``mesh``, on placeholder devices."""
+    code = """
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=%d"
+""" % (2 * mesh[0] * mesh[1]) + _DENSE.format(pkg="repro") + """
+import json
+import repro.launch.dryrun as D
+D.get_arch = lambda name: dense
+D.SHAPES = {"train": train}
+print(json.dumps(D.lower_cell("llama-7b", "train", multi_pod=True,
+                              mesh_shape=%r)))
+""" % (mesh,)
+    return json.loads(_run(code, env_extra={"JAX_PLATFORMS": "cpu"}))
+
+
+@pytest.mark.parametrize("mesh", VOCAB_MESHES,
+                         ids=["x".join(map(str, m)) for m in VOCAB_MESHES])
+def test_logits_shard_over_the_third_mesh_axis(vocab_records, mesh):
+    """The reduced dense train cell with a 32768-entry vocabulary: on two
+    pods of ``mesh`` each rank holds half the rows of one pod and the same
+    share of the vocabulary, so its temporaries, which the logits
+    dominate, are at most 0.6 x those on ``mesh``; its peak is within 2 x
+    of the reference's own record of the same cell on as many placeholder
+    devices. A rank that held the logits of its tokens over the whole
+    vocabulary fails both."""
+    key = "x".join(map(str, mesh))
+    three = vocab_records["2x" + key]["memory"]
+    two = vocab_records[key]["memory"]
+    assert three["temp_bytes"] <= 0.6 * two["temp_bytes"], (three, two)
+    ref = _reference_vocab_record(mesh)["memory"]["peak_bytes_per_device"]
+    assert three["peak_bytes_per_device"] <= 2 * ref, (three, ref)
+
+
+def test_decode_never_holds_the_whole_table(vocab_records):
+    """A reduced rwkv decode cell on (2, 2) whose embedding table (32768
+    rows of 128, bf16) is its largest leaf: the lookup gathers only the
+    table's FSDP shard and keeps its vocabulary shard, so the step's
+    temporaries stay under the whole table's bytes."""
+    cfg = dataclasses.replace(reduced(get_arch("rwkv6-7b")),
+                              vocab_size=BIG_VOCAB)
+    table = cfg.padded_vocab * cfg.d_model * 2
+    rec = vocab_records["rwkv-decode-2x2"]
+    assert rec["memory"]["temp_bytes"] < table, (rec["memory"], table)
+
+
+_SSD_PEAK = """
+import json, torch
+from repro_torch.launch.dryrun import fake_mesh, trace_step
+from repro_torch.models.ssm import ssd_block, ssd_init
+from repro_torch.sharding.rules import param_spec, shard_tree, use_mesh
+B, S, D, P, N = 2, 2048, 256, 32, 16        # 16 heads of 32, state 16
+out = {}
+for shape in ((1, 4), (1, 1)):
+    with fake_mesh(shape, ("data", "model")) as mesh:
+        p = ssd_init(torch.Generator(), D, d_state=N, headdim=P, expand=2,
+                     dtype=torch.bfloat16, device="meta")
+        p = shard_tree(p, param_spec(p, mesh), mesh)
+        x = shard_tree({"x": torch.empty(B, S, D, dtype=torch.bfloat16,
+                                         device="meta")},
+                       {"x": ("data", None, None)}, mesh)["x"]
+
+        def step(p, x):
+            return ssd_block(p, x, d_state=N, headdim=P, expand=2)
+        with use_mesh(mesh):
+            rec, _ = trace_step(step, (p, x))
+        out["x".join(map(str, shape))] = rec
+print(json.dumps(out))
+"""
+
+
+def test_meshed_ssd_block_peak_falls_with_its_head_ranks():
+    """One meshed ``ssd_block`` forward on meta tensors, 2 x 2048 tokens
+    of 256, 16 heads of 32: on (1, 4) z, x and Δ come out of the
+    in-projection sharded by heads (B and C whole), so its peak live bytes
+    beyond the arguments are at most 0.5 x those on (1, 1). A projection
+    gathered before its split, as the un-aligned column shards forced
+    before, holds every head on every rank."""
+    rec = json.loads(_run(_SSD_PEAK))
+    small, whole = (rec[m]["memory"]["temp_bytes"] for m in ("1x4", "1x1"))
+    assert small <= 0.5 * whole, (small, whole)

@@ -209,7 +209,7 @@ def test_stale_transfer_after_release_is_safe():
     eng.run()
     eng.release(rid)
     stale = _Transfer(D2H, rid, 0, seq=0, nbytes=64)
-    eng._service_d2h(stale)                      # must not raise
+    eng._service_d2h([stale])                    # must not raise
     pol = get_reload_policy("critical-path")
     pol.prepare(eng)
     assert pol.priority(stale) < 0               # drains stale items first
@@ -222,7 +222,7 @@ def test_dma_thread_error_surfaces_in_the_run_loop(monkeypatch):
                       offload=True, hot_window=0, preempt_every=3)
     eng = engine(cfg)
 
-    def broken(src, written):
+    def broken(blocks):
         raise OSError("copy engine fault")
     monkeypatch.setattr(eng, "_copy_to_host", broken)
     n_threads = threading.active_count()

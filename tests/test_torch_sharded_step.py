@@ -24,9 +24,25 @@ where ranks split the tokens ((2, 2), (4, 1)), some pair of a later rank
 must be dropped that its own rank's tokens alone would have kept. Once
 more on (4, 1) with 2 rows, which do not divide 'data': the ranks share
 the batch by windows of its flattened tokens.
+
+Then, by the same rule: the dense model's loss on the 3-D mesh (2, 1, 2)
+(``'pod'``, ``'data'``, ``'model'``), where the head's product and the
+vocabulary-parallel loss run on local shards; ``embed_rows`` alone on
+(2, 2), vocabulary-parallel with the table's gradient, and, for a table
+without one and fewer ids than a rank's rows (a decode step), the lookup
+that gathers the ids instead of the table (its output equal exactly);
+one Mamba block (``ssm.ssd_block``) forward and backward on (1, 4) and
+(2, 2), its in-projection split by heads over ``'model'``; the one-token
+``decode_attention`` on (1, 4) over caches that the cache rules shard over
+``'model'`` by heads, by head features and by the sequence; one
+``decode_step`` of the dense, rwkv and zamba models on (2, 2) from a
+random cache (the lookup gathering the ids, the attention and the
+recurrences from a state on local shards), its logits and every cache
+leaf it writes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -176,6 +192,194 @@ def _compare_moe(cfg, mesh, capacity_factor, rows: int = B) -> dict:
                 layers=len(calls["whole"]), windows=len(windows))
 
 
+def _max_ratio(pairs) -> tuple[float, str]:
+    """The worst |a - b| / (GRAD_ATOL + GRAD_RTOL max|a|) over named
+    (un-meshed, meshed) tensor pairs, and where it is."""
+    worst, where = 0.0, ""
+    for name, a, b in pairs:
+        b = b.full_tensor() if hasattr(b, "full_tensor") else b
+        lim = GRAD_ATOL + GRAD_RTOL * a.abs().max().item()
+        ratio = (a - b).abs().max().item() / lim
+        if ratio > worst:
+            worst, where = ratio, name
+    return worst, where
+
+
+@contextlib.contextmanager
+def _counted(module, name: str):
+    """Count the calls of ``module.name`` inside the block: ``[n]``."""
+    fn, calls = getattr(module, name), [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def _compare_embed(mesh) -> dict:
+    """``embed_rows`` on the reduced llama's table: with a gradient over
+    B x S ids (the table gathered over 'data'), and without one over one
+    id a row (the ids gathered, an all-to-all over 'data')."""
+    from repro_torch.sharding import local
+    from repro_torch.sharding.rules import (embed_rows, param_spec,
+                                            shard_tree, use_mesh)
+    cfg = reduced(get_arch("llama-7b"))
+    g = torch.Generator().manual_seed(1)
+    table = torch.randn(cfg.padded_vocab, cfg.d_model, generator=g)
+    w = torch.randn(B, S, cfg.d_model, generator=g)
+    ids = _batch(cfg)["tokens"]
+    spec = param_spec({"embed": table}, mesh)
+    t0 = table.clone().requires_grad_(True)
+    y0 = embed_rows(t0, ids)
+    (g0,) = torch.autograd.grad((y0 * w).sum(), [t0])
+    dt = shard_tree({"embed": table}, spec, mesh)["embed"]
+    dt.requires_grad_(True)
+    dids = shard_tree({"ids": ids}, {"ids": ("data", None)}, mesh)["ids"]
+    step = ids[:, :1]
+    dstep = shard_tree({"ids": step}, {"ids": ("data", None)}, mesh)["ids"]
+    frozen = shard_tree({"embed": table}, spec, mesh)["embed"]
+    with use_mesh(mesh), _counted(local, "_embed_columns") as calls:
+        y1 = embed_rows(dt, dids)
+        (g1,) = torch.autograd.grad((y1 * w).sum(), [dt])
+        gathered = calls[0]
+        decode = embed_rows(frozen, dstep)
+    ratio, where = _max_ratio([("out", y0, y1), ("grad", g0, g1)])
+    return {"grad_ratio": ratio, "grad_worst_leaf": where,
+            "grad_placements": str(g1.placements),
+            "table_placements": str(dt.placements),
+            "decode_equal": bool(torch.equal(decode.full_tensor(),
+                                             table[step])),
+            "columns_calls": (gathered, calls[0])}
+
+
+def _compare_ssd(mesh) -> dict:
+    """One Mamba block of the reduced zamba2-7b (8 heads of 32, state 16),
+    a weighted sum of its output, differentiated by x and every leaf."""
+    from repro_torch.models.ssm import ssd_block, ssd_init
+    from repro_torch.sharding import local
+    from repro_torch.sharding.rules import param_spec, shard_tree, use_mesh
+    cfg = reduced(get_arch("zamba2-7b"))
+    kw = dict(d_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+              expand=cfg.ssm_expand)
+    g = torch.Generator().manual_seed(2)
+    p = ssd_init(g, cfg.d_model, device="cpu", **kw)
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    w = torch.randn(B, S, cfg.d_model, generator=g)
+    leaves = {**p, "x": x}
+
+    def run(tree):
+        y = ssd_block({k: v for k, v in tree.items() if k != "x"},
+                      tree["x"], **kw)
+        names = sorted(tree)
+        return y, dict(zip(names, torch.autograd.grad(
+            (y * w).sum(), [tree[k] for k in names])))
+    y0, g0 = run({k: v.clone().requires_grad_(True)
+                  for k, v in leaves.items()})
+    specs = {**param_spec(p, mesh), "x": ("data", None, None)}
+    dtree = shard_tree(leaves, specs, mesh)
+    for v in dtree.values():
+        v.requires_grad_(True)
+    with use_mesh(mesh), _counted(local, "ssd_in") as calls:
+        y1, g1 = run(dtree)
+    ratio, where = _max_ratio([("out", y0, y1)]
+                              + [(k, g0[k], g1[k]) for k in sorted(g0)])
+    return {"grad_ratio": ratio, "grad_worst_leaf": where,
+            "split_calls": calls[0]}
+
+
+# (KV heads, head size): on (1, 4) the cache rules shard 'model' over
+# the heads, the head features, the sequence
+DECODE_LAYOUTS = ((4, 32), (2, 32), (2, 6))
+
+
+def _compare_decode(mesh) -> dict:
+    """``layers.decode_attention`` of 2 query heads a KV head, one token a
+    row at ragged cache lengths, over each of ``DECODE_LAYOUTS``."""
+    from repro_torch.models.layers import decode_attention
+    from repro_torch.sharding.rules import cache_spec, shard_tree, use_mesh
+    g = torch.Generator().manual_seed(3)
+    lens = torch.randint(1, S + 1, (B,), generator=g)
+    pairs, dims = [], []
+    for K, Dh in DECODE_LAYOUTS:
+        q = torch.randn(B, 1, 2 * K, Dh, generator=g)
+        kv = {"k": torch.randn(1, B, S, K, Dh, generator=g),
+              "v": torch.randn(1, B, S, K, Dh, generator=g)}
+        want = decode_attention(q, kv["k"][0], kv["v"][0], lens)
+        dkv = shard_tree(kv, cache_spec(kv, mesh), mesh)
+        dq = shard_tree({"q": q}, {"q": ("data", None, None, None)},
+                        mesh)["q"]
+        with use_mesh(mesh):
+            got = decode_attention(dq, dkv["k"][0], dkv["v"][0], lens)
+        pairs.append((f"K={K},Dh={Dh}", want, got))
+        dims.append([p.dim if p.is_shard() else None
+                     for p in dkv["k"].placements])
+    ratio, where = _max_ratio(pairs)
+    return {"grad_ratio": ratio, "grad_worst_leaf": where,
+            "cache_placements": dims}
+
+
+DECODE_STEP_ARCHS = {"step-dense-2x2": "llama-7b", "step-rwkv-2x2": "rwkv6-7b",
+                     "step-zamba-2x2": "zamba2-7b"}
+
+
+def _compare_decode_step(mesh, arch: str) -> dict:
+    """One ``decode_step`` of the reduced ``arch`` at position 5 of a
+    16-token cache of random values, meshed (the cache placed by
+    ``cache_spec``, the tokens by ``batch_spec``) against un-meshed."""
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import (batch_spec, cache_spec,
+                                            param_spec, shard_tree, use_mesh)
+    model = build_model(reduced(get_arch(arch)), device="cpu")
+    g = torch.Generator().manual_seed(4)
+    params = model.init(g)
+    cache = {k: torch.randn(v.shape, generator=g, dtype=v.dtype)
+             if v.is_floating_point() else v
+             for k, v in model.init_cache(B, S).items()}
+    token = torch.randint(0, model.cfg.vocab_size, (B, 1), generator=g)
+    want, c0 = model.decode_step(params, {k: v.clone()
+                                          for k, v in cache.items()},
+                                 token, 5)
+    dparams = shard_tree(params, param_spec(params, mesh), mesh)
+    dcache = shard_tree(cache, cache_spec(cache, mesh), mesh)
+    dtoken = shard_tree({"t": token}, batch_spec({"t": token}, mesh),
+                        mesh)["t"]
+    with use_mesh(mesh):
+        got, c1 = model.decode_step(dparams, dcache, dtoken, 5)
+    ratio, where = _max_ratio([("logits", want, got)]
+                              + [(k, c0[k], c1[k]) for k in sorted(c0)])
+    return {"grad_ratio": ratio, "grad_worst_leaf": where,
+            "leaves": len(c0)}
+
+
+EXTRA_CASES = {
+    "dense-2x1x2": "3-D mesh (pod, data, model)",
+    "embed-2x2": "vocabulary-parallel embed_rows",
+    "ssd-1x4": "Mamba block, heads over 4 'model' ranks",
+    "ssd-2x2": "Mamba block on (2, 2)",
+    "decode-1x4": "decode attention over three cache layouts",
+    **{k: f"decode_step of {a}" for k, a in DECODE_STEP_ARCHS.items()},
+}
+
+
+def _extra(name: str) -> dict:
+    from repro_torch.launch.mesh import make_production_mesh
+    if name == "dense-2x1x2":
+        mesh = make_production_mesh(multi_pod=True, shape=(2, 1, 2),
+                                    device_type="cpu")
+        return _compare(reduced(get_arch("llama-7b")), mesh)
+    shape = tuple(int(d) for d in name.split("-")[-1].split("x"))
+    mesh = make_production_mesh(shape=shape, device_type="cpu")
+    if name in DECODE_STEP_ARCHS:
+        return _compare_decode_step(mesh, DECODE_STEP_ARCHS[name])
+    compare = {"embed": _compare_embed, "ssd": _compare_ssd,
+               "decode": _compare_decode}[name.split("-")[0]]
+    return compare(mesh)
+
+
 def _worker(rank: int, world: int, port: int, out: str) -> None:
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_production_mesh
@@ -195,6 +399,11 @@ def _worker(rank: int, world: int, port: int, out: str) -> None:
             try:
                 mesh = make_production_mesh(shape=shape, device_type="cpu")
                 results[name] = _compare_moe(moe, mesh, cf, rows)
+            except Exception:           # reported by the case's test
+                results[name] = {"error": traceback.format_exc()}
+        for name in EXTRA_CASES:
+            try:
+                results[name] = _extra(name)
             except Exception:           # reported by the case's test
                 results[name] = {"error": traceback.format_exc()}
         if rank == 0:
@@ -241,3 +450,51 @@ def test_meshed_moe_dispatch_matches_unmeshed(results, case):
     assert r["layers"] > 0 and r["keep_equal"], r
     if r["capacity"] is not None and r["windows"] > 1:
         assert r["dropped_across"] > 0, r
+
+
+def test_dense_loss_on_the_3d_mesh_matches_unmeshed(results):
+    """The reduced dense model on (pod, data, model) = (2, 1, 2): the
+    batch over 'pod', the head's product and the loss vocabulary-parallel
+    over 'model'."""
+    r = results["dense-2x1x2"]
+    assert "error" not in r, r.get("error")
+    assert abs(r["loss_meshed"] - r["loss"]) <= LOSS_RTOL * abs(r["loss"]), r
+    assert r["grad_ratio"] <= 1.0, r
+
+
+def test_vocab_parallel_embed_rows_matches_unmeshed(results):
+    """The lookup and the table's gradient by the rule; the gradient comes
+    back as the table's own shard; the decode-step lookup exactly."""
+    r = results["embed-2x2"]
+    assert "error" not in r, r.get("error")
+    assert r["grad_ratio"] <= 1.0, r
+    assert r["grad_placements"] == r["table_placements"], r
+    assert r["decode_equal"], r
+    # the table gathered under grad, the ids gathered for the decode step
+    assert r["columns_calls"] == [0, 1], r
+
+
+@pytest.mark.parametrize("case", ["ssd-1x4", "ssd-2x2"])
+def test_sharded_mamba_split_matches_unmeshed(results, case):
+    r = results[case]
+    assert "error" not in r, r.get("error")
+    assert r["grad_ratio"] <= 1.0, r
+    assert r["split_calls"] == 1, r
+
+
+def test_decode_attention_matches_unmeshed_every_cache_layout(results):
+    """The output by the rule, and the three layouts really exercised:
+    'model' (mesh dimension 1) shards the stacked cache's heads (3), head
+    features (4) and sequence (2)."""
+    r = results["decode-1x4"]
+    assert "error" not in r, r.get("error")
+    assert r["grad_ratio"] <= 1.0, r
+    assert [d[1] for d in r["cache_placements"]] == [3, 4, 2], r
+
+
+@pytest.mark.parametrize("case", list(DECODE_STEP_ARCHS))
+def test_meshed_decode_step_matches_unmeshed(results, case):
+    r = results[case]
+    assert "error" not in r, r.get("error")
+    assert r["grad_ratio"] <= 1.0, r
+    assert r["leaves"] > 0
