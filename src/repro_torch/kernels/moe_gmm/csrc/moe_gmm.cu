@@ -71,6 +71,25 @@
 // the result is an f32 product and not a TF32 one. Only the tests use it;
 // the model path runs bf16.
 //
+// Backward (moe_gmm_bwd_launch), the VJP at dy [R, F]; the reference has
+// no backward kernel (its models differentiate moe_gmm_ref in XLA):
+//   * dx = dy w[e]^T on each group's rows: the forward's wgmma kernel with
+//     dy as the rows (depth F) and w's boxes of 64 F columns x 128 D rows
+//     read as a K-major B operand (KB), so the same tile walk, ring and
+//     stores serve it. Rows in no group are not written; the wrapper
+//     zeroes dx first.
+//   * dw[e] = x^T dy over the group's rows: gmm_dw_wgmma_kernel, one block
+//     per (e, 128 rows of D, 256 columns of F), the group's rows the depth
+//     in 64-row stages (x^T an MN-major A, dy an MN-major B); the rows of
+//     the last stage past the group are zeroed in shared memory, and an
+//     empty group's tile is written as zeros.
+//   * f32, and 16-bit views TMA cannot read: scalar FMA kernels of the
+//     same tiles as the f32 forward.
+//   Each output element is one block's sum over its depth in a fixed
+//   order: no atomics, two calls give the same bytes. At phase 12 (d)'s
+//   products (131,072 routed rows, 1024 <-> 512, 32 experts, bf16) the two
+//   products need 2.75e11 operations (0.28 ms at 989 TFLOP/s): bound by
+//   operations, hence wgmma.
 // The kernel allocates nothing and launches on the caller's stream; the
 // tensor maps are encoded on the host for each call (x, w and out change
 // with every call) through one cached driver entry point. The C entry point
@@ -220,10 +239,68 @@ template <> __device__ __forceinline__ void mma16816<__half>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// D[64x128] += A[64x16] . B[16x128] from shared memory; TA, TB: 0 for a
+// K-major operand, 1 for an MN-major ("transposed") one (the forward's
+// K-major A and MN-major B is hopper.cuh's wgmma_ss_tb).
+#define WG_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D16(i) WG_D8(i), WG_D8(i + 8)
+#define WG_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " \
+    "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+    "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+    "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, " \
+    "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+    "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+    "%60, %61, %62, %63}, "
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da,
+                                         uint64_t db);
+template <> __device__ __forceinline__ void wgmma128<__nv_bfloat16, 0, 0>(
+    float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+      : "l"(da), "l"(db), "r"(1));
+}
+template <> __device__ __forceinline__ void wgmma128<__half, 0, 0>(
+    float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " WG_REGS
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+      : "l"(da), "l"(db), "r"(1));
+}
+template <> __device__ __forceinline__ void wgmma128<__nv_bfloat16, 1, 1>(
+    float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+      : "l"(da), "l"(db), "r"(1));
+}
+template <> __device__ __forceinline__ void wgmma128<__half, 1, 1>(
+    float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " WG_REGS
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef WG_REGS
+#undef WG_D16
+#undef WG_D8
+
 // ---------------------------------------------------------------------------
-// 16-bit types on wgmma, loads by TMA (views TMA can read).
+// 16-bit types on wgmma, loads by TMA (views TMA can read). KB (the
+// backward's dx = dy w[e]^T): w's boxes are 64 columns (the depth, F) x 128
+// rows (the output columns, D), read as a K-major B operand.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool KB>
 __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
     const Args a, const __grid_constant__ CUtensorMap tx,
     const __grid_constant__ CUtensorMap tw, const int64_t n_tiles) {
@@ -257,9 +334,10 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
       int64_t row0;
       if (!find_tile<TM>(a, t / cols, &e, &row0, &rlo, &rhi)) continue;
       const int n0 = (int)(t % cols) * TN;
+      const int box_n = KB ? 128 : 64;        // output columns a box feeds
       int boxes = 0;                          // boxes of w that start in F
-      while (boxes < 2 * NT && n0 + 64 * boxes < a.F) ++boxes;
-      const uint32_t bytes = A_BYTES + boxes * B_HALF;
+      while (boxes < TN / box_n && n0 + box_n * boxes < a.F) ++boxes;
+      const uint32_t bytes = A_BYTES + boxes * (box_n / 64) * B_HALF;
       for (int kt = 0; kt < KT; ++kt, ++it) {
         if (tid != T_CONSUMERS) continue;
         const uint32_t st = it % TSTAGES;
@@ -268,9 +346,14 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
         unsigned char* as = ring + st * STAGE_BYTES;
         mbar_expect_tx(&full[st], bytes);
         tma_load(as, &tx, &full[st], kt * TK, (int)row0);
-        for (int j = 0; j < boxes; ++j)
-          tma_load(as + A_BYTES + j * B_HALF, &tw, &full[st], n0 + 64 * j,
-                   kt * TK, e);
+        for (int j = 0; j < boxes; ++j) {
+          if (KB)
+            tma_load(as + A_BYTES + j * 2 * B_HALF, &tw, &full[st], kt * TK,
+                     n0 + 128 * j, e);
+          else
+            tma_load(as + A_BYTES + j * B_HALF, &tw, &full[st], n0 + 64 * j,
+                     kt * TK, e);
+        }
       }
     }
     return;
@@ -310,10 +393,16 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
 #pragma unroll
-        for (int q = 0; q < NT; ++q)
-          wgmma_ss_tb<T>(d[q], smem_desc(as + kk * 32, 16, 1024),
-                         smem_desc(bs + 2 * q * B_HALF + kk * 16 * 128,
-                                   B_HALF, 1024), 1);
+        for (int q = 0; q < NT; ++q) {
+          if (KB)       // 128 rows of 128 bytes, 32 bytes a k-step
+            wgmma128<T, 0, 0>(d[q], smem_desc(as + kk * 32, 16, 1024),
+                              smem_desc(bs + 2 * q * B_HALF + kk * 32, 16,
+                                        1024));
+          else
+            wgmma_ss_tb<T>(d[q], smem_desc(as + kk * 32, 16, 1024),
+                           smem_desc(bs + 2 * q * B_HALF + kk * 16 * 128,
+                                     B_HALF, 1024), 1);
+        }
       wg_commit();
       wg_wait<1>();                 // the previous stage's products are done
 #pragma unroll
@@ -497,10 +586,10 @@ __global__ void __launch_bounds__(F_THREADS) gmm_f32_kernel(Args a) {
 // rows, w as [E, D, F] in boxes of 64 columns x TK rows of one expert; the
 // 128-byte swizzle, zeros past each bound. Strides in bytes, 16-byte
 // multiples (a dimension of size 1 takes any).
-template <typename T>
+template <typename T, bool KB = false>
 cudaError_t launch_wgmma(const Args& a, int64_t tiles, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gmm_wgmma_kernel<T, KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T_SMEM);
   if (attr != cudaSuccess) return attr;
   static const int sms = [] {
@@ -522,11 +611,15 @@ cudaError_t launch_wgmma(const Args& a, int64_t tiles, cudaStream_t s) {
   const cuuint64_t xdims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.R};
   const cuuint64_t xstr[1] = {(cuuint64_t)(a.R > 1 ? a.sx * 2 : 16)};
   const cuuint32_t xbox[2] = {64, TM};
-  const cuuint64_t wdims[3] = {(cuuint64_t)a.F, (cuuint64_t)a.D,
-                               (cuuint64_t)a.E};
-  const cuuint64_t wstr[2] = {(cuuint64_t)(a.D > 1 ? a.swd * 2 : 16),
+  // w [E, D, F] as the map sees it: the forward's (F, D, E) with boxes of
+  // 64 x TK; KB's w [E, N, K] (the caller's a.F = N, a.D = K) with boxes of
+  // 64 x 128
+  const int64_t w_mid = KB ? a.F : a.D;
+  const cuuint64_t wdims[3] = {(cuuint64_t)(KB ? a.D : a.F),
+                               (cuuint64_t)w_mid, (cuuint64_t)a.E};
+  const cuuint64_t wstr[2] = {(cuuint64_t)(w_mid > 1 ? a.swd * 2 : 16),
                               (cuuint64_t)(a.E > 1 ? a.swe * 2 : 16)};
-  const cuuint32_t wbox[3] = {64, TK, 1};
+  const cuuint32_t wbox[3] = {64, KB ? 128u : (cuuint32_t)TK, 1};
   if (encode(&tx, kMapType<T>, 2, const_cast<void*>(a.x), xdims, xstr,
              xbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -536,8 +629,339 @@ cudaError_t launch_wgmma(const Args& a, int64_t tiles, cudaStream_t s) {
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  gmm_wgmma_kernel<T><<<(unsigned)(blocks < sms ? blocks : sms), T_THREADS,
-                        T_SMEM, s>>>(a, tx, tw, blocks);
+  gmm_wgmma_kernel<T, KB><<<(unsigned)(blocks < sms ? blocks : sms),
+                            T_THREADS, T_SMEM, s>>>(a, tx, tw, blocks);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The backward (moe_gmm_bwd_launch): dx = dy w[e]^T on the forward's
+// kernels (the wgmma one with KB), dw[e] = x^T dy over the group's rows.
+// ---------------------------------------------------------------------------
+struct BwdArgs {
+  const void* x;      // [R, D], row stride sx
+  const void* w;      // [E, D, F], strides swe, swd
+  const void* dy;     // [R, F], row stride sdy
+  void* dw;           // [E, D, F] contiguous
+  const int* offsets;
+  const int* counts;
+  int64_t R, D, F;
+  int E;
+  int64_t sx, swe, swd, sdy;
+};
+
+// dw tiles on wgmma: one block per (e, 128 rows of D, 256 columns of F),
+// two consumer warpgroups of 64 D rows and a producer warp, the group's rows
+// the depth in 64-row stages through the forward's 4-stage ring: x by boxes
+// of 64 D columns x 64 rows (an MN-major A: x^T), dy by four of 64 F
+// columns x 64 rows (an MN-major B). In the last stage the rows past the
+// group (the next group's, whose x and dy the boxes hold) are zeroed in
+// shared memory before the product. An empty group's tile is zero.
+template <typename T>
+__global__ void __launch_bounds__(T_THREADS, 1) gmm_dw_wgmma_kernel(
+    const BwdArgs a, const __grid_constant__ CUtensorMap tx,
+    const __grid_constant__ CUtensorMap tdy, const int mtiles,
+    const int ntiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);   // [TSTAGES]
+  uint64_t* empty = full + TSTAGES;                          // [TSTAGES]
+  unsigned char* ring = smem_raw + ((smem_u32(smem_raw) + T_BAR_BYTES +
+                                     1023) & ~1023u) - smem_u32(smem_raw);
+  const int e = blockIdx.x / (mtiles * ntiles);
+  const int m0 = (blockIdx.x / ntiles % mtiles) * TM;        // rows of D
+  const int n0 = (blockIdx.x % ntiles) * TN;                 // columns of F
+  const int64_t o = a.offsets[e];
+  const int c = a.counts[e] > 0 ? a.counts[e] : 0;
+  const int KT = (c + TK - 1) / TK;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < TSTAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], T_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int aboxes = 0, bboxes = 0;        // boxes that start inside D and F
+  while (aboxes < 2 && m0 + 64 * aboxes < a.D) ++aboxes;
+  while (bboxes < 2 * NT && n0 + 64 * bboxes < a.F) ++bboxes;
+
+  if (tid >= T_CONSUMERS) {          // producer warp: lane 0 issues
+    if (tid != T_CONSUMERS) return;
+    const uint32_t bytes = (aboxes + bboxes) * B_HALF;
+    for (int kt = 0; kt < KT; ++kt) {
+      const uint32_t st = kt % TSTAGES;
+      if (kt >= TSTAGES) mbar_wait(&empty[st], ((kt / TSTAGES) - 1) & 1);
+      unsigned char* as = ring + st * STAGE_BYTES;
+      const int row = (int)(o + (int64_t)kt * TK);
+      mbar_expect_tx(&full[st], bytes);
+      for (int j = 0; j < aboxes; ++j)
+        tma_load(as + j * B_HALF, &tx, &full[st], m0 + 64 * j, row);
+      for (int j = 0; j < bboxes; ++j)
+        tma_load(as + A_BYTES + j * B_HALF, &tdy, &full[st], n0 + 64 * j,
+                 row);
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int lane = tid % 32, warp = (tid % 128) / 32;
+  const uint32_t ring_at = smem_u32(ring);
+  float d[NT][64];
+#pragma unroll
+  for (int q = 0; q < NT; ++q)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) d[q][j] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const uint32_t st = kt % TSTAGES;
+    mbar_wait(&full[st], (kt / TSTAGES) & 1);
+    const int kv = c - kt * TK;                // rows of the stage in group
+    if (kv < TK) {                             // zero the rest, all 6 boxes
+      uint4* base = reinterpret_cast<uint4*>(ring + st * STAGE_BYTES);
+      const int per_box = (TK - kv) * 8;       // 16-byte words
+      for (int i = tid; i < 6 * per_box; i += T_CONSUMERS) {
+        const int box = i / per_box, w16 = i % per_box;
+        base[box * (B_HALF / 16) + kv * 8 + w16] = make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    }
+    const uint32_t as = ring_at + st * STAGE_BYTES + wg * B_HALF;
+    const uint32_t bs = ring_at + st * STAGE_BYTES + A_BYTES;
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < NT; ++q) pin(d[q]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+        wgmma128<T, 1, 1>(d[q], smem_desc(as + kk * 16 * 128, B_HALF, 1024),
+                          smem_desc(bs + 2 * q * B_HALF + kk * 16 * 128,
+                                    B_HALF, 1024));
+    wg_commit();
+    wg_wait<1>();
+#pragma unroll
+    for (int q = 0; q < NT; ++q) pin(d[q]);
+    if (kt > 0) mbar_arrive(&empty[(kt - 1) % TSTAGES]);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int q = 0; q < NT; ++q) pin(d[q]);
+
+  // d[q][4j + 2i + c] is D row m0 + 64 wg + 16 warp + lane / 4 + 8i,
+  // F column n0 + 128q + 8j + 2 (lane % 4) + c
+  T* out = (T*)a.dw + (int64_t)e * a.D * a.F;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t r = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * i;
+    if (r >= a.D) continue;
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int64_t col = n0 + 128 * q + 8 * j + 2 * (lane & 3);
+        if (col < a.F)               // F % 8 == 0: the pair is wholly in
+          store2<T>(out + r * a.F + col, d[q][4 * j + 2 * i],
+                    d[q][4 * j + 2 * i + 1]);
+      }
+  }
+}
+
+template <typename T> __device__ __forceinline__ float as_f32(T v);
+template <> __device__ __forceinline__ float as_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float as_f32<__half>(__half v) {
+  return __half2float(v);
+}
+template <> __device__ __forceinline__ float as_f32<__nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T to_type(float v);
+template <> __device__ __forceinline__ float to_type<float>(float v) { return v; }
+template <> __device__ __forceinline__ __half to_type<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 to_type<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// dx on scalar FMAs (f32, and 16-bit views TMA cannot read): the f32
+// forward kernel's tiles with w read transposed: Bs[k][n] = w[e][n][k].
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS) gmm_dx_scalar_kernel(
+    const BwdArgs a, T* dx) {
+  __shared__ float As[FBK][BM + 4];      // dy tile, transposed: [k][row]
+  __shared__ float Bs[FBK][FBN + 4];     // w[e]^T tile: [k][col]
+  // the forward's tile lookup over dy's rows (Args: D = F, the depth)
+  const Args fa{a.dy, a.w, dx, a.offsets, a.counts, a.R, a.F, a.D, a.E,
+                a.sdy, 0, 0, a.D};
+  int e, rlo, rhi;
+  int64_t row0;
+  if (!find_tile<BM>(fa, blockIdx.x, &e, &row0, &rlo, &rhi)) return;
+  const int64_t n0 = (int64_t)blockIdx.y * FBN;
+  const int64_t K = a.F, N = a.D;
+  const T* y = (const T*)a.dy;
+  const T* w = (const T*)a.w + (int64_t)e * a.swe;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4] = {};
+  for (int64_t k0 = 0; k0 < K; k0 += FBK) {
+#pragma unroll
+    for (int i = 0; i < BM * FBK / F_THREADS; ++i) {
+      const int cidx = tid + i * F_THREADS;
+      const int r = cidx / FBK, k = cidx % FBK;
+      const bool ok = r >= rlo && r < rhi && k0 + k < K;
+      As[k][r] = ok ? as_f32(y[(row0 + r) * a.sdy + k0 + k]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < FBK * FBN / F_THREADS; ++i) {
+      const int cidx = tid + i * F_THREADS;
+      const int n = cidx / FBK, k = cidx % FBK;
+      const bool ok = k0 + k < K && n0 + n < N;
+      Bs[k][n] = ok ? as_f32(w[(n0 + n) * a.swd + k0 + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = As[k][ty * 4 + i];
+        bv[i] = Bs[k][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (r < rlo || r >= rhi) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t col = n0 + tx * 4 + j;
+      if (col < N) dx[(row0 + r) * N + col] = to_type<T>(acc[i][j]);
+    }
+  }
+}
+
+// dw on scalar FMAs: one block per (e, 64 rows of D, 64 columns of F), the
+// group's rows in steps of FBK, in order; zero for an empty group.
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS) gmm_dw_scalar_kernel(
+    const BwdArgs a, const int mtiles, const int ntiles) {
+  __shared__ float As[FBK][BM + 4];      // x rows: [k][d]
+  __shared__ float Bs[FBK][FBN + 4];     // dy rows: [k][f]
+  const int e = blockIdx.x / (mtiles * ntiles);
+  const int64_t m0 = (int64_t)(blockIdx.x / ntiles % mtiles) * BM;
+  const int64_t n0 = (int64_t)(blockIdx.x % ntiles) * FBN;
+  const int64_t o = a.offsets[e];
+  const int c = a.counts[e] > 0 ? a.counts[e] : 0;
+  const T* x = (const T*)a.x;
+  const T* y = (const T*)a.dy;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < c; k0 += FBK) {
+#pragma unroll
+    for (int i = 0; i < FBK * BM / F_THREADS; ++i) {
+      const int cidx = tid + i * F_THREADS;
+      const int k = cidx / BM, m = cidx % BM;
+      const bool ok = k0 + k < c && m0 + m < a.D;
+      As[k][m] = ok ? as_f32(x[(o + k0 + k) * a.sx + m0 + m]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < FBK * FBN / F_THREADS; ++i) {
+      const int cidx = tid + i * F_THREADS;
+      const int k = cidx / FBN, n = cidx % FBN;
+      const bool ok = k0 + k < c && n0 + n < a.F;
+      Bs[k][n] = ok ? as_f32(y[(o + k0 + k) * a.sdy + n0 + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = As[k][ty * 4 + i];
+        bv[i] = Bs[k][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  T* out = (T*)a.dw + (int64_t)e * a.D * a.F;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t r = m0 + ty * 4 + i;
+    if (r >= a.D) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t col = n0 + tx * 4 + j;
+      if (col < a.F) out[r * a.F + col] = to_type<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dw_wgmma(const BwdArgs& a, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_dw_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorInvalidValue;
+  const int mtiles = (int)((a.D + TM - 1) / TM);
+  const int ntiles = (int)((a.F + TN - 1) / TN);
+  const int64_t blocks = (int64_t)a.E * mtiles * ntiles;
+  if (blocks > INT_MAX || a.R > INT_MAX) return cudaErrorInvalidValue;
+  const cuuint32_t unit[2] = {1, 1};
+  CUtensorMap tx, tdy;
+  const cuuint64_t xdims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.R};
+  const cuuint64_t xstr[1] = {(cuuint64_t)(a.R > 1 ? a.sx * 2 : 16)};
+  const cuuint64_t ydims[2] = {(cuuint64_t)a.F, (cuuint64_t)a.R};
+  const cuuint64_t ystr[1] = {(cuuint64_t)(a.R > 1 ? a.sdy * 2 : 16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)TK};
+  if (encode(&tx, kMapType<T>, 2, const_cast<void*>(a.x), xdims, xstr, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&tdy, kMapType<T>, 2, const_cast<void*>(a.dy), ydims, ystr, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  gmm_dw_wgmma_kernel<T><<<(unsigned)blocks, T_THREADS, T_SMEM, s>>>(
+      a, tx, tdy, mtiles, ntiles);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_scalar(const BwdArgs& a, void* dx, void* dw,
+                              cudaStream_t s) {
+  if (dx != nullptr) {
+    const int64_t tiles = (a.R + BM - 1) / BM + (a.E < a.R ? a.E : a.R);
+    const int64_t cols = (a.D + FBN - 1) / FBN;
+    if (tiles > 0x7fffffff || cols > 65535) return cudaErrorInvalidValue;
+    gmm_dx_scalar_kernel<T><<<dim3((unsigned)tiles, (unsigned)cols),
+                              F_THREADS, 0, s>>>(a, (T*)dx);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (dw != nullptr) {
+    const int mtiles = (int)((a.D + BM - 1) / BM);
+    const int ntiles = (int)((a.F + FBN - 1) / FBN);
+    const int64_t blocks = (int64_t)a.E * mtiles * ntiles;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    gmm_dw_scalar_kernel<T><<<(unsigned)blocks, F_THREADS, 0, s>>>(
+        a, mtiles, ntiles);
+  }
   return cudaGetLastError();
 }
 
@@ -579,4 +1003,54 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out,
     gmm_mma_kernel<__nv_bfloat16><<<grid, MMA_THREADS, 0, s>>>(a);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The VJP of moe_gmm_launch's function at dy [R, F] (row stride sdy): dx
+// [R, D] and dw [E, D, F], both contiguous, in the inputs' dtype (0 float32,
+// 1 float16, 2 bfloat16); either may be null (not asked). dx's rows in no
+// group are not written (the wrapper zeroes dx first). 16-bit views that
+// TMA can read (moe_gmm_launch's rule, with dy, dx and dw) take the wgmma
+// kernels: dx on gmm_wgmma_kernel with w's boxes read K-major, dw on
+// gmm_dw_wgmma_kernel; other views and float32 the scalar kernels. Returns
+// a cudaError_t (0 on success).
+extern "C" int moe_gmm_bwd_launch(const void* x, const void* w,
+                                  const void* dy, void* dx, void* dw,
+                                  const void* offsets, const void* counts,
+                                  int64_t R, int64_t D, int64_t F, int64_t E,
+                                  int64_t sx, int64_t swe, int64_t swd,
+                                  int64_t sdy, int dtype, void* stream) {
+  if (R < 0 || D <= 0 || F <= 0 || E <= 0 || E > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  BwdArgs b{x, w, dy, dw, (const int*)offsets, (const int*)counts, R, D, F,
+            (int)E, sx, swe, swd, sdy};
+  const bool tma = aligned16(x) && aligned16(w) && aligned16(dy) &&
+                   (dx == nullptr || aligned16(dx)) &&
+                   (dw == nullptr || aligned16(dw)) && D % 8 == 0 &&
+                   F % 8 == 0 && sx % 8 == 0 && swe % 8 == 0 &&
+                   swd % 8 == 0 && sdy % 8 == 0;
+  if (dtype == 0) return (int)launch_bwd_scalar<float>(b, dx, dw, s);
+  if (!tma) {
+    if (dtype == 1) return (int)launch_bwd_scalar<__half>(b, dx, dw, s);
+    if (dtype == 2)
+      return (int)launch_bwd_scalar<__nv_bfloat16>(b, dx, dw, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSuccess;
+  if (dx != nullptr && R > 0) {
+    // the forward's kernel with x -> dy (depth F) and w read K-major
+    const Args a{dy, w, dx, (const int*)offsets, (const int*)counts,
+                 R, F, D, (int)E, sdy, swe, swd, D};
+    const int64_t tiles = (R + TM - 1) / TM + (E < R ? E : R);
+    err = dtype == 1 ? launch_wgmma<__half, true>(a, tiles, s)
+        : dtype == 2 ? launch_wgmma<__nv_bfloat16, true>(a, tiles, s)
+                     : cudaErrorInvalidValue;
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (dw != nullptr) {
+    err = dtype == 1 ? launch_dw_wgmma<__half>(b, s)
+        : dtype == 2 ? launch_dw_wgmma<__nv_bfloat16>(b, s)
+                     : cudaErrorInvalidValue;
+  }
+  return (int)err;
 }

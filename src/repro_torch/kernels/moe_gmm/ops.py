@@ -22,13 +22,20 @@ so unlike the reference wrapper this one pads nothing.
 On a shape-only tensor (meta or fake, :mod:`..shape_only`) it returns an
 empty output and records :func:`gmm_cost`; the counts cannot be read
 there, so the rows counted are ``rows=`` (the caller's expectation), by
-default all of x's; the backward records its two plain products.
+default all of x's.
 
+:func:`moe_gmm_bwd` is the VJP, ``csrc/moe_gmm.cu``'s second entry point:
+``dx = dy @ w[e]^T`` on each group's rows (zeros on rows in no group) and
+``dw[e] = x^T dy`` over the group's rows (zero for an empty group), with
+:func:`grouped_matmul_bwd_plain` beside it and the same CPU/CUDA rule. On a
+shape-only tensor it records :func:`gmm_bwd_cost` under ``moe_gmm_bwd`` and
+allocates what the launch allocates. ``moe_gmm_bwd.launches`` counts its
+calls on the card, ``kernel_launches`` its device launches (one a product
+asked), and ``launches_wgmma`` / ``launches_scalar`` its calls by instance.
 Under grad on the card :func:`grouped_matmul` goes through
-:class:`GroupedMatmulFn`: the forward on the kernel, the gradient through
-:func:`grouped_matmul_plain` (:mod:`repro_torch.kernels.plain_grad`). The
-rows and the weights get gradients; the integer offsets and counts, the
-routing, get none, as in the reference.
+:class:`GroupedMatmulFn`: the forward on one kernel, the backward on the
+other. The rows and the weights get gradients; the integer offsets and
+counts, the routing, get none, as in the reference.
 """
 from __future__ import annotations
 
@@ -42,11 +49,13 @@ from ..plain_grad import needs_grad, plain_grads
 from ..shape_only import record, shape_only
 
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "moe_gmm",
-           "moe_gmm_plain", "GroupedMatmulFn", "gmm_cost"]
+           "moe_gmm_plain", "GroupedMatmulFn", "gmm_cost", "moe_gmm_bwd",
+           "grouped_matmul_bwd_plain", "gmm_bwd_cost"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fn = None
 
 
 def gmm_cost(rows: int, d: int, f: int, hit: int,
@@ -55,6 +64,22 @@ def gmm_cost(rows: int, d: int, f: int, hit: int,
     f); the rows of x read once, the output written once, the weights of
     the ``hit`` experts that received a row read once."""
     return 2 * rows * d * f, (rows * d + rows * f + hit * d * f) * itemsize
+
+
+def gmm_bwd_cost(rows: int, d: int, f: int, hit: int, experts: int,
+                 itemsize: int, need_dx: bool = True,
+                 need_dw: bool = True) -> tuple[int, int]:
+    """(operations, bytes) of the grouped matmul's VJP: 2 operations per
+    (row, d, f) for each product asked; dy read once, and for dx the
+    weights of the ``hit`` experts read and dx written, for dw x read and
+    the ``experts`` weights' gradients written."""
+    ops = 2 * rows * d * f * (int(need_dx) + int(need_dw))
+    nbytes = rows * f
+    if need_dx:
+        nbytes += hit * d * f + rows * d
+    if need_dw:
+        nbytes += rows * d + experts * d * f
+    return ops, nbytes * itemsize
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -70,6 +95,15 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
         if c > 0:
             out[o:o + c] = (x[o:o + c].float() @ w[e].float()).to(x.dtype)
     return out
+
+
+def grouped_matmul_bwd_plain(x, w, offsets, counts, dy, *,
+                             need_dx: bool = True, need_dw: bool = True):
+    """The backward kernel's function in plain torch: autograd through
+    :func:`grouped_matmul_plain` at dy. Returns ``(dx or None, dw or
+    None)``."""
+    return tuple(plain_grads(grouped_matmul_plain, (x, w), (need_dx, need_dw),
+                             dy, offsets, counts))
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -129,32 +163,24 @@ def _wgmma_view(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> bool:
 
 class GroupedMatmulFn(torch.autograd.Function):
     """:func:`grouped_matmul` under grad. ``kernel(x, w, offsets, counts)``
-    computes the forward (the card's launch; a test may pass a stand-in);
-    only the inputs are saved, and the backward differentiates
-    :func:`grouped_matmul_plain` at them."""
+    computes the forward and ``backward(x, w, offsets, counts, dy, *,
+    need_dx, need_dw)`` the VJP (on the card the two kernels' launches; a
+    test may pass stand-ins); only the inputs are saved."""
 
     @staticmethod
-    def forward(ctx, x, w, offsets, counts, kernel):
+    def forward(ctx, x, w, offsets, counts, kernel, backward):
         ctx.save_for_backward(x, w, offsets, counts)
         ctx.rows = getattr(kernel, "keywords", {}).get("rows")
+        ctx.bwd = backward
         return kernel(x, w, offsets, counts)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, offsets, counts = ctx.saved_tensors
-        if shape_only(x):
-            rows = getattr(ctx, "rows", None) or x.shape[0]
-            # dx and dw, the plain version's two products per group
-            ops = 2 * gmm_cost(rows, w.shape[1], w.shape[2], w.shape[0],
-                               x.element_size())[0]
-            record("grouped_matmul_plain_bwd", ops,
-                   2 * gmm_cost(rows, w.shape[1], w.shape[2], w.shape[0],
-                                x.element_size())[1])
-            return (torch.empty_like(x), torch.empty_like(w), None, None,
-                    None)
-        dx, dw = plain_grads(grouped_matmul_plain, (x, w),
-                             ctx.needs_input_grad[:2], dy, offsets, counts)
-        return dx, dw, None, None, None
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        dx, dw = ctx.bwd(x, w, offsets, counts, dy.contiguous(),
+                         need_dx=need_dx, need_dw=need_dw, rows=ctx.rows)
+        return dx, dw, None, None, None, None
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
@@ -179,7 +205,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
         if out is not None:
             raise ValueError("grouped_matmul: out= under grad cannot be "
                              "differentiated")
-        return GroupedMatmulFn.apply(x, w, offsets, counts, kernel)
+        return GroupedMatmulFn.apply(x, w, offsets, counts, kernel,
+                                     _launch_bwd)
     return kernel(x, w, offsets, counts, out)
 
 
@@ -209,6 +236,93 @@ def _launch(x, w, offsets, counts, out=None, *, rows=None) -> torch.Tensor:
         moe_gmm.launches += 1
         setattr(moe_gmm, instance, getattr(moe_gmm, instance) + 1)
     return out
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        from ..build import library
+        fn = library("moe_gmm").moe_gmm_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 8
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                counts: torch.Tensor, dy: torch.Tensor, *,
+                need_dx: bool = True, need_dw: bool = True):
+    """The VJP of :func:`grouped_matmul` at ``dy [R, F]``: ``(dx, dw)``,
+    each None when not asked, in x's dtype. dx's rows in no group are zero,
+    an empty group's dw is zero; f32 sums."""
+    _check(x, w, offsets, counts, None)
+    R, F = x.shape[0], w.shape[2]
+    if tuple(dy.shape) != (R, F) or dy.dtype != x.dtype \
+            or dy.device != x.device:
+        raise ValueError(f"moe_gmm_bwd: dy must be {(R, F)} {x.dtype} on "
+                         f"{x.device}, got {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device}")
+    if x.device.type == "cpu" and not shape_only(x):
+        return grouped_matmul_bwd_plain(x, w, offsets, counts, dy,
+                                        need_dx=need_dx, need_dw=need_dw)
+    if x.device.type != "cuda" and not shape_only(x):
+        raise ValueError(f"moe_gmm_bwd: no kernel for device {x.device}")
+    return _launch_bwd(x, w, offsets, counts, dy, need_dx=need_dx,
+                       need_dw=need_dw)
+
+
+def _launch_bwd(x, w, offsets, counts, dy, *, need_dx=True, need_dw=True,
+                rows=None):
+    """The backward's launches on checked CUDA tensors: one a product
+    asked. dx starts as zeros (the kernel writes the rows in groups).
+    ``rows`` as for :func:`grouped_matmul` (shape-only tensors only)."""
+    R, D = x.shape
+    E, _, F = w.shape
+    dx = (torch.zeros((R, D), dtype=x.dtype, device=x.device)
+          if need_dx else None)
+    dw = (torch.empty((E, D, F), dtype=w.dtype, device=w.device)
+          if need_dw else None)
+    if shape_only(x):
+        record("moe_gmm_bwd", *gmm_bwd_cost(
+            R if rows is None else rows, D, F, E, E, x.element_size(),
+            need_dx, need_dw))
+        return dx, dw
+    if dy.stride(-1) != 1:
+        raise ValueError("moe_gmm_bwd: dy must have a contiguous last "
+                         "dimension")
+    if not (need_dx or need_dw):
+        return dx, dw
+    if R == 0 or D == 0 or F == 0:
+        if dw is not None:
+            dw.zero_()
+        return dx, dw
+    err = _bwd_launcher()(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+        dx.data_ptr() if need_dx else None,
+        dw.data_ptr() if need_dw else None, offsets.data_ptr(),
+        counts.data_ptr(), R, D, F, E, x.stride(0), w.stride(0), w.stride(1),
+        dy.stride(0), _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm_bwd kernel launch failed: cudaError "
+                           f"{err}")
+    # moe_gmm_bwd_launch's rule: the forward's with dy, dx and dw
+    wgmma = (x.dtype != torch.float32 and _wgmma_view(x, w, dy)
+             and all(t.data_ptr() % 16 == 0 for t in (dx, dw)
+                     if t is not None))
+    instance = "launches_wgmma" if wgmma else "launches_scalar"
+    with _count_lock:
+        moe_gmm_bwd.launches += 1
+        moe_gmm_bwd.kernel_launches += int(need_dx) + int(need_dw)
+        setattr(moe_gmm_bwd, instance, getattr(moe_gmm_bwd, instance) + 1)
+    return dx, dw
+
+
+moe_gmm_bwd.launches = 0
+moe_gmm_bwd.kernel_launches = 0
+moe_gmm_bwd.launches_wgmma = 0
+moe_gmm_bwd.launches_scalar = 0
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

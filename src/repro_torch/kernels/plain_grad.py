@@ -1,12 +1,13 @@
-"""Gradients through a kernel that has no backward kernel yet.
+"""The plain backward: autograd through a kernel's plain version.
 
-The grouped matmul, the SSD scan and WKV6 run their forward on the card's
-hand-written kernel. Their ``autograd.Function``s (one in each kernel's
-``ops.py``) save only the inputs, and their backward recomputes the
-kernel's plain version and differentiates it: :func:`plain_grads`. The
-gradient is then exactly the plain function's, which the CPU tests hold
-against ``jax.grad`` of the reference. A backward kernel can later take
-its place without touching a caller (ROADMAP B5).
+The grouped matmul, the SSD scan and WKV6 have backward kernels
+(``moe_gmm_bwd``, ``ssd_scan_bwd``, ``wkv6_bwd``). Each kernel's plain
+backward beside it (``grouped_matmul_bwd_plain``, ``ssd_scan_bwd_plain``,
+``wkv6_bwd_plain``) is :func:`plain_grads` of its plain forward: what the
+backward wrappers compute on a CPU tensor, and what the card's tests and
+``chip_smoke.py`` hold the backward kernels against. Nothing on the card's
+training path calls it: under grad on a CUDA or a shape-only tensor the
+``autograd.Function``s launch the backward kernels or record them.
 """
 from __future__ import annotations
 

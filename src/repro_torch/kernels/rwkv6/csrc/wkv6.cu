@@ -81,6 +81,27 @@
 // breaks the float32 rule, and 3xTF32 on mma.sync kept it but was no
 // faster here (tests/test_torch_wkv6.py emulates the passes and both).
 //
+// Backward (wkv6_bwd_launch), the VJP for r, k, v, lw and u; the reference
+// has no backward kernel (its models differentiate wkv6_chunked in XLA).
+// Six launches through an f32 workspace:
+//   1-2. the forward's passes with groups of one chunk: the state S_c
+//      entering every chunk, and each chunk's decay exp(lcw_last);
+//   3. wkv6_bwd_gstates: each chunk's own state gradient
+//      G_c = (r exp(prev))^T dy;
+//   4. wkv6_bwd_carry: the chunks in reverse, G_c overwritten by D_c, the
+//      gradient of the state leaving chunk c;
+//   5. wkv6_bwd_chunk, one block per (b, chunk, h): dA = dy v^T, A as the
+//      forward forms it, dv, dr and dk with each pair's exp(prev_t -
+//      lcw_s), the incoming state and D_c; dlw as the reverse cumulative
+//      sums of the decay terms (sum_q D_c S_{c+1} + sum_{t>i} r_t dr'_t -
+//      sum_{t>=i} k_t dk'_t, in f64), du's partial;
+//   6. wkv6_bwd_du: du over (b, chunk) in a fixed order, in f64.
+// Every exponent is a difference lcw_j - lcw_i with j >= i, so <= 0, as in
+// the forward. No atomics: two calls give the same bytes. At WKV_MAIN it
+// needs ~61 GFLOP (0.91 ms at 67 TFLOP/s f32, wkv6_bwd_ops): bound by
+// operations; the per-pair exponentials are not factored as the forward's
+// are (a first, simple version).
+//
 // Each kernel allocates nothing and launches on the caller's stream, so
 // the workspace's write by pass 1, its overwrite by pass 2 and its read by
 // pass 3 are ordered by the stream. The C entry point returns the first
@@ -181,6 +202,19 @@ struct Params {
   float* states;     // [B, H, ng, P, P]
   float* decays;     // [B, H, ng, P]
   int batch, seq, heads, p, chunk, nc, group, ng, vec;
+};
+
+// The backward's (wkv6_bwd_launch), beside the forward's at group = 1.
+struct BwdParams {
+  Params f;
+  const void* dy;    // [B, S, H, P]
+  void* dr;          // [B, S, H, P] each, the inputs' dtype
+  void* dk;
+  void* dv;
+  void* dlw;
+  float* du;         // [H, P] f32
+  float* gstates;    // [B, H, nc, P, P]: G_c, then the state gradients
+  float* du_part;    // [B, nc, H, P]
 };
 
 // a block's (b, group, h), h fastest: neighbouring blocks read neighbouring
@@ -836,6 +870,434 @@ cudaError_t launch_t(const Params& p, cudaStream_t stream) {
   return p.chunk <= 32 ? launch<T, 32>(p, stream) : launch<T, 64>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The backward (wkv6_bwd_launch): the forward's passes 1-2 with groups of
+// one chunk (the state entering every chunk), then four launches.
+// ---------------------------------------------------------------------------
+constexpr int BLD = MAX_C + 1;      // row stride of the [64][64] tiles
+constexpr int BT = MAX_C * BLD;     // one tile, in floats
+
+// Pass 3: G_c = (r exp(prev))^T dy [P, P] of one (b, chunk, h), to gstates.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) wkv6_bwd_gstates(
+    const BwdParams bp) {
+  __shared__ __align__(16) float RE[MAX_C * MAX_P];   // r exp(prev) [t][p]
+  __shared__ __align__(16) float DY[MAX_C * MAX_P];   // dy [t][q]
+  const Params& prm = bp.f;
+  const BlockPos pos(prm);                // g: the chunk (group of one)
+  const int P = prm.p, C = prm.chunk, tid = threadIdx.x;
+  const int64_t rs = static_cast<int64_t>(prm.heads) * P;
+  const int64_t t0 = static_cast<int64_t>(pos.g) * C;
+  const int n = rows_in(prm.seq, t0, C);
+  const int64_t off = static_cast<int64_t>(pos.b) * prm.seq * rs +
+                      static_cast<int64_t>(pos.h) * P + t0 * rs;
+  const T* rg = static_cast<const T*>(prm.r) + off;
+  const T* lg = static_cast<const T*>(prm.lw) + off;
+  const T* yg = static_cast<const T*>(bp.dy) + off;
+  for (int i = tid; i < MAX_C * MAX_P; i += THREADS) {
+    const int t = i / MAX_P, q = i % MAX_P;
+    const bool ok = t < n && q < P;
+    RE[i] = ok ? to_f32(rg[t * rs + q]) : 0.f;
+    DY[i] = ok ? to_f32(yg[t * rs + q]) : 0.f;
+  }
+  __syncthreads();
+  if (tid < P) {                  // r_t exp(prev_t), prev the column scan
+    float run = 0.f;
+    for (int t = 0; t < n; ++t) {
+      RE[t * MAX_P + tid] *= __expf(run);
+      run += to_f32(lg[t * rs + tid]);
+    }
+  }
+  __syncthreads();
+  const int p0 = 4 * (tid / 16), q0 = 4 * (tid % 16);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < n; ++t) {
+    const float4 a = f4(RE + t * MAX_P + p0);
+    const float4 b = f4(DY + t * MAX_P + q0);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+  const int64_t slot = (static_cast<int64_t>(pos.b) * prm.heads + pos.h) *
+                           prm.nc + pos.g;
+  float* out = bp.gstates + slot * P * P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (p0 + i < P && q0 + j < P) out[(p0 + i) * P + q0 + j] = acc[i][j];
+}
+
+// Pass 4: the reverse carry, one thread per (b, h, state element): over
+// the chunks from the last, G_c overwritten by D_c, the gradient of the
+// state leaving chunk c: D <- exp(lcw_last,c) D + G_c (the last chunk's
+// decay, which pass 1 does not write, multiplies D = 0 and is not read).
+__global__ void __launch_bounds__(PASS_THREADS) wkv6_bwd_carry(
+    const BwdParams bp) {
+  const Params& prm = bp.f;
+  const int P = prm.p;
+  const int64_t pp = static_cast<int64_t>(P) * P;
+  const int64_t i = static_cast<int64_t>(blockIdx.y) * PASS_THREADS +
+                    threadIdx.x;
+  if (i >= pp) return;
+  const int64_t bh = blockIdx.x;
+  float* st = bp.gstates + bh * prm.nc * pp + i;
+  const float* dec = prm.decays + bh * prm.nc * P + i / P;
+  float acc = 0.f;
+  for (int c = prm.nc - 1; c >= 0; --c) {
+    const float g = st[c * pp];
+    st[c * pp] = acc;
+    acc = c == prm.nc - 1
+        ? g : __fadd_rn(__fmul_rn(dec[static_cast<int64_t>(c) * P], acc), g);
+  }
+}
+
+constexpr int bwd_smem_floats() {
+  // r, k, v, lcw, dy, k exp(lcw_last - lcw), S_c, D_c, A, dA, r dr', k dk'
+  // [64][BLD]; u, lcw_last, z [64]
+  return 12 * BT + 3 * MAX_P;
+}
+
+// Pass 5: the gradients of one (b, chunk, h), c <= 64 rows:
+//   dA[t,s] = dy_t . v_s (s <= t); A as the forward forms it;
+//   dv_s = sum_{t>=s} A[t,s] dy_t + (k_s exp(lcw_last - lcw_s)) D_c;
+//   dr_t = sum_{s<t} dA[t,s] k_s exp(prev_t - lcw_s) + exp(prev_t) S_c dy_t
+//          + dA[t,t] u k_t;
+//   dk_s = sum_{t>s} dA[t,s] r_t exp(prev_t - lcw_s)
+//          + exp(lcw_last - lcw_s) D_c v_s + dA[s,s] u r_s;
+//   du's partial sum_t dA[t,t] r_t k_t;
+//   dlw_i = sum_q D_c S_{c+1} + sum_{t>i} r_t dr'_t - sum_{t>=i} k_t dk'_t
+//   (dr', dk' without the bonus), summed in f64 from the last row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) wkv6_bwd_chunk(
+    const BwdParams bp) {
+  extern __shared__ __align__(16) float sm[];
+  float* R = sm;
+  float* K = R + BT;
+  float* V = K + BT;
+  float* LC = V + BT;                // lw, then lcw [t][p]
+  float* DY = LC + BT;
+  float* KT = DY + BT;               // k exp(lcw_last - lcw) [s][p]
+  float* Sin = KT + BT;              // S_c [p][q]
+  float* Dout = Sin + BT;            // D_c [p][q]
+  float* At = Dout + BT;             // A [t][s]
+  float* dA = At + BT;               // dA [t][s]
+  float* RD = dA + BT;               // r dr' [t][p]
+  float* KD = RD + BT;               // k dk' [s][p]
+  float* us = KD + BT;               // u [p]
+  float* lastp = us + MAX_P;         // lcw_last [p]
+  float* zs = lastp + MAX_P;         // sum_q D_c S_{c+1} [p]
+  const Params& prm = bp.f;
+  const BlockPos pos(prm);
+  const int P = prm.p, C = prm.chunk, tid = threadIdx.x;
+  const int ci = pos.g;
+  const int64_t rs = static_cast<int64_t>(prm.heads) * P;
+  const int64_t t0 = static_cast<int64_t>(ci) * C;
+  const int nv = rows_in(prm.seq, t0, C);
+  const int64_t off = static_cast<int64_t>(pos.b) * prm.seq * rs +
+                      static_cast<int64_t>(pos.h) * P + t0 * rs;
+  const int64_t slot = (static_cast<int64_t>(pos.b) * prm.heads + pos.h) *
+                           prm.nc + ci;
+  const int64_t pp = static_cast<int64_t>(P) * P;
+  const int i0 = 4 * (tid / 16), j0 = 4 * (tid % 16);
+
+  {
+    const T* src[5] = {static_cast<const T*>(prm.r) + off,
+                       static_cast<const T*>(prm.k) + off,
+                       static_cast<const T*>(prm.v) + off,
+                       static_cast<const T*>(prm.lw) + off,
+                       static_cast<const T*>(bp.dy) + off};
+    float* dst[5] = {R, K, V, LC, DY};
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+      for (int i = tid; i < MAX_C * MAX_C; i += THREADS) {
+        const int t = i / MAX_C, q = i % MAX_C;
+        dst[m][t * BLD + q] =
+            t < nv && q < P ? to_f32(src[m][t * rs + q]) : 0.f;
+      }
+    for (int i = tid; i < MAX_P * MAX_P; i += THREADS) {
+      const int p = i / MAX_P, q = i % MAX_P;
+      const bool ok = p < P && q < P;
+      Sin[p * BLD + q] = ok ? prm.states[slot * pp + p * P + q] : 0.f;
+      Dout[p * BLD + q] = ok ? bp.gstates[slot * pp + p * P + q] : 0.f;
+    }
+    if (tid < MAX_P) us[tid] = tid < P ? prm.u[pos.h * P + tid] : 0.f;
+  }
+  __syncthreads();
+  if (tid < MAX_P) {                // the column scan; z
+    const int p = tid;
+    float run = 0.f;
+    for (int t = 0; t < C; ++t) {
+      run += LC[t * BLD + p];
+      LC[t * BLD + p] = run;
+    }
+    lastp[p] = run;
+    double z = 0.0;
+    if (ci + 1 < prm.nc && p < P) {
+      const float* next = prm.states + (slot + 1) * pp + p * P;
+      for (int q = 0; q < P; ++q)
+        z += static_cast<double>(Dout[p * BLD + q]) *
+             static_cast<double>(next[q]);
+    }
+    zs[p] = static_cast<float>(z);
+  }
+  __syncthreads();
+  for (int i = tid; i < MAX_C * MAX_P; i += THREADS) {
+    const int s = i / MAX_P, p = i % MAX_P;
+    KT[s * BLD + p] = K[s * BLD + p] * __expf(lastp[p] - LC[s * BLD + p]);
+  }
+  {  // dA = dy v^T and A, below the diagonal
+    float da[4][4], a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) da[i][j] = a[i][j] = 0.f;
+    if (j0 <= i0 + 3) {
+      for (int q = 0; q < MAX_P; ++q) {
+        float yv[4], vv[4], rv[4], kv[4], pv[4], lv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = i0 + i, s = j0 + i;
+          yv[i] = DY[t * BLD + q];
+          vv[i] = V[s * BLD + q];
+          rv[i] = R[t * BLD + q];
+          kv[i] = K[s * BLD + q];
+          pv[i] = t > 0 ? LC[(t - 1) * BLD + q] : 0.f;
+          lv[i] = LC[s * BLD + q];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int t = i0 + i, s = j0 + j;
+            da[i][j] = fmaf(yv[i], vv[j], da[i][j]);
+            if (s < t)
+              a[i][j] = fmaf(rv[i] * __expf(pv[i] - lv[j]), kv[j], a[i][j]);
+            else if (s == t)
+              a[i][j] = fmaf(rv[i] * us[q], kv[j], a[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = i0 + i, s = j0 + j;
+        const bool in = s <= t && t < C;
+        dA[t * BLD + s] = in ? da[i][j] : 0.f;
+        At[t * BLD + s] = in ? a[i][j] : 0.f;
+      }
+  }
+  __syncthreads();
+
+  T* dvg = static_cast<T*>(bp.dv) + off;
+  T* drg = static_cast<T*>(bp.dr) + off;
+  T* dkg = static_cast<T*>(bp.dk) + off;
+  {  // dv [s][q]
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int t = i0; t < C; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = At[t * BLD + i0 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(w, DY[t * BLD + j0 + j], acc[i][j]);
+      }
+    for (int p = 0; p < MAX_P; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = KT[(i0 + i) * BLD + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(w, Dout[p * BLD + j0 + j], acc[i][j]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i0 + i < nv && j0 + j < P)
+          dvg[(i0 + i) * rs + j0 + j] = from_f32<T>(acc[i][j]);
+  }
+  {  // dr [t][p]
+    float ra[4][4], rsd[4][4], pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = i0 + i;
+        ra[i][j] = rsd[i][j] = 0.f;
+        pv[i][j] = t > 0 ? LC[(t - 1) * BLD + j0 + j] : 0.f;
+      }
+    for (int s = 0; s < i0 + 3 && s < C; ++s)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float kv = K[s * BLD + j0 + j], lv = LC[s * BLD + j0 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (s < i0 + i)
+            ra[i][j] = fmaf(dA[(i0 + i) * BLD + s] * kv,
+                            __expf(pv[i][j] - lv), ra[i][j]);
+      }
+    for (int q = 0; q < MAX_P; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float y = DY[(i0 + i) * BLD + q];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          rsd[i][j] = fmaf(Sin[(j0 + j) * BLD + q], y, rsd[i][j]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = i0 + i;
+      const float dd = dA[t * BLD + t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = j0 + j;
+        const float d1 = ra[i][j] + __expf(pv[i][j]) * rsd[i][j];
+        RD[t * BLD + p] = R[t * BLD + p] * d1;
+        if (t < nv && p < P)
+          drg[t * rs + p] =
+              from_f32<T>(d1 + dd * us[p] * K[t * BLD + p]);
+      }
+    }
+  }
+  {  // dk [s][p]
+    float ka[4][4], ks[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ka[i][j] = ks[i][j] = 0.f;
+    float lv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lv[i][j] = LC[(i0 + i) * BLD + j0 + j];
+    for (int t = i0 + 1; t < C; ++t)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float rv = R[t * BLD + j0 + j];
+        const float pv = LC[(t - 1) * BLD + j0 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (t > i0 + i)
+            ka[i][j] = fmaf(dA[t * BLD + i0 + i] * rv,
+                            __expf(pv - lv[i][j]), ka[i][j]);
+      }
+    for (int q = 0; q < MAX_P; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float vv = V[(i0 + i) * BLD + q];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ks[i][j] = fmaf(Dout[(j0 + j) * BLD + q], vv, ks[i][j]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = i0 + i;
+      const float dd = dA[s * BLD + s];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = j0 + j;
+        const float d1 =
+            ka[i][j] + __expf(lastp[p] - lv[i][j]) * ks[i][j];
+        KD[s * BLD + p] = K[s * BLD + p] * d1;
+        if (s < nv && p < P)
+          dkg[s * rs + p] =
+              from_f32<T>(d1 + dd * us[p] * R[s * BLD + p]);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < MAX_P) {                // dlw and du's partial, channel p
+    const int p = tid;
+    double acc = zs[p];
+    float du = 0.f;
+    T* dlg = static_cast<T*>(bp.dlw) + off;
+    for (int t = C - 1; t >= 0; --t) {
+      acc -= static_cast<double>(KD[t * BLD + p]);
+      if (t < nv && p < P) dlg[t * rs + p] = from_f32<T>(static_cast<float>(acc));
+      acc += static_cast<double>(RD[t * BLD + p]);
+    }
+    for (int t = 0; t < C; ++t)
+      du = fmaf(dA[t * BLD + t] * R[t * BLD + p], K[t * BLD + p], du);
+    if (p < P)
+      bp.du_part[((static_cast<int64_t>(pos.b) * prm.nc + ci) * prm.heads +
+                  pos.h) * P + p] = du;
+  }
+}
+
+// Pass 6: du [H, P], one thread per (h, p) over (b, chunk) in order, f64.
+__global__ void __launch_bounds__(PASS_THREADS) wkv6_bwd_du(
+    const BwdParams bp) {
+  const Params& prm = bp.f;
+  const int64_t hp = static_cast<int64_t>(prm.heads) * prm.p;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * PASS_THREADS +
+                    threadIdx.x;
+  if (i >= hp) return;
+  double s = 0.0;
+  const int64_t parts = static_cast<int64_t>(prm.batch) * prm.nc;
+  for (int64_t j = 0; j < parts; ++j) s += bp.du_part[j * hp + i];
+  bp.du[i] = static_cast<float>(s);
+}
+
+template <typename T, int MC>
+cudaError_t launch_bwd(const BwdParams& bp, cudaStream_t stream) {
+  constexpr int st_bytes = states_smem_floats<MC>() * 4;
+  constexpr int bwd_bytes = bwd_smem_floats() * 4;
+  static const cudaError_t attr1 = cudaFuncSetAttribute(
+      wkv6_states<T, MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      st_bytes);
+  static const cudaError_t attr5 = cudaFuncSetAttribute(
+      wkv6_bwd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_bytes);
+  if (attr1 != cudaSuccess) return attr1;
+  if (attr5 != cudaSuccess) return attr5;
+  const Params& p = bp.f;
+  const int64_t blocks = static_cast<int64_t>(p.batch) * p.heads * p.ng;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const int64_t pp = static_cast<int64_t>(p.p) * p.p;
+  // 1-2: the state entering every chunk (the forward's passes, group 1)
+  wkv6_states<T, MC><<<static_cast<unsigned>(blocks), THREADS, st_bytes,
+                       stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int v = p.p % 4 == 0 ? 4 : 1;
+  const dim3 pass_grid(static_cast<unsigned>(p.batch * p.heads),
+                       static_cast<unsigned>((pp / v + PASS_THREADS - 1) /
+                                             PASS_THREADS));
+  if (v == 4) wkv6_carry<4><<<pass_grid, PASS_THREADS, 0, stream>>>(p);
+  else wkv6_carry<1><<<pass_grid, PASS_THREADS, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 3-4: each chunk's own state gradient, then the reverse carry
+  wkv6_bwd_gstates<T><<<static_cast<unsigned>(blocks), THREADS, 0,
+                        stream>>>(bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 rev_grid(static_cast<unsigned>(p.batch * p.heads),
+                      static_cast<unsigned>((pp + PASS_THREADS - 1) /
+                                            PASS_THREADS));
+  wkv6_bwd_carry<<<rev_grid, PASS_THREADS, 0, stream>>>(bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 5: the per-chunk gradients; 6: du
+  wkv6_bwd_chunk<T><<<static_cast<unsigned>(blocks), THREADS, bwd_bytes,
+                      stream>>>(bp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t hp = static_cast<int64_t>(p.heads) * p.p;
+  wkv6_bwd_du<<<static_cast<unsigned>((hp + PASS_THREADS - 1) / PASS_THREADS),
+                PASS_THREADS, 0, stream>>>(bp);
+  return cudaGetLastError();
+}
+
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -874,6 +1336,56 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
   switch (dtype) {
     case 0: return static_cast<int>(launch_t<float>(prm, s));
     case 1: return static_cast<int>(launch_t<__nv_bfloat16>(prm, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The VJP of wkv6_launch's function at dy: r, k, v, lw, dy [B, S, H, P]
+// contiguous, all of one dtype (0 = float32, 1 = bfloat16); u [H, P]
+// contiguous float32; dr, dk, dv, dlw in the inputs' dtype and layout, du
+// [H, P] float32. 1 <= P <= 64, 1 <= chunk <= 64. work: f32 scratch of
+// B H nc (2 P P + P) + B nc H P floats, nc = ceil(S / chunk): the states
+// entering each chunk and the decays (the forward's workspace at group 1),
+// the state gradients, du's partials. Six launches on `stream`. Returns a
+// cudaError_t (0 = launched).
+extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
+                               const void* lw, const void* u, const void* dy,
+                               void* dr, void* dk, void* dv, void* dlw,
+                               void* du, void* work, int batch, int seq,
+                               int heads, int p, int chunk, int dtype,
+                               void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || p <= 0 || p > MAX_P ||
+      chunk <= 0 || chunk > MAX_C ||
+      static_cast<int64_t>(batch) * heads > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams bp;
+  Params& prm = bp.f;
+  prm.r = r; prm.k = k; prm.v = v; prm.lw = lw;
+  prm.u = static_cast<const float*>(u);
+  prm.y = nullptr;
+  prm.batch = batch; prm.seq = seq; prm.heads = heads; prm.p = p;
+  prm.chunk = chunk; prm.group = 1;
+  prm.nc = (seq + chunk - 1) / chunk;
+  prm.ng = prm.nc;
+  const int64_t bhc = static_cast<int64_t>(batch) * heads * prm.nc;
+  prm.states = static_cast<float*>(work);
+  prm.decays = prm.states + bhc * p * p;
+  bp.gstates = prm.decays + bhc * p;
+  bp.du_part = bp.gstates + bhc * p * p;
+  const int es = dtype == 0 ? 4 : 2;
+  prm.vec = p % 4 == 0 && aligned(r, 4 * es) && aligned(k, 4 * es) &&
+            aligned(v, 4 * es) && aligned(lw, 4 * es);
+  bp.dy = dy; bp.dr = dr; bp.dk = dk; bp.dv = dv; bp.dlw = dlw;
+  bp.du = static_cast<float*>(du);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(chunk <= 32 ? launch_bwd<float, 32>(bp, s)
+                                          : launch_bwd<float, 64>(bp, s));
+    case 1:
+      return static_cast<int>(
+          chunk <= 32 ? launch_bwd<__nv_bfloat16, 32>(bp, s)
+                      : launch_bwd<__nv_bfloat16, 64>(bp, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,9 +20,19 @@ recurrence (``models/rwkv.py::wkv6_chunked``). The kernel masks the ragged
 last chunk itself (as zero rows: lw = 0 and k = v = 0 leave the state
 unchanged), so unlike the reference wrapper this one pads nothing.
 
-Under grad on the card :func:`wkv6` goes through :class:`WKV6Fn`: the
-forward on the kernel, the gradient through :func:`wkv6_plain`
-(:mod:`repro_torch.kernels.plain_grad`).
+:func:`wkv6_bwd` is the VJP (dr, dk, dv, dlw, du), the same file's second
+entry point, with :func:`wkv6_bwd_plain` beside it and the same CPU/CUDA
+rule. It recomputes the state entering every chunk with the forward's
+passes 1-2 (groups of one chunk), then four launches: each chunk's state
+gradient, their reverse carry, the per-chunk gradients (dlw as the reverse
+cumulative sums of the decay terms, every exponent a non-positive
+difference of cumulative log decays) and du's fixed-order sum, through an
+f32 workspace (:func:`wkv6_bwd_work`) the wrapper allocates.
+``wkv6_bwd.launches`` counts its calls on the card and ``kernel_launches``
+its device launches, six a call. On a shape-only tensor it records
+:func:`wkv6_bwd_cost` under ``wkv6_bwd`` and allocates the outputs and the
+workspace. Under grad on the card :func:`wkv6` goes through
+:class:`WKV6Fn`: the forward on one kernel, the backward on the other.
 """
 from __future__ import annotations
 
@@ -34,15 +44,20 @@ import torch
 from ..plain_grad import needs_grad, plain_grads
 from ..shape_only import record, shape_only
 
-__all__ = ["wkv6", "wkv6_plain", "WKV6Fn", "wkv6_ops", "wkv6_cost"]
+__all__ = ["wkv6", "wkv6_plain", "WKV6Fn", "wkv6_ops", "wkv6_cost",
+           "wkv6_bwd", "wkv6_bwd_plain", "wkv6_bwd_ops", "wkv6_bwd_cost",
+           "wkv6_bwd_work"]
 
 MAX_P = 64                 # what csrc/wkv6.cu is built for
 MAX_CHUNK = 64
 GROUP = 16                 # chunks a workspace state covers
 KERNELS_PER_CALL = 3       # group states, state pass, outputs
+BWD_KERNELS_PER_CALL = 6   # states, pass, state gradients, reverse pass,
+                           # per-chunk gradients, du
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fn = None
 
 
 def wkv6_ops(B, S, H, P, chunk) -> int:
@@ -63,6 +78,36 @@ def wkv6_ops(B, S, H, P, chunk) -> int:
 def wkv6_cost(B, S, H, P, chunk, itemsize) -> tuple[int, int]:
     """(operations, bytes): r, k, v, lw read once and y written once."""
     return wkv6_ops(B, S, H, P, chunk), 5 * B * S * H * P * itemsize
+
+
+def wkv6_bwd_ops(B, S, H, P, chunk) -> int:
+    """WKV6's VJP's operations: per chunk of n rows, per (b, h), the strict
+    lower triangle's pair terms three times (A, dr, dk: n(n-1)/2 x P, each
+    two products, a sum and an exponential), dA and A^T dy (n(n+1)/2 x P
+    multiply-adds each), the bonus terms (9 n P), five n x P x P products
+    (the recomputed state, its gradient, S dy, D v, k' D), the two carries
+    (2 x P x P) and dlw's sums (4 n P)."""
+    ops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        tri, tri1 = n * (n - 1) // 2, n * (n + 1) // 2
+        ops += 3 * 4 * tri * P + 2 * 2 * tri1 * P + 9 * n * P \
+            + 2 * 5 * n * P * P + 2 * 2 * P * P + 4 * n * P
+    return ops * B * H
+
+
+def wkv6_bwd_cost(B, S, H, P, chunk, itemsize) -> tuple[int, int]:
+    """(operations, bytes): r, k, v, lw and dy read once, dr, dk, dv and
+    dlw written once."""
+    return wkv6_bwd_ops(B, S, H, P, chunk), 9 * B * S * H * P * itemsize
+
+
+def wkv6_bwd_work(B, S, H, P, chunk) -> int:
+    """Floats of the backward's workspace (``wkv6_bwd_launch``): the states
+    entering each chunk and their decays [B, H, nc, P, P + 1], the state
+    gradients [B, H, nc, P, P] and du's partials [B, nc, H, P]."""
+    nc = -(-S // min(chunk, S))
+    return B * H * nc * (2 * P * P + 2 * P)
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,6 +152,13 @@ def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :S].to(r.dtype)
 
 
+def wkv6_bwd_plain(r, k, v, lw, u, dy, *, chunk: int = 32):
+    """The backward kernel's function in plain torch: autograd through
+    :func:`wkv6_plain` at dy. Returns ``(dr, dk, dv, dlw, du)``."""
+    return tuple(plain_grads(wkv6_plain, (r, k, v, lw, u), (True,) * 5, dy,
+                             chunk=chunk))
+
+
 def _launcher():
     global _fn
     if _fn is None:
@@ -140,21 +192,23 @@ def _check(r, k, v, lw, u, chunk) -> None:
 
 class WKV6Fn(torch.autograd.Function):
     """:func:`wkv6` under grad. ``kernel(r, k, v, lw, u, chunk)`` computes
-    the forward (the card's launch; a test may pass a stand-in); only the
-    inputs are saved, and the backward differentiates :func:`wkv6_plain`
-    at them."""
+    the forward and ``backward(r, k, v, lw, u, dy, chunk)`` all five
+    gradients (on the card the two kernels' launches; a test may pass
+    stand-ins); only the inputs are saved, and an input that needs no
+    gradient gets None."""
 
     @staticmethod
-    def forward(ctx, r, k, v, lw, u, chunk, kernel):
+    def forward(ctx, r, k, v, lw, u, chunk, kernel, backward):
         ctx.save_for_backward(r, k, v, lw, u)
         ctx.chunk = chunk
+        ctx.bwd = backward
         return kernel(r, k, v, lw, u, chunk)
 
     @staticmethod
     def backward(ctx, dy):
-        grads = plain_grads(wkv6_plain, ctx.saved_tensors,
-                            ctx.needs_input_grad[:5], dy, chunk=ctx.chunk)
-        return (*grads, None, None)
+        grads = ctx.bwd(*ctx.saved_tensors, dy.contiguous(), ctx.chunk)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad[:5])), None, None, None)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,7 +224,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type != "cuda" and not shape_only(r):
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     if needs_grad(r, k, v, lw, u):
-        return WKV6Fn.apply(r, k, v, lw, u, chunk, _launch)
+        return WKV6Fn.apply(r, k, v, lw, u, chunk, _launch, _launch_bwd)
     return _launch(r, k, v, lw, u, chunk)
 
 
@@ -217,3 +271,76 @@ def _launch(r, k, v, lw, u, chunk) -> torch.Tensor:
 
 wkv6.launches = 0
 wkv6.kernel_launches = 0
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        from ..build import library
+        fn = library("wkv6").wkv6_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
+             chunk: int = 32):
+    """The VJP of :func:`wkv6` at ``dy`` (``r``'s shape and dtype):
+    ``(dr, dk, dv, dlw, du)``, each in its input's dtype."""
+    _check(r, k, v, lw, u, chunk)
+    if tuple(dy.shape) != tuple(r.shape) or dy.device != r.device:
+        raise ValueError(f"wkv6_bwd: dy must be {tuple(r.shape)} on "
+                         f"{r.device}, got {tuple(dy.shape)} on {dy.device}")
+    if r.device.type == "cpu" and not shape_only(r):
+        return wkv6_bwd_plain(r, k, v, lw, u, dy, chunk=chunk)
+    if r.device.type != "cuda" and not shape_only(r):
+        raise ValueError(f"wkv6_bwd: no kernel for device {r.device}")
+    return _launch_bwd(r, k, v, lw, u, dy, chunk)
+
+
+def _launch_bwd(r, k, v, lw, u, dy, chunk):
+    """The backward's six launches on checked CUDA tensors."""
+    B, S, H, P = r.shape
+    c = min(int(chunk), S) if S else 1
+    grads = tuple(torch.empty_like(t) for t in (r, k, v, lw)) \
+        + (torch.empty(H, P, dtype=torch.float32, device=r.device),)
+    work = torch.empty(wkv6_bwd_work(B, S, H, P, c), dtype=torch.float32,
+                       device=r.device)
+    if shape_only(r):
+        record("wkv6_bwd", *wkv6_bwd_cost(B, S, H, P, c, r.element_size()))
+        return (*grads[:4], grads[4].to(u.dtype))
+    for name, t in (("k", k), ("v", v), ("lw", lw), ("dy", dy)):
+        if t.dtype != r.dtype:
+            raise ValueError(f"wkv6_bwd: {name} is {t.dtype}, r {r.dtype}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw), ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"wkv6_bwd: {name} must be contiguous (strides "
+                             f"{tuple(t.stride())})")
+    if P > MAX_P:
+        raise ValueError(f"wkv6_bwd: the kernel takes P <= {MAX_P}, got {P}")
+    if c > MAX_CHUNK:
+        raise ValueError(f"wkv6_bwd: the kernel takes chunk <= {MAX_CHUNK}, "
+                         f"got {c}")
+    dr, dk, dv, dlw, du = grads
+    if dr.numel() == 0:
+        return dr, dk, dv, dlw, du.zero_().to(u.dtype)
+    uf = u.to(torch.float32).contiguous()
+    err = _bwd_launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          lw.data_ptr(), uf.data_ptr(), dy.data_ptr(),
+                          dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          dlw.data_ptr(), du.data_ptr(), work.data_ptr(),
+                          B, S, H, P, c, _DTYPE_CODE[r.dtype],
+                          torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: cudaError {err}")
+    with _count_lock:
+        wkv6_bwd.launches += 1
+        wkv6_bwd.kernel_launches += BWD_KERNELS_PER_CALL
+    return dr, dk, dv, dlw, du.to(u.dtype)
+
+
+wkv6_bwd.launches = 0
+wkv6_bwd.kernel_launches = 0

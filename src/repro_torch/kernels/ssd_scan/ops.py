@@ -19,9 +19,20 @@ does; the model's decode step, which carries a state, uses its own
 recurrence (``models/ssm.py::_ssd_chunked``). The kernel masks the ragged
 last chunk itself, so unlike the reference wrapper this one pads nothing.
 
-Under grad on the card :func:`ssd_scan` goes through :class:`SSDScanFn`:
-the forward on the kernel, the gradient through :func:`ssd_scan_plain`
-(:mod:`repro_torch.kernels.plain_grad`).
+:func:`ssd_scan_bwd` is the VJP (dxh, ddt, dA, dBm, dCm), the same file's
+second entry point, with :func:`ssd_scan_bwd_plain` beside it and the same
+CPU/CUDA rule. It recomputes the states entering each chunk with the
+forward's passes 1-2 at its own chunk ``min(chunk, S, BWD_CHUNK)`` (the
+scan's value does not depend on the chunking, only its rounding does),
+then four launches: each chunk's state gradient, their reverse carry, the
+per-chunk gradients and the fixed-order sums of dB, dC and dA, through an
+f32 workspace (:func:`ssd_bwd_work`) the wrapper allocates.
+``ssd_scan_bwd.launches`` counts its calls on the card and
+``kernel_launches`` its device launches, six a call. On a shape-only
+tensor it records :func:`ssd_bwd_cost` under ``ssd_scan_bwd`` and
+allocates the outputs and the workspace. Under grad on the card
+:func:`ssd_scan` goes through :class:`SSDScanFn`: the forward on one
+kernel, the backward on the other.
 """
 from __future__ import annotations
 
@@ -34,15 +45,21 @@ from ..plain_grad import needs_grad, plain_grads
 from ..shape_only import record, shape_only
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "SSDScanFn", "ssd_ops",
-           "ssd_cost"]
+           "ssd_cost", "ssd_scan_bwd", "ssd_scan_bwd_plain", "ssd_bwd_ops",
+           "ssd_bwd_cost", "ssd_bwd_work"]
 
 MAX_P = 64                 # what csrc/ssd_scan.cu is built for
 MAX_N = 64
 MAX_CHUNK = 128
 KERNELS_PER_CALL = 3       # chunk states, state pass, outputs
+BWD_CHUNK = 64             # the backward's largest chunk (its tiles)
+BWD_GROUP = 8              # heads a per-chunk block of the backward takes
+BWD_KERNELS_PER_CALL = 6   # states, pass, state gradients, reverse pass,
+                           # per-chunk gradients, sums
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fn = None
 
 
 def ssd_ops(B, S, H, P, N, chunk) -> int:
@@ -66,6 +83,47 @@ def ssd_cost(B, S, H, P, N, chunk, itemsize) -> tuple[int, int]:
     """(operations, bytes): x, dt, B, C read once and y written once."""
     return (ssd_ops(B, S, H, P, N, chunk),
             (2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize)
+
+
+def ssd_bwd_ops(B, S, H, P, N, chunk) -> int:
+    """The SSD scan's VJP's operations at the backward's chunk
+    ``min(chunk, S, BWD_CHUNK)``: per chunk of n rows, per b, C.B^T and the
+    head-summed dCB's two products into dB and dC (3 x n(n+1)/2 x N
+    multiply-adds); per (b, h) dy.x^T and W^T dy (2 x n(n+1)/2 x P), the
+    pair terms (8 a pair: the exponential, W, dWE, Q, dCB and two sums),
+    five n x P x N products (the recomputed state, its gradient, g_c B,
+    g_c^T x, dy h_c) and the two carries (2 x P x N): two operations a
+    multiply-add."""
+    c = max(1, min(chunk, S, BWD_CHUNK))
+    ops = 0
+    for t0 in range(0, S, c):
+        n = min(c, S - t0)
+        tri = n * (n + 1) // 2
+        ops += B * 2 * 3 * tri * N + B * H * (
+            2 * 2 * tri * P + 8 * tri + 2 * 5 * n * P * N + 2 * 2 * P * N)
+    return ops
+
+
+def ssd_bwd_cost(B, S, H, P, N, chunk, itemsize) -> tuple[int, int]:
+    """(operations, bytes): x, dt, B, C and dy read once, dx, ddt, dB and
+    dC written once."""
+    return (ssd_bwd_ops(B, S, H, P, N, chunk),
+            (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N) * itemsize)
+
+
+def ssd_bwd_work(B, S, H, P, N, chunk) -> int:
+    """Floats of the backward's workspace (``ssd_scan_bwd_launch``): dA's
+    f64 partials [B, nc, H], the states entering each chunk and their
+    decays, the state gradients [B, H, nc, P, N], dB's and dC's partials
+    [groups, B, S, N]; each of the first regions rounded up to 16 bytes."""
+    c = max(1, min(chunk, S, BWD_CHUNK))
+    nc = -(-S // c)
+    bhc = B * H * nc
+    groups = -(-H // BWD_GROUP)
+
+    def r4(f):
+        return -(-f // 4) * 4
+    return r4(2 * bhc) + 2 * bhc * P * N + r4(bhc) + 2 * groups * B * S * N
 
 
 def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -109,6 +167,13 @@ def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :S].to(xh.dtype)
 
 
+def ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, dy, *, chunk: int = 128):
+    """The backward kernel's function in plain torch: autograd through
+    :func:`ssd_scan_plain` at dy. Returns ``(dxh, ddt, dA, dBm, dCm)``."""
+    return tuple(plain_grads(ssd_scan_plain, (xh, dt, A, Bm, Cm),
+                             (True,) * 5, dy, chunk=chunk))
+
+
 def _launcher():
     global _fn
     if _fn is None:
@@ -146,21 +211,23 @@ def _check(xh, dt, A, Bm, Cm, chunk) -> None:
 
 class SSDScanFn(torch.autograd.Function):
     """:func:`ssd_scan` under grad. ``kernel(xh, dt, A, Bm, Cm, chunk)``
-    computes the forward (the card's launch; a test may pass a stand-in);
-    only the inputs are saved, and the backward differentiates
-    :func:`ssd_scan_plain` at them."""
+    computes the forward and ``backward(xh, dt, A, Bm, Cm, dy, chunk)`` all
+    five gradients (on the card the two kernels' launches; a test may pass
+    stand-ins); only the inputs are saved, and an input that needs no
+    gradient gets None."""
 
     @staticmethod
-    def forward(ctx, xh, dt, A, Bm, Cm, chunk, kernel):
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk, kernel, backward):
         ctx.save_for_backward(xh, dt, A, Bm, Cm)
         ctx.chunk = chunk
+        ctx.bwd = backward
         return kernel(xh, dt, A, Bm, Cm, chunk)
 
     @staticmethod
     def backward(ctx, dy):
-        grads = plain_grads(ssd_scan_plain, ctx.saved_tensors,
-                            ctx.needs_input_grad[:5], dy, chunk=ctx.chunk)
-        return (*grads, None, None)
+        grads = ctx.bwd(*ctx.saved_tensors, dy.contiguous(), ctx.chunk)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad[:5])), None, None, None)
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -176,7 +243,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if xh.device.type != "cuda" and not shape_only(xh):
         raise ValueError(f"ssd_scan: no kernel for device {xh.device}")
     if needs_grad(xh, dt, A, Bm, Cm):
-        return SSDScanFn.apply(xh, dt, A, Bm, Cm, chunk, _launch)
+        return SSDScanFn.apply(xh, dt, A, Bm, Cm, chunk, _launch,
+                               _launch_bwd)
     return _launch(xh, dt, A, Bm, Cm, chunk)
 
 
@@ -224,3 +292,81 @@ def _launch(xh, dt, A, Bm, Cm, chunk) -> torch.Tensor:
 
 ssd_scan.launches = 0
 ssd_scan.kernel_launches = 0
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        from ..build import library
+        fn = library("ssd_scan").ssd_scan_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 128):
+    """The VJP of :func:`ssd_scan` at ``dy`` (``xh``'s shape and dtype):
+    ``(dxh, ddt, dA, dBm, dCm)``, each in its input's dtype."""
+    _check(xh, dt, A, Bm, Cm, chunk)
+    if tuple(dy.shape) != tuple(xh.shape) or dy.device != xh.device:
+        raise ValueError(f"ssd_scan_bwd: dy must be {tuple(xh.shape)} on "
+                         f"{xh.device}, got {tuple(dy.shape)} on "
+                         f"{dy.device}")
+    if xh.device.type == "cpu" and not shape_only(xh):
+        return ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, dy, chunk=chunk)
+    if xh.device.type != "cuda" and not shape_only(xh):
+        raise ValueError(f"ssd_scan_bwd: no kernel for device {xh.device}")
+    return _launch_bwd(xh, dt, A, Bm, Cm, dy, chunk)
+
+
+def _launch_bwd(xh, dt, A, Bm, Cm, dy, chunk):
+    """The backward's six launches on checked CUDA tensors."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    c = max(1, min(int(chunk), S, BWD_CHUNK))
+    grads = (torch.empty_like(xh), torch.empty_like(dt),
+             torch.empty(H, dtype=torch.float32, device=xh.device),
+             torch.empty_like(Bm), torch.empty_like(Cm))
+    work = torch.empty(ssd_bwd_work(B, S, H, P, N, c), dtype=torch.float32,
+                       device=xh.device)
+    if shape_only(xh):
+        record("ssd_scan_bwd", *ssd_bwd_cost(B, S, H, P, N, c,
+                                             xh.element_size()))
+        return (*grads[:2], grads[2].to(A.dtype), *grads[3:])
+    for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm), ("dy", dy)):
+        if t.dtype != xh.dtype:
+            raise ValueError(f"ssd_scan_bwd: {name} is {t.dtype}, xh "
+                             f"{xh.dtype}")
+    for name, t in (("xh", xh), ("dt", dt), ("Bm", Bm), ("Cm", Cm),
+                    ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan_bwd: {name} must be contiguous "
+                             f"(strides {tuple(t.stride())})")
+    if P > MAX_P or N > MAX_N:
+        raise ValueError(f"ssd_scan_bwd: the kernel takes P <= {MAX_P} and "
+                         f"N <= {MAX_N}, got P {P}, N {N}")
+    dx, ddt, dA, dB, dC = grads
+    if dx.numel() == 0:
+        return dx, ddt, dA.zero_().to(A.dtype), dB, dC
+    a = A.to(torch.float32).contiguous()
+    err = _bwd_launcher()(xh.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                          Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(),
+                          dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                          dB.data_ptr(), dC.data_ptr(), work.data_ptr(),
+                          B, S, H, P, N, c, _DTYPE_CODE[xh.dtype],
+                          torch.cuda.current_stream(xh.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError "
+                           f"{err}")
+    with _count_lock:
+        ssd_scan_bwd.launches += 1
+        ssd_scan_bwd.kernel_launches += BWD_KERNELS_PER_CALL
+    return dx, ddt, dA.to(A.dtype), dB, dC
+
+
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.kernel_launches = 0

@@ -8,13 +8,11 @@ products of :func:`moe_block` (``kernels/moe_gmm``); on a CPU tensor each
 wrapper computes its kernel's plain version. Everything else is plain
 torch, as the reference computes it outside any Pallas kernel.
 
-Gradients: :func:`rmsnorm` and :func:`blockwise_attention` go through
-``autograd.Function``s whose backward is a kernel too (``RMSNormFn``,
-``FlashAttentionFn``). The grouped matmul, the SSD scan and WKV6 have no
-backward kernel yet: under grad on CUDA their forward still runs the
-kernel, and their gradient is their plain version's, recomputed
-(``GroupedMatmulFn``, ``SSDScanFn``, ``WKV6Fn``; ROADMAP B5 replaces it).
-On the CPU they stay plain torch and differentiable.
+Gradients: :func:`rmsnorm`, :func:`blockwise_attention`, the grouped
+matmul, the SSD scan and WKV6 go through ``autograd.Function``s whose
+backward is a kernel too on CUDA (``RMSNormFn``, ``FlashAttentionFn``,
+``GroupedMatmulFn``, ``SSDScanFn``, ``WKV6Fn``). On the CPU the last three
+stay plain torch and differentiable.
 
 Parameters are dicts of tensors with the reference's keys. ``*_init``
 functions draw with the reference's distributions and scales from an

@@ -1,0 +1,396 @@
+"""The three backward kernels' designs (``moe_gmm_bwd``, ``ssd_scan_bwd``,
+``wkv6_bwd``), emulated pass by pass in plain torch on the CPU, against
+``jax.vjp`` of the reference's ``ref`` functions.
+
+A CUDA kernel cannot run here, so each emulation repeats its kernel's
+passes as the source describes them: the grouped matmul's dx product
+(``dy @ w[e]^T``, zeros for rows in no group) and its dw product over the
+group's rows in 64-row steps, rows past the group zeroed; the SSD scan's
+recompute of the states entering each chunk (the forward's passes 1-2),
+the chunks' local state gradients and their reverse carry, the per-chunk
+gradients with ``seg`` and the reverse cumulative sum of ``dseg`` in
+float64, then the fixed-order sums of dB and dC over head groups and of
+dA over batch and chunks; WKV6's recompute of the states entering each
+chunk, the reverse carry of dS, the per-chunk gradients and ``dlw`` as the
+reverse cumulative sum of the decay terms, every exponent a non-positive
+difference of cumulative log decays. Each emulation is held against
+``jax.vjp`` of ``moe_gmm_ref``, ``ssd_scan_ref`` and ``wkv6_ref`` at the
+kernel tests' float32 rule (``REF_RTOL`` of each gradient's max|ref|) over
+the forwards' CPU sweeps: ragged last chunks, S padding, odd head and
+state sizes, empty groups and rows in no group. ``test_torch_plain_grad.py``
+drives the ``autograd.Function``s with these emulations as their backward.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.moe_gmm.ref import moe_gmm_ref
+from repro.kernels.rwkv6.ref import wkv6_ref
+from repro.kernels.ssd_scan.ref import ssd_scan_ref
+
+torch.set_num_threads(1)
+
+REF_RTOL = 5e-4              # tests/test_torch_plain_grad.py's rule
+SSD_SUB = 64                 # ssd_scan_bwd's chunk: min(chunk, S, 64)
+SSD_GROUP = 8                # heads a per-chunk block of ssd_scan_bwd takes
+GMM_K = 64                   # moe_gmm_bwd's dw: rows a step
+
+
+# ---------------------------------------------------------------------------
+# moe_gmm_bwd
+# ---------------------------------------------------------------------------
+def gmm_bwd_emulated(x, w, offsets, counts, dy):
+    """(dx, dw) as moe_gmm_bwd's two products compute them: dx rows of
+    group e are dy's rows times w[e]^T, rows in no group zero; dw[e] sums
+    x^T dy over the group's rows in steps of GMM_K rows, in order, the
+    rows of a step that lie past the group zeroed (an empty group's dw is
+    zero). f32 sums, written in the inputs' type."""
+    R, D = x.shape
+    E, _, F = w.shape
+    dx = torch.zeros(R, D, dtype=torch.float32)
+    dw = torch.zeros(E, D, F, dtype=torch.float32)
+    xf, wf, gf = x.float(), w.float(), dy.float()
+    for e, (o, c) in enumerate(zip(offsets.tolist(), counts.tolist())):
+        if c <= 0:
+            continue
+        dx[o:o + c] = gf[o:o + c] @ wf[e].T
+        acc = torch.zeros(D, F)
+        for k0 in range(0, c, GMM_K):
+            rows = torch.zeros(GMM_K, dtype=torch.bool)
+            rows[:min(GMM_K, c - k0)] = True
+            lo, hi = o + k0, min(o + k0 + GMM_K, R)
+            xs = torch.zeros(GMM_K, D)
+            gs = torch.zeros(GMM_K, F)
+            xs[:hi - lo], gs[:hi - lo] = xf[lo:hi], gf[lo:hi]
+            xs[~rows] = 0.0                     # rows past the group
+            acc = acc + xs.T @ gs
+        dw[e] = acc
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan_bwd
+# ---------------------------------------------------------------------------
+def ssd_bwd_emulated(xh, dt, A, Bm, Cm, dy, *, chunk):
+    """(dxh, ddt, dA, dBm, dCm) by ssd_scan_bwd's passes, at the backward's
+    chunk c = min(chunk, S, SSD_SUB) (the scan's value does not depend on
+    its chunking; only its rounding does):
+
+    1-2. the forward's passes at chunk c: each chunk's own state and decay
+       exp(seg_last), then the state h_c entering each chunk;
+    3. each chunk's own state gradient G_c = sum_t exp(seg_t) dy_t C_t^T;
+    4. the reverse carry: g_c, the gradient of the state leaving chunk c,
+       g_{nc-1} = 0 and g_{c-1} = exp(seg_last,c) g_c + G_c;
+    5. per (b, chunk, group of heads): dx, ddt and dseg per head, seg and
+       the reverse cumulative sum of dseg in f64, dA's partial per
+       (b, chunk, head), dB's and dC's per (b, chunk, group);
+    6. the fixed-order sums: dB and dC over the groups, dA over (b, chunk).
+    """
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    c = min(chunk, S, SSD_SUB)
+    nc = -(-S // c)
+    pad = nc * c - S
+
+    def chunks(t):                       # [B, S, ...] -> [B, nc, c, ...] f32
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(B, nc, c, *t.shape[2:])
+
+    x, d, Bf, Cf, g = (chunks(t) for t in (xh, dt, Bm, Cm, dy))
+    a = A.float()
+    seg = torch.cumsum((d * a).double(), dim=2)             # [B,nc,c,H] f64
+    last = seg[:, :, -1]                                    # [B,nc,H]
+    es = torch.exp(seg.float())                             # exp(seg_t)
+    tail = torch.exp((last[:, :, None] - seg).float()) * d  # [B,nc,c,H]
+    decay = torch.exp(last.float())                         # [B,nc,H]
+    # passes 1-2: the state entering each chunk
+    own = torch.einsum("bcshp,bcsn->bchpn", x * tail[..., None], Bf)
+    h = torch.zeros(B, H, P, N)
+    hin = []
+    for i in range(nc):
+        hin.append(h)
+        h = decay[:, i, :, None, None] * h + own[:, i]
+    hin = torch.stack(hin, 1)                               # [B,nc,H,P,N]
+    # pass 3: each chunk's own state gradient; pass 4: the reverse carry
+    G = torch.einsum("bcthp,bctn->bchpn", g * es[..., None], Cf)
+    gacc = torch.zeros(B, H, P, N)
+    gout = [None] * nc
+    for i in reversed(range(nc)):
+        gout[i] = gacc
+        gacc = decay[:, i, :, None, None] * gacc + G[:, i]
+    gout = torch.stack(gout, 1)                             # [B,nc,H,P,N]
+    # pass 5: the per-chunk gradients
+    tri = torch.tril(torch.ones(c, c, dtype=torch.bool))[..., None]
+    cb = torch.einsum("bctn,bcsn->bcts", Cf, Bf)[..., None]  # [B,nc,t,s,1]
+    diff = (seg[:, :, :, None] - seg[:, :, None]).float()    # [B,nc,t,s,H]
+    E = torch.exp(diff.masked_fill(~tri, -1e30))
+    ds = d[:, :, None]                                      # dt_s
+    W = (cb * E) * ds
+    dWE = torch.einsum("bcthp,bcshp->bctsh", g, x) * E      # dy_t.x_s E
+    Q = dWE * cb
+    dx = torch.einsum("bctsh,bcthp->bcshp", W, g)
+    gB = torch.einsum("bchpn,bcsn->bcshp", gout, Bf)
+    dx = dx + tail[..., None] * gB
+    dtail = (x * gB).sum(-1)                                # [B,nc,c,H]
+    colsum = Q.sum(2)                                       # over t
+    rowsum = (Q * ds).sum(3)                                # over s
+    ddt = colsum + dtail * torch.exp((last[:, :, None] - seg).float())
+    dCi = torch.einsum("bcthp,bchpn->bcthn", g, hin) * es[..., None]
+    dseg = (rowsum.double() - (d * colsum).double()
+            + (Cf[:, :, :, None] * dCi).sum(-1).double()
+            - (dtail * tail).double())
+    end = (dtail * tail).sum(2).double() \
+        + (decay * (gout * hin).sum((-1, -2))).double()     # [B,nc,H]
+    dseg[:, :, -1] += end
+    dDA = torch.flip(torch.cumsum(torch.flip(dseg, [2]), 2), [2])   # f64
+    ddt = ddt + (dDA * a.double()).float()
+    dA_part = (dDA * d.double()).sum(2)                     # [B,nc,H] f64
+    # per group of heads, in order: dB and dC partials
+    dCBs, dBs, dCs = [], [], []
+    for h0 in range(0, H, SSD_GROUP):
+        hs = slice(h0, h0 + SSD_GROUP)
+        dcb = (dWE[..., hs] * ds[..., hs]).sum(-1)          # [B,nc,t,s]
+        dCs.append(dCi[:, :, :, hs].sum(3)
+                   + torch.einsum("bcts,bcsn->bctn", dcb, Bf))
+        dBs.append(torch.einsum("bcshp,bchpn->bcsn",
+                                x[..., hs, :] * tail[..., hs, None],
+                                gout[:, :, hs])
+                   + torch.einsum("bcts,bctn->bcsn", dcb, Cf))
+    # pass 6: fixed-order sums over groups and over (b, chunk)
+    dB = torch.zeros_like(dBs[0])
+    dC = torch.zeros_like(dCs[0])
+    for pb, pc in zip(dBs, dCs):
+        dB, dC = dB + pb, dC + pc
+    dA = dA_part.reshape(-1, H).sum(0)
+
+    def unchunk(t):
+        return t.reshape(B, nc * c, *t.shape[3:])[:, :S]
+
+    return (unchunk(dx).to(xh.dtype), unchunk(ddt).to(dt.dtype),
+            dA.float().to(A.dtype), unchunk(dB).to(Bm.dtype),
+            unchunk(dC).to(Cm.dtype))
+
+
+# ---------------------------------------------------------------------------
+# wkv6_bwd
+# ---------------------------------------------------------------------------
+def wkv6_bwd_emulated(r, k, v, lw, u, dy, *, chunk):
+    """(dr, dk, dv, dlw, du) by wkv6_bwd's passes at c = min(chunk, S):
+
+    1-2. the forward's passes with groups of one chunk: the state S_c
+       entering each chunk and each chunk's decay exp(lcw_last);
+    3. each chunk's own state gradient G_c = (r exp(prev))^T dy;
+    4. the reverse carry of dS: D_c, the gradient of the state leaving
+       chunk c, D_{nc-1} = 0 and D_{c-1} = exp(lcw_last,c) D_c + G_c;
+    5. per (b, h, chunk): dA = dy v^T, A recomputed, dv = A^T dy +
+       (k exp(lcw_last - lcw)) D; dr and dk from dA with the pairs'
+       exponents exp(prev_t - lcw_s), the incoming state and D; du's
+       partial; dlw_i = sum_q D S_{c+1} + sum_{t>i} r_t dr'_t -
+       sum_{t>=i} k_t dk'_t (dr', dk' without the bonus), in f64;
+    6. du summed over (b, chunk) in order.
+    Every exponent is a difference lcw_j - lcw_i with j >= i: <= 0."""
+    B, S, H, P = r.shape
+    c = min(chunk, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+
+    def chunks(t):                   # [B, S, H, P] -> [B, H, nc, c, P] f32
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nc, c, H, P).permute(0, 3, 1, 2, 4)
+
+    rf, kf, vf, lwf, gf = (chunks(t) for t in (r, k, v, lw, dy))
+    uf = u.float()[None, :, None, None, :]
+    lcw = torch.cumsum(lwf, dim=3)
+    prev = torch.nn.functional.pad(lcw, (0, 0, 1, 0))[..., :-1, :]
+    last = lcw[..., -1:, :]                                # [B,H,nc,1,P]
+    args = [prev, last]
+    kt = kf * torch.exp(last - lcw)
+    args.append(last - lcw)
+    d = torch.exp(last)[..., 0, :, None]                   # [B,H,nc,P,1]
+    # passes 1-2: the state entering each chunk
+    U = kt.transpose(-1, -2) @ vf                          # [B,H,nc,P,P]
+    s = torch.zeros(B, H, P, P)
+    sin = []
+    for i in range(nc):
+        sin.append(s)
+        s = d[:, :, i] * s + U[:, :, i]
+    sin = torch.stack(sin, 2)                              # [B,H,nc,P,P]
+    # pass 3: G_c; pass 4: the reverse carry of dS
+    re = rf * torch.exp(prev)
+    G = re.transpose(-1, -2) @ gf
+    acc = torch.zeros(B, H, P, P)
+    dout = [None] * nc
+    for i in reversed(range(nc)):
+        dout[i] = acc
+        acc = d[:, :, i] * acc + G[:, :, i]
+    dout = torch.stack(dout, 2)                            # [B,H,nc,P,P]
+    sout = torch.cat([sin[:, :, 1:], torch.zeros(B, H, 1, P, P)], 2)
+    # pass 5: the per-chunk gradients
+    strict = torch.tril(torch.ones(c, c, dtype=torch.bool), -1)
+    diff = prev[..., :, None, :] - lcw[..., None, :, :]    # [..,t,s,P]
+    args.append(diff[..., strict, :])
+    ex = torch.exp(diff.masked_fill(~strict[..., None], -1e30))
+    A = torch.einsum("bhctp,bhctsp,bhcsp->bhcts", rf, ex, kf)
+    diag = (rf * uf * kf).sum(-1)                          # A[t, t]
+    A = A + torch.diag_embed(diag)
+    dA = torch.tril(gf @ vf.transpose(-1, -2))             # dy_t . v_s
+    dAd = torch.diagonal(dA, dim1=-2, dim2=-1)             # dA[t, t]
+    dv = A.transpose(-1, -2) @ gf + kt @ dout
+    drA = torch.einsum("bhcts,bhctsp,bhcsp->bhctp", dA, ex, kf)
+    drS = torch.exp(prev) * (gf @ sin.transpose(-1, -2))
+    dkA = torch.einsum("bhcts,bhctsp,bhctp->bhcsp", dA, ex, rf)
+    dkS = torch.exp(last - lcw) * (vf @ dout.transpose(-1, -2))
+    dr = drA + drS + dAd[..., None] * uf * kf
+    dk = dkA + dkS + dAd[..., None] * uf * rf
+    du_part = (dAd[..., None] * rf * kf).sum(3)            # [B,H,nc,P]
+    z = (dout * sout).sum(-1).double()                     # [B,H,nc,P]
+    rd = (rf * (drA + drS)).double()
+    kd = (kf * (dkA + dkS)).double()
+    # dlw_i = z + sum_{t > i} rd_t - sum_{t >= i} kd_t
+    rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, [3]), 3), [3])  # noqa: E731
+    dlw = z[..., None, :] + (rev(rd) - rd) - rev(kd)
+    du = du_part.permute(0, 2, 1, 3).reshape(B * nc, H, P).double().sum(0)
+
+    def unchunk(t):
+        return t.permute(0, 2, 3, 1, 4).reshape(B, nc * c, H, P)[:, :S]
+
+    flat = torch.cat([a.reshape(-1) for a in args])
+    return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),
+            unchunk(dv).to(v.dtype), unchunk(dlw.float()).to(lw.dtype),
+            du.float().to(u.dtype)), flat
+
+
+# ---------------------------------------------------------------------------
+# the emulations against jax.vjp of the references
+# ---------------------------------------------------------------------------
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _close_to_ref(got: torch.Tensor, want, label: str) -> None:
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    err = float(np.abs(got.float().numpy() - want).max())
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert err <= REF_RTOL * scale, (label, err, scale)
+
+
+# the forwards' CPU sweeps (tests/test_torch_moe_gmm.py, ...ssd_scan.py,
+# ...wkv6.py) and the Functions' own cases
+GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 64, 64), (8, 16, 48, 32),
+             (4, 24, 32, 40), (2, 17, 48, 16)]
+
+
+@pytest.mark.parametrize("E,C,D,F", GMM_SWEEP)
+def test_gmm_bwd_emulation_matches_reference_vjp(E, C, D, F):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(E, C, D)).astype(np.float32)
+    w = (rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)
+    dy = rng.normal(size=(E, C, F)).astype(np.float32)
+    offsets = torch.arange(E, dtype=torch.int32) * C
+    counts = torch.full((E,), C, dtype=torch.int32)
+    dx, dw = gmm_bwd_emulated(_t(x).reshape(E * C, D), _t(w), offsets,
+                              counts, _t(dy).reshape(E * C, F))
+    _, vjp = jax.vjp(moe_gmm_ref, jnp.asarray(x), jnp.asarray(w))
+    rx, rw = vjp(jnp.asarray(dy))
+    _close_to_ref(dx.reshape(E, C, D), rx, "dx")
+    _close_to_ref(dw, rw, "dw")
+
+
+# (offsets, counts, R): an empty group, rows in no group (between groups
+# and after the last), a group of more than one 64-row step that ends
+# inside a step, one group of every row
+RAGGED = [([0, 7, 7, 20], [7, 0, 9, 6], 30),
+          ([3, 70, 70, 200], [67, 0, 130, 1], 210),
+          ([0, 0, 0], [0, 150, 0], 150)]
+
+
+@pytest.mark.parametrize("case", range(len(RAGGED)))
+def test_gmm_bwd_emulation_ragged_groups(case):
+    """Ragged groups against jax.vjp of moe_gmm_ref on each group's rows:
+    rows in no group get dx = 0, an empty group's dw is 0."""
+    offs, cnts, R = RAGGED[case]
+    rng = np.random.default_rng(1 + case)
+    E, D, F = len(offs), 40, 24
+    x = rng.normal(size=(R, D)).astype(np.float32)
+    w = (rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)
+    dy = rng.normal(size=(R, F)).astype(np.float32)
+    dx, dw = gmm_bwd_emulated(_t(x), _t(w),
+                              torch.tensor(offs, dtype=torch.int32),
+                              torch.tensor(cnts, dtype=torch.int32), _t(dy))
+    covered = np.zeros(R, bool)
+    for e, (o, c) in enumerate(zip(offs, cnts)):
+        covered[o:o + c] = True
+        if c == 0:
+            assert float(dw[e].abs().max()) == 0.0
+            continue
+        _, vjp = jax.vjp(moe_gmm_ref, jnp.asarray(x[None, o:o + c]),
+                         jnp.asarray(w[None, e]))
+        rx, rw = vjp(jnp.asarray(dy[None, o:o + c]))
+        _close_to_ref(dx[o:o + c], np.asarray(rx)[0], f"dx[{e}]")
+        _close_to_ref(dw[e], np.asarray(rw)[0], f"dw[{e}]")
+    assert float(dx[torch.from_numpy(~covered)].abs().sum()) == 0.0
+
+
+def ssd_inputs(B, S, H, P, N, seed=0):
+    """tests/test_kernels.py's ranges: x, dt = |N(0,1)|, A = -|N(0,1)|,
+    B, C ~ N(0, 1); and dy ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return [np.asarray(a, np.float32) for a in (
+        rng.normal(size=(B, S, H, P)), np.abs(rng.normal(size=(B, S, H))),
+        -np.abs(rng.normal(size=(H,))), rng.normal(size=(B, S, N)),
+        rng.normal(size=(B, S, N)), rng.normal(size=(B, S, H, P)))]
+
+
+SSD_SWEEP = [(2, 100, 3, 32, 16, 32), (1, 64, 2, 64, 64, 16),
+             (2, 33, 1, 16, 8, 64), (1, 33, 2, 16, 8, 16),
+             (1, 300, 9, 24, 12, 128), (2, 20, 2, 8, 5, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SWEEP)
+def test_ssd_bwd_emulation_matches_reference_vjp(B, S, H, P, N, chunk):
+    *arrs, dy = ssd_inputs(B, S, H, P, N)
+    got = ssd_bwd_emulated(*map(_t, arrs), _t(dy), chunk=chunk)
+    _, vjp = jax.vjp(lambda *a: ssd_scan_ref(*a, chunk=chunk),
+                     *map(jnp.asarray, arrs))
+    for name, gt, rf in zip(("xh", "dt", "A", "Bm", "Cm"), got,
+                            vjp(jnp.asarray(dy))):
+        _close_to_ref(gt, rf, name)
+
+
+def wkv6_inputs(B, S, H, P, seed=2, model_range=False):
+    """r, k, v, u ~ N(0, 1); lw = -exp(N(0,1)/2 - 1), or the model's range
+    -exp(2 N(0,1) - 6) clipped at -20; and dy ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(B, S, H, P)) for _ in range(3))
+    if model_range:
+        lw = np.clip(-np.exp(rng.normal(size=(B, S, H, P)) * 2.0 - 6.0),
+                     -20, 0)
+    else:
+        lw = -np.exp(rng.normal(size=(B, S, H, P)) * 0.5 - 1.0)
+    u = rng.normal(size=(H, P))
+    dy = rng.normal(size=(B, S, H, P))
+    return [np.asarray(a, np.float32) for a in (r, k, v, lw, u, dy)]
+
+
+WKV_SWEEP = [(2, 100, 3, 32, 25, False), (1, 31, 2, 64, 8, False),
+             (2, 64, 1, 16, 64, False), (1, 31, 2, 16, 8, False),
+             (1, 300, 2, 64, 32, True), (2, 20, 3, 24, 32, False)]
+
+
+@pytest.mark.parametrize("B,S,H,P,chunk,model", WKV_SWEEP)
+def test_wkv6_bwd_emulation_matches_reference_vjp(B, S, H, P, chunk, model):
+    """Every exponent the passes take is <= 0 and every gradient finite and
+    within the rule of jax.vjp of wkv6_ref."""
+    *arrs, dy = wkv6_inputs(B, S, H, P, model_range=model)
+    got, args = wkv6_bwd_emulated(*map(_t, arrs), _t(dy), chunk=chunk)
+    assert float(args.max()) <= 0.0
+    _, vjp = jax.vjp(lambda *a: wkv6_ref(*a, chunk=chunk),
+                     *map(jnp.asarray, arrs))
+    for name, gt, rf in zip(("r", "k", "v", "lw", "u"), got,
+                            vjp(jnp.asarray(dy))):
+        assert bool(torch.isfinite(gt).all()), name
+        _close_to_ref(gt, rf, name)

@@ -30,11 +30,15 @@ from repro_torch.kernels.flash_attention.ops import (attention_limit,
                                                      flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.moe_gmm.ops import (grouped_matmul,
+                                             grouped_matmul_bwd_plain,
                                              grouped_matmul_plain, moe_gmm,
-                                             moe_gmm_plain)
+                                             moe_gmm_bwd, moe_gmm_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
-from repro_torch.kernels.rwkv6.ops import wkv6, wkv6_plain
-from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.rwkv6.ops import (wkv6, wkv6_bwd, wkv6_bwd_plain,
+                                           wkv6_plain)
+from repro_torch.kernels.ssd_scan.ops import (ssd_scan, ssd_scan_bwd,
+                                              ssd_scan_bwd_plain,
+                                              ssd_scan_plain)
 from repro_torch.models import build_model
 from repro_torch.serve import (Engine, PagedKVCache, RELOAD_POLICY_NAMES,
                                ServeConfig, naive_generate)
@@ -1348,7 +1352,9 @@ def _all_plain(monkeypatch):
                                      q_offset=q_offset)
     monkeypatch.setattr(PL, "rmsnorm", rms)
     monkeypatch.setattr(PL, "blockwise_attention", attn)
-    monkeypatch.setattr(PL, "grouped_matmul", grouped_matmul_plain)
+    monkeypatch.setattr(PL, "grouped_matmul",
+                        lambda x, w, off, cnt, rows=None:
+                        grouped_matmul_plain(x, w, off, cnt))
     monkeypatch.setattr(SSM, "ssd_scan", ssd_scan_plain)
     monkeypatch.setattr(R, "wkv6", wkv6_plain)
 
@@ -1376,17 +1382,20 @@ def _flat_grads(params) -> dict:
 
 @pytest.mark.parametrize("family,arch,kernel,per_layer", C14_FAMILIES,
                          ids=[f[0] for f in C14_FAMILIES])
-def test_family_trains_on_card_kernel_forward_plain_backward(
+def test_family_trains_on_card_kernel_forward_and_backward(
         cuda, monkeypatch, family, arch, kernel, per_layer):
     """ROADMAP C14: the gradient of ``LM.loss`` of a reduced model of each
-    family, float32, with the family's kernel in the forward and its plain
-    version recomputed for the backward, is within 1e-3 x max|plain| of
-    the all-plain gradient, leaf by leaf (the two-dtype rule's float32
-    instance); the loss within 1e-3; and the kernel's launch counter shows
-    the forward ran the kernel."""
+    family, float32, with the family's kernel in the forward and its
+    backward kernel in the backward, is within 1e-3 x max|plain| of the
+    all-plain gradient, leaf by leaf (the two-dtype rule's float32
+    instance); the loss within 1e-3; and the launch counters show that
+    the forward ran the kernel and the backward the backward kernel, as
+    many times (no remat), and the all-plain leg neither."""
     torch.backends.cuda.matmul.allow_tf32 = False
     counter = {"moe_gmm": moe_gmm, "ssd_scan": ssd_scan,
                "wkv6": wkv6}[kernel]
+    bwd_counter = {"moe_gmm": moe_gmm_bwd, "ssd_scan": ssd_scan_bwd,
+                   "wkv6": wkv6_bwd}[kernel]
     cfg = reduced(get_arch(arch))
     assert cfg.family == family and cfg.dtype == "float32"
     model = build_model(cfg, device=cuda)
@@ -1403,11 +1412,14 @@ def test_family_trains_on_card_kernel_forward_plain_backward(
             before = counter.launches
             loss = model.loss(params, batch)
             launched = counter.launches - before
+            before = bwd_counter.launches
             loss.backward()
+            launched_bwd = bwd_counter.launches - before
         torch.cuda.synchronize()
-        out[leg] = (loss.item(), _flat_grads(params), launched)
-    assert out["kernels"][2] == per_layer * cfg.n_layers > 0
-    assert out["plain"][2] == 0
+        out[leg] = (loss.item(), _flat_grads(params), launched, launched_bwd)
+    assert out["kernels"][2] == out["kernels"][3] \
+        == per_layer * cfg.n_layers > 0
+    assert out["plain"][2] == out["plain"][3] == 0
     assert abs(out["kernels"][0] - out["plain"][0]) \
         <= 1e-3 * abs(out["plain"][0])
     worst = 0.0
@@ -1692,3 +1704,218 @@ def test_encdec_decode_step_is_byte_equal_on_card(cuda):
     assert torch.equal(l0, l1)
     for k in c0:
         assert torch.equal(c0[k], c1[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (ROADMAP B5): moe_gmm_bwd, ssd_scan_bwd, wkv6_bwd
+# ---------------------------------------------------------------------------
+def _grads_close(got, want, tol, names) -> None:
+    """Each gradient within atol x max|plain| + rtol x |plain| of the
+    plain one: the forward's tolerance, scaled to the gradient's own
+    largest value (chip_smoke.py's _bwd_check)."""
+    atol, rtol = tol
+    for name, g, w in zip(names, got, want):
+        wf = w.float()
+        scale = float(wf.abs().max())
+        err = (g.float() - wf).abs()
+        assert bool((err <= atol * scale + rtol * wf.abs()).all()), \
+            (name, float(err.max()), scale)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_matches_plain_on_card(cuda, case, dtype):
+    """ssd_scan_bwd against the plain backward (autograd through
+    ssd_scan_plain) at SCAN_TOL scaled to each gradient; two calls byte
+    for byte; one call and six device launches each."""
+    B, S, H, P, N, chunk = case
+    args = _ssd_inputs(cuda, B, S, H, P, N, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(B, S, H, P, generator=gen, device=cuda).to(dtype)
+    before = (ssd_scan_bwd.launches, ssd_scan_bwd.kernel_launches)
+    got = ssd_scan_bwd(*args, dy, chunk=chunk)
+    again = ssd_scan_bwd(*args, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ssd_scan_bwd.launches - before[0],
+            ssd_scan_bwd.kernel_launches - before[1]) == (2, 12)
+    assert _same(got, again)
+    assert [g.dtype for g in got] == [t.dtype for t in args]
+    _grads_close(got, ssd_scan_bwd_plain(*args, dy, chunk=chunk),
+                 SCAN_TOL["ssd_scan"][dtype], ("dx", "ddt", "dA", "dB", "dC"))
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_bwd_matches_plain_on_card(cuda, case, dtype):
+    """wkv6_bwd against the plain backward (autograd through wkv6_plain)
+    at SCAN_TOL scaled to each gradient; two calls byte for byte; one call
+    and six device launches each."""
+    B, S, H, P, chunk = case
+    args = _wkv_inputs(cuda, B, S, H, P, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(B, S, H, P, generator=gen, device=cuda).to(dtype)
+    before = (wkv6_bwd.launches, wkv6_bwd.kernel_launches)
+    got = wkv6_bwd(*args, dy, chunk=chunk)
+    again = wkv6_bwd(*args, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (wkv6_bwd.launches - before[0],
+            wkv6_bwd.kernel_launches - before[1]) == (2, 12)
+    assert _same(got, again)
+    assert [g.dtype for g in got] == [t.dtype for t in args]
+    _grads_close(got, wkv6_bwd_plain(*args, dy, chunk=chunk),
+                 SCAN_TOL["wkv6"][dtype], ("dr", "dk", "dv", "dlw", "du"))
+
+
+def test_ssd_scan_bwd_on_zamba_ranges_against_float64(cuda):
+    """zamba2-7b's input ranges at S = 8192, chunk 128: each gradient's
+    error against autograd through a float64 evaluation of the model's
+    recurrence is at most twice the plain backward's (chip_smoke.py's
+    ssd_bwd_model_range rule)."""
+    from repro_torch.models.ssm import _ssd_chunked
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, S, H, P, N = 1, 8192, 8, 64, 64
+    x = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device=cuda))
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    Bm = torch.randn(B, S, N, generator=gen, device=cuda)
+    Cm = torch.randn(B, S, N, generator=gen, device=cuda)
+    dy = torch.randn(B, S, H, P, generator=gen, device=cuda)
+    args = (x, dt, A, Bm, Cm)
+    got = ssd_scan_bwd(*args, dy, chunk=128)
+    plain = ssd_scan_bwd_plain(*args, dy, chunk=128)
+    leaves = [t.double().requires_grad_() for t in args]
+    h0 = torch.zeros(B, H, P, N, dtype=torch.float64, device=cuda)
+    y, _ = _ssd_chunked(*leaves, chunk=128, h0=h0)
+    exact = torch.autograd.grad(y, leaves, dy.double())
+    for name, g, p, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain,
+                             exact):
+        err_k = float((g.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= 2 * err_p, (name, err_k, err_p)
+
+
+def test_wkv6_bwd_on_the_models_decay_range(cuda):
+    """rwkv6-7b's log decays, -exp(N(0, 2) - 6) clipped at -20 (rows at
+    the clip included), at 1 x 4096 with 8 heads of 64, chunk 32: every
+    gradient finite and within SCAN_TOL of the plain backward."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    r, k, v, dy = (torch.randn(1, 4096, 8, 64, generator=gen, device=cuda)
+                   for _ in range(4))
+    lw = (-torch.exp(torch.randn(1, 4096, 8, 64, generator=gen, device=cuda)
+                     * 2.0 - 6.0)).clamp(-20, 0)
+    lw[:, 5::97] = -20.0
+    u = torch.randn(8, 64, generator=gen, device=cuda)
+    got = wkv6_bwd(r, k, v, lw, u, dy, chunk=32)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _grads_close(got, wkv6_bwd_plain(r, k, v, lw, u, dy, chunk=32),
+                 SCAN_TOL["wkv6"][torch.float32],
+                 ("dr", "dk", "dv", "dlw", "du"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_bwd_ragged_groups_on_card(cuda, dtype):
+    """moe_gmm_bwd on ragged groups with empty ones and rows in no group:
+    dx and dw within gmm_tol (scaled to each gradient) of the plain
+    backward, rows in no group dx = 0, an empty group's dw = 0; two calls
+    byte for byte; the 16-bit call on the wgmma kernels, float32 on the
+    scalar ones, two device launches each."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    R, D, F = 600, 96, 136
+    x = torch.randn(R, D, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(5, D, F, generator=gen, device=cuda).to(dtype)
+    dy = torch.randn(R, F, generator=gen, device=cuda).to(dtype)
+    off = torch.tensor([3, 70, 70, 400, 599], dtype=torch.int32, device=cuda)
+    cnt = torch.tensor([67, 0, 330, 1, 0], dtype=torch.int32, device=cuda)
+    inst = "launches_wgmma" if dtype == torch.bfloat16 else "launches_scalar"
+    before = {a: getattr(moe_gmm_bwd, a) for a in (
+        "launches", "kernel_launches", "launches_wgmma", "launches_scalar")}
+    got = moe_gmm_bwd(x, w, off, cnt, dy)
+    again = moe_gmm_bwd(x, w, off, cnt, dy)
+    torch.cuda.synchronize()
+    after = {a: getattr(moe_gmm_bwd, a) - n for a, n in before.items()}
+    assert after == {"launches": 2, "kernel_launches": 4, inst: 2,
+                     ({"launches_wgmma", "launches_scalar"} - {inst}).pop(): 0}
+    assert _same(got, again)
+    rtol, atol = gmm_tol(dtype, 330)
+    _grads_close(got, grouped_matmul_bwd_plain(x, w, off, cnt, dy),
+                 (atol, rtol), ("dx", "dw"))
+    outside = torch.ones(R, dtype=torch.bool, device=cuda)
+    for o, c in ((3, 67), (70, 330), (400, 1)):
+        outside[o:o + c] = False
+    assert float(got[0][outside].abs().sum()) == 0.0
+    assert float(got[1][1].abs().sum()) == float(got[1][4].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("product", ["gate", "down"])
+def test_moe_gmm_bwd_routed_on_wgmma(cuda, product):
+    """The serving prefill's routed rows through moonshot's gate and down
+    products in bfloat16: moe_gmm_bwd on the wgmma kernels, two calls byte
+    for byte, dx and dw within gmm_tol of the plain backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen, x, off, cnt = _moonshot_routed(cuda, 8 * 768, 3)
+    K, N = (2048, 1408) if product == "gate" else (1408, 2048)
+    x = torch.randn(x.shape[0], K, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(64, K, N, generator=gen, device=cuda).bfloat16()
+    dy = torch.randn(x.shape[0], N, generator=gen, device=cuda).bfloat16()
+    before = moe_gmm_bwd.launches_wgmma
+    got = moe_gmm_bwd(x, w, off, cnt, dy)
+    again = moe_gmm_bwd(x, w, off, cnt, dy)
+    torch.cuda.synchronize()
+    assert moe_gmm_bwd.launches_wgmma == before + 2
+    assert _same(got, again)
+    rtol, atol = gmm_tol(torch.bfloat16, K)
+    _grads_close(got, grouped_matmul_bwd_plain(x, w, off, cnt, dy),
+                 (atol, rtol), ("dx", "dw"))
+
+
+def test_functions_never_run_plain_on_card_tensors(cuda, monkeypatch):
+    """Under grad on CUDA tensors the three Functions launch the forward
+    and the backward kernels; ``plain_grads`` and every plain version
+    raise if reached."""
+    from repro_torch.kernels import plain_grad
+    from repro_torch.kernels.moe_gmm import ops as G
+    from repro_torch.kernels.rwkv6 import ops as W
+    from repro_torch.kernels.ssd_scan import ops as S
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for mod, names in ((plain_grad, ("plain_grads",)),
+                       (G, ("plain_grads", "grouped_matmul_plain",
+                            "grouped_matmul_bwd_plain", "moe_gmm_plain")),
+                       (S, ("plain_grads", "ssd_scan_plain",
+                            "ssd_scan_bwd_plain")),
+                       (W, ("plain_grads", "wkv6_plain", "wkv6_bwd_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+
+    def leaf(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype) \
+            .requires_grad_()
+    cases = [(G.grouped_matmul, G.moe_gmm_bwd,
+              (leaf(40, 16, dtype=torch.bfloat16),
+               leaf(4, 16, 24, dtype=torch.bfloat16)),
+              (torch.arange(4, dtype=torch.int32, device=cuda) * 10,
+               torch.full((4,), 10, dtype=torch.int32, device=cuda))),
+             (S.ssd_scan, S.ssd_scan_bwd,
+              (leaf(2, 50, 3, 8), leaf(2, 50, 3).abs().detach()
+               .requires_grad_(), -leaf(3).abs().detach().requires_grad_(),
+               leaf(2, 50, 4), leaf(2, 50, 4)), ()),
+             (W.wkv6, W.wkv6_bwd,
+              (leaf(2, 50, 3, 8), leaf(2, 50, 3, 8), leaf(2, 50, 3, 8),
+               -leaf(2, 50, 3, 8).abs().detach().requires_grad_(),
+               leaf(3, 8)), ())]
+    for fwd, bwd, ins, rest in cases:
+        counter = G.moe_gmm if fwd is G.grouped_matmul else fwd
+        f0, b0 = counter.launches, bwd.launches
+        y = fwd(*ins, *rest)
+        grads = torch.autograd.grad(y, ins, torch.ones_like(y))
+        torch.cuda.synchronize()
+        assert (counter.launches - f0, bwd.launches - b0) == (1, 1)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)

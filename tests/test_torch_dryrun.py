@@ -52,6 +52,7 @@ CELLS = {
     "dense-decode-2x2": ("llama-7b", "decode", (2, 2), "full"),
     "moe-train-2x2": ("granite-moe-1b-a400m", "train", (2, 2), "full"),
     "zamba-train-2x2": ("zamba2-7b", "train", (2, 2), "full"),
+    "rwkv-train-2x2": ("rwkv6-7b", "train", (2, 2), "full"),
     "rwkv-decode-2x2": ("rwkv6-7b", "decode", (2, 2), "full"),
     "encdec-prefill-2x2": ("seamless-m4t-large-v2", "prefill", (2, 2),
                            "full"),
@@ -156,6 +157,24 @@ def test_dense_flops_closed_form(records):
     assert k["flash_attention_bwd"]["calls"] == L
     assert k["rmsnorm"]["calls"] == 4 * L + 1
     assert k["rmsnorm_bwd"]["calls"] == 2 * L + 1
+
+
+@pytest.mark.parametrize("cell,arch,kernel,per_layer", [
+    ("moe-train-2x2", "granite-moe-1b-a400m", "moe_gmm", 3),
+    ("zamba-train-2x2", "zamba2-7b", "ssd_scan", 1),
+    ("rwkv-train-2x2", "rwkv6-7b", "wkv6", 1)])
+def test_backward_kernels_recorded_per_layer(records, cell, arch, kernel,
+                                             per_layer):
+    """A training step under remat='full' records its family's kernel
+    twice a layer (the forward and the recompute: three grouped products a
+    MoE layer) and its backward kernel (``moe_gmm_bwd``, ``ssd_scan_bwd``,
+    ``wkv6_bwd``) once, as ``flash_attention_bwd`` is recorded once a
+    dense layer; no plain backward is recorded."""
+    L = reduced(get_arch(arch)).n_layers
+    k = records[cell]["cost"]["kernels"]
+    assert k[kernel]["calls"] == 2 * per_layer * L
+    assert k[f"{kernel}_bwd"]["calls"] == per_layer * L
+    assert not [n for n in k if "plain" in n]
 
 
 def test_visible_keys_closed_form():
