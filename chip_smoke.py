@@ -364,7 +364,9 @@ times and the step's device time by kernel, the two checkouts in turns.
 of both checkouts in turns (``ab_decode``), the host cost the serving
 paths show. ``--ab-moe-train OTHER_ROOT`` does the same for phase 12
 (d)'s step, un-meshed (``ab_moe_train``): step times and the profiled
-step's device time by kernel.
+step's device time by kernel. ``--ab-recurrent-train OTHER_ROOT`` does it
+for rwkv6-7b's LoRA step of phase 6b (``ab_recurrent_train``), then
+profiles zamba2-7b's step once on this tree.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
@@ -397,7 +399,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # an ab_prefill or ab_train worker (``--ab-worker SRC ...``,
 # ``--ab-train-worker SRC``) runs the port found in SRC
 _WORKER = next((f for f in ("--ab-worker", "--ab-train-worker",
-                          "--ab-decode-worker", "--ab-moe-worker")
+                          "--ab-decode-worker", "--ab-moe-worker",
+                          "--ab-recurrent-worker")
                  if f in sys.argv), None)
 SRC = (sys.argv[sys.argv.index(_WORKER) + 1] if _WORKER
        else os.path.join(ROOT, "src"))
@@ -540,6 +543,7 @@ WKV_SWEEP = [(2, 100, 3, 32, 25), (1, 31, 2, 64, 8), (2, 64, 1, 16, 64)]
 GMM_BWD_ARCH = "granite-moe-1b-a400m"
 GMM_BWD_TOKENS = 4 * 4096
 GMM_BWD_SWEEP = [(4, 100, 96, 130), (2, 64, 64, 64), (8, 16, 48, 32)]
+GMM_SKEW = 0.75                    # one expert's share of the skewed case
 # zamba2-7b's shared attention block at the recurrent path's shape:
 # (B, S, heads, head size 3584 / 32), causal, bfloat16
 FLASH_112 = (2, 8192, 32, 112)
@@ -3222,6 +3226,112 @@ def ab_moe_worker() -> int:
     return 0
 
 
+AB_RECURRENT_ARCH = "rwkv6-7b"      # the recurrent LoRA step timed in turns
+AB_RECURRENT_PROFILED = "zamba2-7b"  # and this tree's other one, profiled once
+AB_RECURRENT_STEPS = 3              # timed steps a worker, after a warm-up
+
+
+def ab_recurrent_train(other_root: str, rounds: int = 2) -> int:
+    """The recurrent LoRA step of phase 6b (AB_RECURRENT_ARCH at
+    RECURRENT_TRAIN's batch and sequence: rank 16, AdamW, remat='full',
+    bfloat16) of this checkout's port against another checkout's
+    (``other_root``), in turns (``_ab_turns``); then one worker of this
+    tree on AB_RECURRENT_PROFILED. Each worker (``ab_recurrent_worker``)
+    prints its step times and its profiled step's device time by kernel
+    (``profile_kernels``) and summed over the scan's backward kernels; the
+    medians by checkout come last."""
+    steps: dict[str, list[float]] = {}
+    scan_ms: dict[str, list[float]] = {}
+    for r, name, res in _ab_turns(other_root, "--ab-recurrent-worker", "ABR",
+                                  rounds):
+        print(f"ab round {r} {name} ({res['port']}): {res['arch']} step_s "
+              f"{res['step_s']} warm-up {res['warmup_s']:.3f} s; profiled "
+              f"step device_ms {res['device_ms']:.3f}, scan backward "
+              f"{res['scan_bwd_ms']:.3f} ms", flush=True)
+        steps.setdefault(name, []).extend(res["step_s"])
+        scan_ms.setdefault(name, []).append(res["scan_bwd_ms"])
+    for name in steps:
+        print(f"ab median {name}: {AB_RECURRENT_ARCH} step_s "
+              f"{statistics.median(steps[name]):.4f} scan backward ms a "
+              f"profiled step {statistics.median(scan_ms[name]):.3f}",
+              flush=True)
+    got = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--ab-recurrent-worker",
+         os.path.join(ROOT, "src"), AB_RECURRENT_PROFILED],
+        capture_output=True, text=True, cwd=ROOT, timeout=900,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    lines = [ln for ln in got.stdout.splitlines() if ln.startswith("ABR ")]
+    for ln in got.stdout.splitlines():
+        if ln.startswith("profile "):
+            print(f"ab tree: {ln}", flush=True)
+    if got.returncode != 0 or not lines:
+        print(got.stdout[-3000:], got.stderr[-3000:], flush=True)
+        raise RuntimeError(f"ab worker {AB_RECURRENT_PROFILED} failed")
+    res = json.loads(lines[-1][4:])
+    print(f"ab tree {res['arch']}: step_s {res['step_s']} profiled step "
+          f"device_ms {res['device_ms']:.3f}, scan backward "
+          f"{res['scan_bwd_ms']:.3f} ms", flush=True)
+    return 0
+
+
+# the device operations of the scans' backward, by kernel name (the
+# forward's passes that the backward reruns carry the forward's names)
+SCAN_BWD_KERNELS = ("wkv6_bwd", "ssd_bwd")
+
+
+def ab_recurrent_worker(arch: str = AB_RECURRENT_ARCH) -> int:
+    """One ab_recurrent_train process: the port on ``sys.path`` (SRC)
+    builds ``arch`` at full width and depth (``build_recurrent``), its
+    remat='full' LoRA loss with the adapters of ``_lora_adapters`` and an
+    AdamW step (as ``recurrent_train``), runs one warm-up step and
+    AB_RECURRENT_STEPS timed steps on RECURRENT_TRAIN's batches (host
+    clock, ending in a synchronize), then one under torch.profiler."""
+    import repro_torch.core
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.lora import make_lora_loss
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    device = torch.device("cuda", 0)
+    model, params = build_recurrent(torch, device, get_arch(arch))
+    cfg = model.cfg
+    S = RECURRENT_TRAIN
+    tmodel = build_model(cfg, remat="full", device=device)
+    loss_fn = make_lora_loss(tmodel, params)
+    adapters = _lora_adapters(torch, device, params, 1)
+    opt = AdamW(lr=1e-4)
+    state = {"params": adapters, "opt": opt.init(adapters),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    step = make_train_step(tmodel, opt, loss_fn=loss_fn)
+    step_s = []
+    for i in range(1 + AB_RECURRENT_STEPS):
+        batch = train_batch(cfg.vocab_size, S["batch"], S["seq"], i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        assert math.isfinite(float(met["loss"])), "loss not finite"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = step(state, train_batch(
+            cfg.vocab_size, S["batch"], S["seq"], 1 + AB_RECURRENT_STEPS))
+        torch.cuda.synchronize()
+    port = os.path.dirname(os.path.dirname(repro_torch.core.__file__))
+    got = profile_kernels(prof, f"{cfg.name} lora step remat=full", top=20)
+    scan = sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in prof.events()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()
+               and any(k in e.name for k in SCAN_BWD_KERNELS))
+    print("ABR " + json.dumps({"port": port, "arch": cfg.name,
+                               "step_s": step_s[1:], "warmup_s": step_s[0],
+                               "scan_bwd_ms": scan, **got}), flush=True)
+    return 0
+
+
 # --------------------------------------------------------------------------
 # training (slice 9, ROADMAP A11b)
 # --------------------------------------------------------------------------
@@ -3460,6 +3570,50 @@ def _bwd_check(label: str, names, got, want, tol) -> float:
     return worst
 
 
+def launch_split(torch, label: str, fn, flush, reps: int = 5) -> dict:
+    """One call's device time by launch: ``reps`` calls of ``fn`` under
+    torch.profiler, the L2 cache flushed before each by ``flush.add_(1)``
+    (``flush`` is the only uint8 tensor, so the device operations on
+    ``unsigned char`` are left out), each device operation's summed time
+    over ``reps``. Prints one line a launch and returns {name: ms a call}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.add_(1)
+            fn()
+        torch.cuda.synchronize()
+    split: dict[str, float] = {}
+    for e in prof.events():
+        if "cuda" in str(getattr(e, "device_type", "")).lower() \
+                and "unsigned char" not in e.name:
+            split[e.name] = split.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    total = sum(split.values())
+    for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"split {label}: {ms:.4f} ms a call share "
+              f"{ms / max(total, 1e-9):.3f} {name[:100]}", flush=True)
+    print(f"split {label}: {total:.4f} ms a call in {len(split)} device "
+          f"operations (profiler, {reps} calls)", flush=True)
+    return split
+
+
+# moe_gmm_bwd's two device launches on the wgmma instance, as the profiler
+# names them: dx on the tile walk's DX instance, dw on its own kernel
+GMM_BWD_KERNELS = ("gmm_wgmma_kernel<__nv_bfloat16, true>",
+                   "gmm_dw_wgmma_kernel<__nv_bfloat16>")
+
+
+def _gmm_bwd_split_check(label: str, split: dict) -> None:
+    """A moe_gmm_bwd call's ``launch_split`` holds exactly its two kernels,
+    GMM_BWD_KERNELS, and no other device operation (no fill of dx)."""
+    found = [k for k in GMM_BWD_KERNELS if any(k in n for n in split)]
+    if len(split) != len(GMM_BWD_KERNELS) or len(found) != len(split):
+        raise AssertionError(f"moe_gmm_bwd {label}: device operations "
+                             f"{sorted(split)}, expected {GMM_BWD_KERNELS}")
+
+
 def bwd_phase(torch, device) -> dict:
     """The three backward kernels against the plain backward (autograd
     through the plain forward, which is what the training path ran before
@@ -3469,17 +3623,21 @@ def bwd_phase(torch, device) -> dict:
 
     * moe_gmm_bwd at granite-moe-1b-a400m's expert products (GMM_BWD_*,
       bfloat16, ragged groups from a random router; the gate product and
-      the down product), on a case with empty groups and rows in no group,
-      and on the sweep through the dense-grouped layout in float32 and
-      bfloat16; the main products timed beside torch.bmm x 2 (dx and dw on
-      the balanced shape, the same operations; a yardstick the port never
-      calls);
+      the down product), on a skewed router (one expert holds GMM_SKEW of
+      the gate product's rows, whose whole depth one dw block sums), on
+      a case with empty groups and rows in no group, and on the sweep
+      through the dense-grouped layout in float32 and bfloat16; the main
+      products timed beside torch.bmm x 2 (dx and dw on the balanced shape,
+      the same operations; a yardstick the port never calls), and the main
+      and skewed products by launch (``launch_split``);
     * ssd_scan_bwd at SSD_MAIN (float32) and on SSD_SWEEP in float32 and
       bfloat16, and on zamba2-7b's ranges against a float64 gradient
       (ssd_bwd_model_range);
     * wkv6_bwd at WKV_MAIN on the model's decay range (float32) and on
       WKV_SWEEP in float32 and bfloat16.
-    Returns each kernel's record at its main shape."""
+    The scans' main shapes are split by launch too. Returns each kernel's
+    record at its main shape (with the splits, and moe_gmm_bwd's down
+    product and skewed case beside it)."""
     from repro_torch.kernels.moe_gmm.ops import (
         gmm_bwd_cost, grouped_matmul_bwd_plain, moe_gmm_bwd)
     from repro_torch.kernels.rwkv6.ops import (wkv6_bwd, wkv6_bwd_cost,
@@ -3516,6 +3674,10 @@ def bwd_phase(torch, device) -> dict:
     off, cnt = off.int(), cnt.int()
     rows = GMM_BWD_TOKENS * k
     hit = int((cnt > 0).sum())
+    print(f"moe_gmm_bwd routing: {rows} rows over {E} experts, largest "
+          f"group {int(cnt.max())} rows, smallest {int(cnt.min())}, mean "
+          f"{rows / E:.1f}, largest/mean {int(cnt.max()) * E / rows:.4f}",
+          flush=True)
     cases = [("gate", randn(rows, D), randn(E, D, Fe), randn(rows, Fe)),
              ("down", randn(rows, Fe), randn(E, Fe, D), randn(rows, D))]
     for label, x32, w32, dy32 in cases:
@@ -3551,14 +3713,46 @@ def bwd_phase(torch, device) -> dict:
               f"balanced) bound_ms {bound_ms:.4f} ({bound_by}) "
               + rate(cost[0], k_ms, bound_ms) + " byte_equal True",
               flush=True)
+        split = launch_split(torch, f"moe_gmm_bwd {label}", lambda: moe_gmm_bwd(
+            x, w, off, cnt, dy), flush)
+        _gmm_bwd_split_check(label, split)
         if label == "gate":
             records["moe_gmm_bwd"] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms, split_ms=split)
         else:
-            records["moe_gmm_bwd"].update(down_ms=k_ms,
-                                          down_bound_ms=bound_ms)
+            records["moe_gmm_bwd"].update(
+                down_ms=k_ms, down_bound_ms=bound_ms, down_library_ms=lib_ms,
+                down_split_ms=split)
         del x, w, dy, got, x3, dy3
+    # skewed groups: one expert holds GMM_SKEW of the gate product's rows
+    big = int(rows * GMM_SKEW)
+    cnt_s = torch.full((E,), (rows - big) // (E - 1), dtype=torch.int32,
+                       device=device)
+    cnt_s[0] = big
+    cnt_s[-1] += rows - int(cnt_s.sum())
+    off_s = (torch.cumsum(cnt_s, 0) - cnt_s).int()
+    x, w, dy = (randn(rows, D).to(torch.bfloat16),
+                randn(E, D, Fe).to(torch.bfloat16),
+                randn(rows, Fe).to(torch.bfloat16))
+    got = twice(moe_gmm_bwd, x, w, off_s, cnt_s, dy)
+    want = grouped_matmul_bwd_plain(x, w, off_s, cnt_s, dy)
+    _bwd_check(f"moe_gmm_bwd skewed rows={rows} D={D} F={Fe} one group of "
+               f"{big} bfloat16", ("dx", "dw"), got, want,
+               gmm_tol("bfloat16", big))
+    del want, got
+    k_ms = _median_ms(lambda: moe_gmm_bwd(x, w, off_s, cnt_s, dy), torch,
+                      flush, reps=10)
+    cost = gmm_bwd_cost(rows, D, Fe, E, E, 2)
+    bound_ms, bound_by = _bound(*cost, F16_FLOPS)
+    print(f"kernel moe_gmm_bwd skewed bfloat16: kernel_ms {k_ms:.4f} "
+          f"bound_ms {bound_ms:.4f} ({bound_by}) "
+          + rate(cost[0], k_ms, bound_ms) + " byte_equal True", flush=True)
+    split = launch_split(torch, "moe_gmm_bwd skewed", lambda: moe_gmm_bwd(
+        x, w, off_s, cnt_s, dy), flush)
+    _gmm_bwd_split_check("skewed", split)
+    records["moe_gmm_bwd"].update(skewed_ms=k_ms, skewed_split_ms=split)
+    del x, w, dy
     # empty groups, rows in no group, one group of 200 rows
     offs = torch.tensor([3, 70, 70, 200, 0], dtype=torch.int32,
                         device=device)
@@ -3642,9 +3836,11 @@ def bwd_phase(torch, device) -> dict:
                       f"{p_ms:.4f} library_ms None bound_ms {bound_ms:.4f} "
                       f"({bound_by}) " + rate(cost[0], k_ms, bound_ms)
                       + " byte_equal True", flush=True)
-                records[name] = dict(max_abs_err=err, ms=k_ms,
-                                     plain_ms=p_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by, library_ms=None)
+                records[name] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    split_ms=launch_split(torch, label, lambda: fn(
+                        *args, chunk=chunk), flush))
             del args, got
             gc.collect()
             torch.cuda.empty_cache()
@@ -4594,6 +4790,11 @@ def main(argv: list[str]) -> int:
         return ab_moe_worker()
     if "--ab-moe-train" in argv:
         return ab_moe_train(argv[argv.index("--ab-moe-train") + 1])
+    if "--ab-recurrent-worker" in argv:
+        rest = argv[argv.index("--ab-recurrent-worker") + 2:]
+        return ab_recurrent_worker(*rest[:1])
+    if "--ab-recurrent-train" in argv:
+        return ab_recurrent_train(argv[argv.index("--ab-recurrent-train") + 1])
     from repro_torch.configs import get_arch
     from repro_torch.core.bridge import inputs_from_reference
     from repro_torch.kernels import build

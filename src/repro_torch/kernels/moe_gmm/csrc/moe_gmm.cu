@@ -72,24 +72,44 @@
 // the model path runs bf16.
 //
 // Backward (moe_gmm_bwd_launch), the VJP at dy [R, F]; the reference has
-// no backward kernel (its models differentiate moe_gmm_ref in XLA):
-//   * dx = dy w[e]^T on each group's rows: the forward's wgmma kernel with
-//     dy as the rows (depth F) and w's boxes of 64 F columns x 128 D rows
-//     read as a K-major B operand (KB), so the same tile walk, ring and
-//     stores serve it. Rows in no group are not written; the wrapper
-//     zeroes dx first.
-//   * dw[e] = x^T dy over the group's rows: gmm_dw_wgmma_kernel, one block
+// no backward kernel (its models differentiate moe_gmm_ref in XLA). At
+// phase 12 (d)'s products (131,072 routed rows, 1024 <-> 512, 32 experts,
+// bf16) the two products need 2.75e11 operations (0.28 ms at 989 TFLOP/s):
+// bound by operations, hence wgmma. Each output element is one sum in a
+// fixed order: no float atomics, two calls give the same bytes.
+//   * dx = dy w[e]^T on each group's rows: gmm_wgmma_kernel's DX
+//     instance, the forward's tile walk, ring and mainloop over dy's rows
+//     (depth F), w's boxes of 64 F columns x 128 D rows read as a K-major
+//     B operand. At depth 512 a tile has 8 stages, so its epilogue weighs:
+//     paired 4-byte stores from registers, as the forward writes, took
+//     0.44 ms of a 0.74 ms call at the gate product. The consumers write
+//     half a tile at a time into a 32 KB shared-memory buffer in the
+//     128-byte swizzle (conflict-free), one thread stores it by TMA and
+//     the consumers go on while the store drains; the buffer is reused
+//     once that store has read it, and a tile ending inside its group
+//     copies only its rows out, 16 bytes a thread. Half a tile leaves room
+//     for 4 stages (a whole-tile buffer for 3, 5% slower on the card). The
+//     epilogue still holds the tensor cores: timed on the card at the gate
+//     product, dx took 0.19 ms with its epilogue cut out and 0.30-0.32 ms
+//     with it; a ping-pong of two warpgroups on 128 x 128 tiles of their
+//     own, taking turns on the tensor cores, took 0.43. dx is not zeroed
+//     first (a fill of 0.08 ms there): the consumers zero the rows in no
+//     group themselves before their first tile, while the producer fills
+//     the ring, so no byte of dx is written twice. The model path's
+//     dropless routing leaves no such row; expert shards and capacity do.
+//   * dw[e] = x^T dy over the group's rows, gmm_dw_wgmma_kernel: one block
 //     per (e, 128 rows of D, 256 columns of F), the group's rows the depth
 //     in 64-row stages (x^T an MN-major A, dy an MN-major B); the rows of
 //     the last stage past the group are zeroed in shared memory, and an
-//     empty group's tile is written as zeros.
+//     empty group's tile is written as zeros. A group's whole depth is one
+//     block's loop, so a group far above the mean sets the time (one
+//     expert with 75% of the gate product's rows: 0.88 ms of dw against
+//     0.22 balanced, on the card). Routing seen so far (phase 12 (d)'s
+//     router) keeps every group near the mean; splitting a group's depth
+//     over blocks waits for a router that does not.
 //   * f32, and 16-bit views TMA cannot read: scalar FMA kernels of the
-//     same tiles as the f32 forward.
-//   Each output element is one block's sum over its depth in a fixed
-//   order: no atomics, two calls give the same bytes. At phase 12 (d)'s
-//   products (131,072 routed rows, 1024 <-> 512, 32 experts, bf16) the two
-//   products need 2.75e11 operations (0.28 ms at 989 TFLOP/s): bound by
-//   operations, hence wgmma.
+//     same tiles as the f32 forward, dx's rows in no group zeroed by every
+//     block's share of the same walk.
 // The kernel allocates nothing and launches on the caller's stream; the
 // tensor maps are encoded on the host for each call (x, w and out change
 // with every call) through one cached driver entry point. The C entry point
@@ -295,21 +315,123 @@ template <> __device__ __forceinline__ void wgmma128<__half, 1, 1>(
 #undef WG_D16
 #undef WG_D8
 
+// The backward's element conversions, and what dx's epilogue uses.
+template <typename T> __device__ __forceinline__ float as_f32(T v);
+template <> __device__ __forceinline__ float as_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float as_f32<__half>(__half v) {
+  return __half2float(v);
+}
+template <> __device__ __forceinline__ float as_f32<__nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T to_type(float v);
+template <> __device__ __forceinline__ float to_type<float>(float v) { return v; }
+template <> __device__ __forceinline__ __half to_type<__half>(float v) {
+  return __float2half_rn(v);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 to_type<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// dx's rows in no group are zero. Warp `part` of `parts` takes 32 rows at a
+// time: a lane walks the groups to find whether its row lies in one, then
+// the warp writes zeros over the rows in none (16 bytes a lane when VEC:
+// rows of a 16-byte multiple, 16-byte aligned). A row in a group is written
+// by its tile alone, so no byte of dx is written twice. Groups are the
+// forward's Args: a.R rows of a.F (dx: D) columns at row stride a.so.
+template <typename T, bool VEC>
+__device__ void zero_bare_rows(const Args& a, T* dx, int64_t part,
+                               int64_t parts) {
+  const int lane = threadIdx.x & 31;
+  for (int64_t r0 = part * 32; r0 < a.R; r0 += parts * 32) {
+    const int64_t r = r0 + lane;
+    bool covered = r >= a.R;
+    for (int e = 0; e < a.E && !covered; ++e) {
+      const int64_t o = a.offsets[e];
+      covered = r >= o && r < o + a.counts[e];
+    }
+    unsigned bare = __ballot_sync(0xffffffffu, !covered);
+    while (bare) {
+      T* row = dx + (r0 + __ffs(bare) - 1) * a.so;
+      bare &= bare - 1;
+      if (VEC) {
+        constexpr int V = 16 / sizeof(T);
+        for (int64_t c = (int64_t)V * lane; c < a.F; c += 32 * V)
+          *reinterpret_cast<uint4*>(row + c) = make_uint4(0, 0, 0, 0);
+      } else {
+        for (int64_t c = lane; c < a.F; c += 32) row[c] = to_type<T>(0.f);
+      }
+    }
+  }
+}
+
+// TMA stores from shared memory (the async proxy), in bulk groups
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// the committed stores are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// the two consumer warpgroups only (the producer warp may have left)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float v0,
+                                                                float v1);
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float v0,
+                                                              float v1) {
+  __half2 h = __floats2half2_rn(v0, v1);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(
+    float v0, float v1) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// dx's epilogue buffer (the tile walk's DX instance): two 64-column boxes
+// of TM rows, half a tile, beside the 4-stage ring
+constexpr uint32_t EPI_BOX = TM * 64 * 2;          // one 64-column box
+constexpr int DX_SMEM = T_SMEM + 2 * EPI_BOX;
+
 // ---------------------------------------------------------------------------
-// 16-bit types on wgmma, loads by TMA (views TMA can read). KB (the
-// backward's dx = dy w[e]^T): w's boxes are 64 columns (the depth, F) x 128
-// rows (the output columns, D), read as a K-major B operand.
+// 16-bit types on wgmma, loads by TMA (views TMA can read). One tile walk
+// for the forward and for the backward's dx = dy w[e]^T (DX): there x is
+// dy (depth F) and w's boxes are 64 columns (the depth) x 128 rows (the
+// output columns, D), read as a K-major B operand. The forward stores each
+// fragment from registers; DX zeroes the rows in no group first and writes
+// its tiles through shared memory and TMA stores (tout), as the header
+// describes.
 // ---------------------------------------------------------------------------
-template <typename T, bool KB>
+template <typename T, bool DX>
 __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
     const Args a, const __grid_constant__ CUtensorMap tx,
-    const __grid_constant__ CUtensorMap tw, const int64_t n_tiles) {
+    const __grid_constant__ CUtensorMap tw,
+    const __grid_constant__ CUtensorMap tout, const int64_t n_tiles) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);   // [TSTAGES]
   uint64_t* empty = full + TSTAGES;                          // [TSTAGES]
   // swizzled tiles start on 1024-byte boundaries
   unsigned char* ring = smem_raw + ((smem_u32(smem_raw) + T_BAR_BYTES +
                                      1023) & ~1023u) - smem_u32(smem_raw);
+  unsigned char* epi = ring + TSTAGES * STAGE_BYTES;   // DX: 1024-aligned
   const int64_t cols = (a.F + TN - 1) / TN;
   const int KT = (int)((a.D + TK - 1) / TK);
   const int tid = threadIdx.x;
@@ -328,13 +450,13 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
   // across tiles, and picks the ring slot and its phase.
   if (tid >= T_CONSUMERS) {
     // ---- producer warp: lane 0 issues every box ----
+    constexpr int box_n = DX ? 128 : 64;      // output columns a box feeds
     uint32_t it = 0;
     for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       int e, rlo, rhi;
       int64_t row0;
       if (!find_tile<TM>(a, t / cols, &e, &row0, &rlo, &rhi)) continue;
       const int n0 = (int)(t % cols) * TN;
-      const int box_n = KB ? 128 : 64;        // output columns a box feeds
       int boxes = 0;                          // boxes of w that start in F
       while (boxes < TN / box_n && n0 + box_n * boxes < a.F) ++boxes;
       const uint32_t bytes = A_BYTES + boxes * (box_n / 64) * B_HALF;
@@ -347,7 +469,7 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
         mbar_expect_tx(&full[st], bytes);
         tma_load(as, &tx, &full[st], kt * TK, (int)row0);
         for (int j = 0; j < boxes; ++j) {
-          if (KB)
+          if constexpr (DX)
             tma_load(as + A_BYTES + j * 2 * B_HALF, &tw, &full[st], kt * TK,
                      n0 + 128 * j, e);
           else
@@ -364,6 +486,10 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
   const int lane = tid % 32, warp = (tid % 128) / 32;
   const uint32_t ring_at = smem_u32(ring);
   T* out = (T*)a.out;
+  if constexpr (DX)            // while the producer fills the ring
+    zero_bare_rows<T, true>(a, out,
+                            (int64_t)blockIdx.x * (T_CONSUMERS / 32) + tid / 32,
+                            (int64_t)gridDim.x * (T_CONSUMERS / 32));
   uint32_t it = 0;
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     int e, rlo, rhi;
@@ -389,12 +515,13 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
 #pragma unroll
       for (int q = 0; q < NT; ++q) pin(d[q]);
       wg_fence();
-      // four k-steps of 16: 32 bytes along x's 128-byte rows, 16 rows of w
+      // four k-steps of 16: 32 bytes along x's 128-byte rows; 16 rows of w
+      // (the forward) or 32 bytes along its 128-byte rows (DX)
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
 #pragma unroll
         for (int q = 0; q < NT; ++q) {
-          if (KB)       // 128 rows of 128 bytes, 32 bytes a k-step
+          if constexpr (DX)
             wgmma128<T, 0, 0>(d[q], smem_desc(as + kk * 32, 16, 1024),
                               smem_desc(bs + 2 * q * B_HALF + kk * 32, 16,
                                         1024));
@@ -409,30 +536,85 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_wgmma_kernel(
       for (int q = 0; q < NT; ++q) pin(d[q]);
       if (kt > 0) mbar_arrive(&empty[(it - 1) % TSTAGES]);
     }
-    if (!live) continue;
-    wg_wait<0>();
+    if constexpr (!DX) {
+      if (!live) continue;
+      wg_wait<0>();
 #pragma unroll
-    for (int q = 0; q < NT; ++q) pin(d[q]);
-    mbar_arrive(&empty[(it - 1) % TSTAGES]);   // the tile's last stage
+      for (int q = 0; q < NT; ++q) pin(d[q]);
+      mbar_arrive(&empty[(it - 1) % TSTAGES]);   // the tile's last stage
 
-    // d[q][4j + 2i + c] is row 16 (warp) + lane / 4 + 8i of the
-    // warpgroup's 64, column n0 + 128q + 8j + 2 (lane % 4) + c; the
-    // producer already loads the next tile meanwhile
+      // d[q][4j + 2i + c] is row 16 (warp) + lane / 4 + 8i of the
+      // warpgroup's 64, column n0 + 128q + 8j + 2 (lane % 4) + c; the
+      // producer already loads the next tile meanwhile
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = wg * 64 + warp * 16 + lane / 4 + 8 * i;
-      if (r < rlo || r >= rhi) continue;
-      T* orow = out + (row0 + r) * a.so;
+      for (int i = 0; i < 2; ++i) {
+        const int r = wg * 64 + warp * 16 + lane / 4 + 8 * i;
+        if (r < rlo || r >= rhi) continue;
+        T* orow = out + (row0 + r) * a.so;
 #pragma unroll
-      for (int q = 0; q < NT; ++q)
+        for (int q = 0; q < NT; ++q)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int64_t col = n0 + 128 * q + 8 * j + 2 * (lane & 3);
-          if (col < a.F)             // F % 8 == 0: the pair is wholly in
-            store2<T>(orow + col, d[q][4 * j + 2 * i],
-                      d[q][4 * j + 2 * i + 1]);
+          for (int j = 0; j < 16; ++j) {
+            const int64_t col = n0 + 128 * q + 8 * j + 2 * (lane & 3);
+            if (col < a.F)           // F % 8 == 0: the pair is wholly in
+              store2<T>(orow + col, d[q][4 * j + 2 * i],
+                        d[q][4 * j + 2 * i + 1]);
+          }
+      }
+    } else {
+      if (live) {
+        wg_wait<0>();
+#pragma unroll
+        for (int q = 0; q < NT; ++q) pin(d[q]);
+        mbar_arrive(&empty[(it - 1) % TSTAGES]);   // the tile's last stage
+      }
+      // the epilogue, one round a 128-column half q: the previous round's
+      // store has read the buffer, then d[q][4j + 2i + c] (row 16 warp +
+      // lane / 4 + 8i of the warpgroup's 64, column 128q + 8j + 2 (lane %
+      // 4) + c) goes to box j / 8, 16-byte chunk (j % 8) ^ (row % 8) of its
+      // 128-byte row
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        const int c0 = n0 + 128 * q;          // the round's first column
+        if (tid == 0) bulk_wait_read();
+        consumers_sync();
+        if (live) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = wg * 64 + warp * 16 + lane / 4 + 8 * i;
+            unsigned char* rowp = epi + r * 128 + 4 * (lane & 3);
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+              *reinterpret_cast<uint32_t*>(rowp + (j / 8) * EPI_BOX +
+                                           (((j & 7) ^ (r & 7)) << 4)) =
+                  pack2<T>(d[q][4 * j + 2 * i], d[q][4 * j + 2 * i + 1]);
+          }
         }
+        fence_proxy_async();
+        consumers_sync();
+        if (rlo == 0 && rhi == TM) {  // every row in the group: TMA stores
+          if (tid == 0) {
+            for (int j = 0; j < 2 && c0 + 64 * j < a.F; ++j)
+              tma_store(&tout, epi + j * EPI_BOX, c0 + 64 * j, (int)row0);
+            bulk_commit();
+          }
+        } else {                      // rows [rlo, rhi), 16 bytes a thread
+          const int n16 = (rhi - rlo) * 16;   // 16 chunks of 16 bytes a row
+          for (int k = tid; k < n16; k += T_CONSUMERS) {
+            const int r = rlo + k / 16, c16 = k % 16;
+            const int64_t col = c0 + 8 * c16;
+            if (col < a.F)           // D % 8 == 0: the chunk is wholly in
+              *reinterpret_cast<uint4*>(out + (row0 + r) * a.so + col) =
+                  *reinterpret_cast<const uint4*>(
+                      epi + (c16 / 8) * EPI_BOX + r * 128 +
+                      (((c16 & 7) ^ (r & 7)) << 4));
+          }
+        }
+      }
     }
+  }
+  if constexpr (DX) {
+    if (tid == 0) bulk_wait();
   }
 }
 
@@ -582,16 +764,8 @@ __global__ void __launch_bounds__(F_THREADS) gmm_f32_kernel(Args a) {
   }
 }
 
-// The two tensor maps of a call: x as [R, D] in boxes of 64 columns x TM
-// rows, w as [E, D, F] in boxes of 64 columns x TK rows of one expert; the
-// 128-byte swizzle, zeros past each bound. Strides in bytes, 16-byte
-// multiples (a dimension of size 1 takes any).
-template <typename T, bool KB = false>
-cudaError_t launch_wgmma(const Args& a, int64_t tiles, cudaStream_t s) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_wgmma_kernel<T, KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T_SMEM);
-  if (attr != cudaSuccess) return attr;
+// The SM count of the current device, read once.
+int sm_count() {
   static const int sms = [] {
     int dev = 0, n = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -600,43 +774,80 @@ cudaError_t launch_wgmma(const Args& a, int64_t tiles, cudaStream_t s) {
       return 0;
     return n;
   }();
+  return sms;
+}
+
+// A 2-d tensor map over a [rows, cols] 16-bit matrix of row stride `stride`
+// elements, in boxes of box_cols x box_rows, the 128-byte swizzle, zeros
+// past each bound (a load) or nothing written there (a store).
+template <typename T>
+bool encode_2d(CUtensorMap* map, const void* p, int64_t cols, int64_t rows,
+               int64_t stride, uint32_t box_cols, uint32_t box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t str[1] = {(cuuint64_t)(rows > 1 ? stride * 2 : 16)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, kMapType<T>, 2, const_cast<void*>(p), dims, str, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// w [E, D, F] as a 3-d tensor map at strides swe and swd (a layer's leaf of
+// stacked [L, E, D, F] weights needs no copy): the forward's boxes of 64
+// columns of F x TK rows of D; the backward's dx (DX) reads boxes of 64
+// columns of F x 128 rows of D, a K-major B operand.
+template <typename T>
+bool encode_w(CUtensorMap* map, const void* w, int64_t D, int64_t F,
+              int64_t E, int64_t swe, int64_t swd, bool DX) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)E};
+  const cuuint64_t str[2] = {(cuuint64_t)(D > 1 ? swd * 2 : 16),
+                             (cuuint64_t)(E > 1 ? swe * 2 : 16)};
+  const cuuint32_t box[3] = {64, DX ? 128u : (cuuint32_t)TK, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, kMapType<T>, 3, const_cast<void*>(w), dims, str, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+
+// The tensor maps of a call: x as [R, D] in boxes of 64 columns x TM rows,
+// w as above; DX, whose Args are the forward's over dy (a.D = F, the depth;
+// a.F = D), reads w K-major and stores dx [R, D] by boxes of 64 columns x
+// TM rows (tout; the forward's is unused). One block per SM.
+template <typename T, bool DX>
+cudaError_t launch_wgmma(const Args& a, int64_t tiles, cudaStream_t s) {
+  constexpr int smem = DX ? DX_SMEM : T_SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_wgmma_kernel<T, DX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return attr;
+  const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidValue;
   const int64_t blocks = tiles * ((a.F + TN - 1) / TN);   // output tiles
   if (a.R > INT_MAX || a.D > INT_MAX || a.F > INT_MAX)
     return cudaErrorInvalidValue;
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorInvalidValue;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  CUtensorMap tx, tw;
-  const cuuint64_t xdims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.R};
-  const cuuint64_t xstr[1] = {(cuuint64_t)(a.R > 1 ? a.sx * 2 : 16)};
-  const cuuint32_t xbox[2] = {64, TM};
-  // w [E, D, F] as the map sees it: the forward's (F, D, E) with boxes of
-  // 64 x TK; KB's w [E, N, K] (the caller's a.F = N, a.D = K) with boxes of
-  // 64 x 128
-  const int64_t w_mid = KB ? a.F : a.D;
-  const cuuint64_t wdims[3] = {(cuuint64_t)(KB ? a.D : a.F),
-                               (cuuint64_t)w_mid, (cuuint64_t)a.E};
-  const cuuint64_t wstr[2] = {(cuuint64_t)(w_mid > 1 ? a.swd * 2 : 16),
-                              (cuuint64_t)(a.E > 1 ? a.swe * 2 : 16)};
-  const cuuint32_t wbox[3] = {64, KB ? 128u : (cuuint32_t)TK, 1};
-  if (encode(&tx, kMapType<T>, 2, const_cast<void*>(a.x), xdims, xstr,
-             xbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&tw, kMapType<T>, 3, const_cast<void*>(a.w), wdims, wstr,
-             wbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  CUtensorMap tx, tw, tout;
+  if (!encode_2d<T>(&tx, a.x, a.D, a.R, a.sx, 64, TM) ||
+      !(DX ? encode_w<T>(&tw, a.w, a.F, a.D, a.E, a.swe, a.swd, true)
+           : encode_w<T>(&tw, a.w, a.D, a.F, a.E, a.swe, a.swd, false)))
     return cudaErrorInvalidValue;
-  gmm_wgmma_kernel<T, KB><<<(unsigned)(blocks < sms ? blocks : sms),
-                            T_THREADS, T_SMEM, s>>>(a, tx, tw, blocks);
+  if (!DX) tout = tw;
+  else if (!encode_2d<T>(&tout, a.out, a.F, a.R, a.so, 64, TM))
+    return cudaErrorInvalidValue;
+  gmm_wgmma_kernel<T, DX><<<(unsigned)(blocks < sms ? blocks : sms),
+                            T_THREADS, smem, s>>>(a, tx, tw, tout, blocks);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// The backward (moe_gmm_bwd_launch): dx = dy w[e]^T on the forward's
-// kernels (the wgmma one with KB), dw[e] = x^T dy over the group's rows.
+// The backward (moe_gmm_bwd_launch): dx = dy w[e]^T on each group's rows,
+// dw[e] = x^T dy over the group's rows.
 // ---------------------------------------------------------------------------
 struct BwdArgs {
   const void* x;      // [R, D], row stride sx
@@ -649,6 +860,7 @@ struct BwdArgs {
   int E;
   int64_t sx, swe, swd, sdy;
 };
+
 
 // dw tiles on wgmma: one block per (e, 128 rows of D, 256 columns of F),
 // two consumer warpgroups of 64 D rows and a producer warp, the group's rows
@@ -724,7 +936,7 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_dw_wgmma_kernel(
         base[box * (B_HALF / 16) + kv * 8 + w16] = make_uint4(0, 0, 0, 0);
       }
       fence_proxy_async();
-      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      consumers_sync();
     }
     const uint32_t as = ring_at + st * STAGE_BYTES + wg * B_HALF;
     const uint32_t bs = ring_at + st * STAGE_BYTES + A_BYTES;
@@ -768,24 +980,6 @@ __global__ void __launch_bounds__(T_THREADS, 1) gmm_dw_wgmma_kernel(
   }
 }
 
-template <typename T> __device__ __forceinline__ float as_f32(T v);
-template <> __device__ __forceinline__ float as_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float as_f32<__half>(__half v) {
-  return __half2float(v);
-}
-template <> __device__ __forceinline__ float as_f32<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T to_type(float v);
-template <> __device__ __forceinline__ float to_type<float>(float v) { return v; }
-template <> __device__ __forceinline__ __half to_type<__half>(float v) {
-  return __float2half_rn(v);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 to_type<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // dx on scalar FMAs (f32, and 16-bit views TMA cannot read): the f32
 // forward kernel's tiles with w read transposed: Bs[k][n] = w[e][n][k].
@@ -797,6 +991,10 @@ __global__ void __launch_bounds__(F_THREADS) gmm_dx_scalar_kernel(
   // the forward's tile lookup over dy's rows (Args: D = F, the depth)
   const Args fa{a.dy, a.w, dx, a.offsets, a.counts, a.R, a.F, a.D, a.E,
                 a.sdy, 0, 0, a.D};
+  // rows in no group: every block takes its share of the walk
+  const int64_t blk = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+  zero_bare_rows<T, false>(fa, dx, blk * (F_THREADS / 32) + threadIdx.x / 32,
+                           (int64_t)gridDim.x * gridDim.y * (F_THREADS / 32));
   int e, rlo, rhi;
   int64_t row0;
   if (!find_tile<BM>(fa, blockIdx.x, &e, &row0, &rlo, &rhi)) return;
@@ -915,27 +1113,13 @@ cudaError_t launch_dw_wgmma(const BwdArgs& a, cudaStream_t s) {
       gmm_dw_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T_SMEM);
   if (attr != cudaSuccess) return attr;
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorInvalidValue;
   const int mtiles = (int)((a.D + TM - 1) / TM);
   const int ntiles = (int)((a.F + TN - 1) / TN);
   const int64_t blocks = (int64_t)a.E * mtiles * ntiles;
   if (blocks > INT_MAX || a.R > INT_MAX) return cudaErrorInvalidValue;
-  const cuuint32_t unit[2] = {1, 1};
   CUtensorMap tx, tdy;
-  const cuuint64_t xdims[2] = {(cuuint64_t)a.D, (cuuint64_t)a.R};
-  const cuuint64_t xstr[1] = {(cuuint64_t)(a.R > 1 ? a.sx * 2 : 16)};
-  const cuuint64_t ydims[2] = {(cuuint64_t)a.F, (cuuint64_t)a.R};
-  const cuuint64_t ystr[1] = {(cuuint64_t)(a.R > 1 ? a.sdy * 2 : 16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)TK};
-  if (encode(&tx, kMapType<T>, 2, const_cast<void*>(a.x), xdims, xstr, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&tdy, kMapType<T>, 2, const_cast<void*>(a.dy), ydims, ystr, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_2d<T>(&tx, a.x, a.D, a.R, a.sx, 64, TK) ||
+      !encode_2d<T>(&tdy, a.dy, a.F, a.R, a.sdy, 64, TK))
     return cudaErrorInvalidValue;
   gmm_dw_wgmma_kernel<T><<<(unsigned)blocks, T_THREADS, T_SMEM, s>>>(
       a, tx, tdy, mtiles, ntiles);
@@ -988,9 +1172,10 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out,
                    D % 8 == 0 && F % 8 == 0 && sx % 8 == 0 &&
                    swe % 8 == 0 && swd % 8 == 0 && so % 8 == 0;
   if (dtype == 1 && tma)
-    return (int)launch_wgmma<__half>(a, (R + TM - 1) / TM + (E < R ? E : R), s);
+    return (int)launch_wgmma<__half, false>(
+        a, (R + TM - 1) / TM + (E < R ? E : R), s);
   if (dtype == 2 && tma)
-    return (int)launch_wgmma<__nv_bfloat16>(
+    return (int)launch_wgmma<__nv_bfloat16, false>(
         a, (R + TM - 1) / TM + (E < R ? E : R), s);
   const int64_t tiles = (R + BM - 1) / BM + (E < R ? E : R);
   const int64_t bn = dtype == 0 ? FBN : BN;
@@ -1007,12 +1192,12 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out,
 
 // The VJP of moe_gmm_launch's function at dy [R, F] (row stride sdy): dx
 // [R, D] and dw [E, D, F], both contiguous, in the inputs' dtype (0 float32,
-// 1 float16, 2 bfloat16); either may be null (not asked). dx's rows in no
-// group are not written (the wrapper zeroes dx first). 16-bit views that
-// TMA can read (moe_gmm_launch's rule, with dy, dx and dw) take the wgmma
-// kernels: dx on gmm_wgmma_kernel with w's boxes read K-major, dw on
-// gmm_dw_wgmma_kernel; other views and float32 the scalar kernels. Returns
-// a cudaError_t (0 on success).
+// 1 float16, 2 bfloat16); either may be null (not asked). Every byte of dx
+// is written once: rows in no group as zeros. 16-bit views that TMA can
+// read (moe_gmm_launch's rule, with dy, dx and dw) take the wgmma kernels:
+// dx on gmm_wgmma_kernel's DX instance, dw on gmm_dw_wgmma_kernel; other
+// views and float32 the scalar kernels. One launch a product asked.
+// Returns a cudaError_t (0 on success).
 extern "C" int moe_gmm_bwd_launch(const void* x, const void* w,
                                   const void* dy, void* dx, void* dw,
                                   const void* offsets, const void* counts,
@@ -1038,7 +1223,7 @@ extern "C" int moe_gmm_bwd_launch(const void* x, const void* w,
   }
   cudaError_t err = cudaSuccess;
   if (dx != nullptr && R > 0) {
-    // the forward's kernel with x -> dy (depth F) and w read K-major
+    // the forward's tile walk with x -> dy (depth F) and w read K-major
     const Args a{dy, w, dx, (const int*)offsets, (const int*)counts,
                  R, F, D, (int)E, sdy, swe, swd, D};
     const int64_t tiles = (R + TM - 1) / TM + (E < R ? E : R);

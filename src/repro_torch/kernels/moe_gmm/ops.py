@@ -32,6 +32,8 @@ shape-only tensor it records :func:`gmm_bwd_cost` under ``moe_gmm_bwd`` and
 allocates what the launch allocates. ``moe_gmm_bwd.launches`` counts its
 calls on the card, ``kernel_launches`` its device launches (one a product
 asked), and ``launches_wgmma`` / ``launches_scalar`` its calls by instance.
+No fill precedes the kernel: it writes dx's rows in no group as zeros
+itself.
 Under grad on the card :func:`grouped_matmul` goes through
 :class:`GroupedMatmulFn`: the forward on one kernel, the backward on the
 other. The rows and the weights get gradients; the integer offsets and
@@ -275,11 +277,12 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
 def _launch_bwd(x, w, offsets, counts, dy, *, need_dx=True, need_dw=True,
                 rows=None):
     """The backward's launches on checked CUDA tensors: one a product
-    asked. dx starts as zeros (the kernel writes the rows in groups).
-    ``rows`` as for :func:`grouped_matmul` (shape-only tensors only)."""
+    asked. dx is allocated empty (the kernel writes its rows in no group
+    as zeros). ``rows`` as for :func:`grouped_matmul` (shape-only tensors
+    only)."""
     R, D = x.shape
     E, _, F = w.shape
-    dx = (torch.zeros((R, D), dtype=x.dtype, device=x.device)
+    dx = (torch.empty((R, D), dtype=x.dtype, device=x.device)
           if need_dx else None)
     dw = (torch.empty((E, D, F), dtype=w.dtype, device=w.device)
           if need_dw else None)
@@ -294,8 +297,9 @@ def _launch_bwd(x, w, offsets, counts, dy, *, need_dx=True, need_dw=True,
     if not (need_dx or need_dw):
         return dx, dw
     if R == 0 or D == 0 or F == 0:
-        if dw is not None:
-            dw.zero_()
+        for t in (dx, dw):             # sums over nothing
+            if t is not None:
+                t.zero_()
         return dx, dw
     err = _bwd_launcher()(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(),

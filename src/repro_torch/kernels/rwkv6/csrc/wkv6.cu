@@ -89,19 +89,22 @@
 //   3. wkv6_bwd_gstates: each chunk's own state gradient
 //      G_c = (r exp(prev))^T dy;
 //   4. wkv6_bwd_carry: the chunks in reverse, G_c overwritten by D_c, the
-//      gradient of the state leaving chunk c;
-//   5. wkv6_bwd_chunk, one block per (b, chunk, h): dA = dy v^T, A as the
-//      forward forms it, dv, dr and dk with each pair's exp(prev_t -
-//      lcw_s), the incoming state and D_c; dlw as the reverse cumulative
-//      sums of the decay terms (sum_q D_c S_{c+1} + sum_{t>i} r_t dr'_t -
-//      sum_{t>=i} k_t dk'_t, in f64), du's partial;
+//      gradient of the state leaving chunk c (loads ahead, as pass 2);
+//   5. wkv6_bwd_chunk<T, MC>, one block per (b, chunk, h): dA = dy v^T, A
+//      as the forward forms it, dv, dr and dk, the pair terms outside the
+//      diagonal sub-blocks factored through the forward's anchors, the
+//      incoming state and D_c; dlw as the reverse cumulative sums of the
+//      decay terms (z + sum_{t>i} r_t dr'_t - sum_{t>=i} k_t dk'_t, in
+//      f64), du's partial (its comment has the layout and phases);
 //   6. wkv6_bwd_du: du over (b, chunk) in a fixed order, in f64.
 // Every exponent is a difference lcw_j - lcw_i with j >= i, so <= 0, as in
 // the forward. No atomics: two calls give the same bytes. At WKV_MAIN it
 // needs ~61 GFLOP (0.91 ms at 67 TFLOP/s f32, wkv6_bwd_ops): bound by
-// operations; the per-pair exponentials are not factored as the forward's
-// are (a first, simple version).
-//
+// operations. Pass 5's products run at 4 x 4 outputs a thread from shared
+// memory, so its reads, not the FMA units, bound it. The workspace (the
+// states and their gradients, [B, H, nc, P, P] each, 1.07 GB at WKV_MAIN)
+// is written and read as before: pass 5 reads S_c, D_c and, for z, S_{c+1}
+// (which the block of the next chunk also reads, mostly from L2).
 // Each kernel allocates nothing and launches on the caller's stream, so
 // the workspace's write by pass 1, its overwrite by pass 2 and its read by
 // pass 3 are ordered by the stream. The C entry point returns the first
@@ -874,9 +877,6 @@ cudaError_t launch_t(const Params& p, cudaStream_t stream) {
 // The backward (wkv6_bwd_launch): the forward's passes 1-2 with groups of
 // one chunk (the state entering every chunk), then four launches.
 // ---------------------------------------------------------------------------
-constexpr int BLD = MAX_C + 1;      // row stride of the [64][64] tiles
-constexpr int BT = MAX_C * BLD;     // one tile, in floats
-
 // Pass 3: G_c = (r exp(prev))^T dy [P, P] of one (b, chunk, h), to gstates.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) wkv6_bwd_gstates(
@@ -935,37 +935,62 @@ __global__ void __launch_bounds__(THREADS) wkv6_bwd_gstates(
       if (p0 + i < P && q0 + j < P) out[(p0 + i) * P + q0 + j] = acc[i][j];
 }
 
-// Pass 4: the reverse carry, one thread per (b, h, state element): over
-// the chunks from the last, G_c overwritten by D_c, the gradient of the
-// state leaving chunk c: D <- exp(lcw_last,c) D + G_c (the last chunk's
-// decay, which pass 1 does not write, multiplies D = 0 and is not read).
+// Pass 4: the reverse carry, one thread per (b, h, V state elements of one
+// row): over the chunks from the last, G_c overwritten by D_c, the gradient
+// of the state leaving chunk c: D <- exp(lcw_last,c) D + G_c (the last
+// chunk's decay, which pass 1 does not write, multiplies D = 0 and is not
+// read). As pass 2, each thread loads PASS_AHEAD chunks' G and decays
+// before it walks them: a walk of dependent loads one chunk at a time is
+// latency-bound (3.9 ms at WKV_MAIN, ten times pass 2).
+template <int V>
 __global__ void __launch_bounds__(PASS_THREADS) wkv6_bwd_carry(
     const BwdParams bp) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
   const Params& prm = bp.f;
   const int P = prm.p;
   const int64_t pp = static_cast<int64_t>(P) * P;
-  const int64_t i = static_cast<int64_t>(blockIdx.y) * PASS_THREADS +
-                    threadIdx.x;
+  const int64_t i = (static_cast<int64_t>(blockIdx.y) * PASS_THREADS +
+                     threadIdx.x) * V;
   if (i >= pp) return;
   const int64_t bh = blockIdx.x;
-  float* st = bp.gstates + bh * prm.nc * pp + i;
+  Vec* st = reinterpret_cast<Vec*>(bp.gstates + bh * prm.nc * pp + i);
+  const int64_t step = pp / V;               // one chunk's states, in Vecs
   const float* dec = prm.decays + bh * prm.nc * P + i / P;
-  float acc = 0.f;
-  for (int c = prm.nc - 1; c >= 0; --c) {
-    const float g = st[c * pp];
-    st[c * pp] = acc;
-    acc = c == prm.nc - 1
-        ? g : __fadd_rn(__fmul_rn(dec[static_cast<int64_t>(c) * P], acc), g);
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  for (int c0 = prm.nc - 1; c0 >= 0; c0 -= PASS_AHEAD) {
+    Vec g[PASS_AHEAD];
+    float d[PASS_AHEAD];
+#pragma unroll
+    for (int k = 0; k < PASS_AHEAD; ++k) {
+      const int c = c0 - k;
+      if (c >= 0) {
+        g[k] = st[c * step];
+        d[k] = c < prm.nc - 1 ? dec[static_cast<int64_t>(c) * P] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PASS_AHEAD; ++k) {
+      const int c = c0 - k;
+      if (c >= 0) {
+        Vec out;
+        float* ov = reinterpret_cast<float*>(&out);
+        const float* gv = reinterpret_cast<const float*>(&g[k]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          ov[j] = acc[j];
+          acc[j] = c == prm.nc - 1
+              ? gv[j] : __fadd_rn(__fmul_rn(d[k], acc[j]), gv[j]);
+        }
+        st[c * step] = out;
+      }
+    }
   }
 }
 
-constexpr int bwd_smem_floats() {
-  // r, k, v, lcw, dy, k exp(lcw_last - lcw), S_c, D_c, A, dA, r dr', k dk'
-  // [64][BLD]; u, lcw_last, z [64]
-  return 12 * BT + 3 * MAX_P;
-}
-
-// Pass 5: the gradients of one (b, chunk, h), c <= 64 rows:
+// Pass 5 (wkv6_bwd_chunk<T, MC>): the gradients of one (b, chunk, h), c <=
+// MC rows, tiles sized to MC:
 //   dA[t,s] = dy_t . v_s (s <= t); A as the forward forms it;
 //   dv_s = sum_{t>=s} A[t,s] dy_t + (k_s exp(lcw_last - lcw_s)) D_c;
 //   dr_t = sum_{s<t} dA[t,s] k_s exp(prev_t - lcw_s) + exp(prev_t) S_c dy_t
@@ -973,30 +998,89 @@ constexpr int bwd_smem_floats() {
 //   dk_s = sum_{t>s} dA[t,s] r_t exp(prev_t - lcw_s)
 //          + exp(lcw_last - lcw_s) D_c v_s + dA[s,s] u r_s;
 //   du's partial sum_t dA[t,t] r_t k_t;
-//   dlw_i = sum_q D_c S_{c+1} + sum_{t>i} r_t dr'_t - sum_{t>=i} k_t dk'_t
-//   (dr', dk' without the bonus), summed in f64 from the last row.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) wkv6_bwd_chunk(
-    const BwdParams bp) {
+//   dlw_i = z + sum_{t>i} r_t dr'_t - sum_{t>=i} k_t dk'_t, z = sum_q D_c
+//   S_{c+1} (dr', dk' without the bonus), summed in f64 from the last row.
+// The pair terms of dr and dk outside the diagonal 8 x 8 sub-blocks are
+// factored through the forward's anchors: for t in sub-block a, s in b < a,
+//   exp(prev_t - lcw_s) = eR_t M_ab eK_s,  eR_t = exp(prev_t - anc_a),
+//   M_ab = exp(anc_a - fin_b),  eK_s = exp(fin_b - lcw_s),
+// so dr_t's part is eR_t sum_b M_ab (sum_{s in b} dA[t,s] kh_s) with
+// kh = k eK, and dk_s's is eK_s sum_a M_ab (sum_{t in a} dA[t,s] rh_t) with
+// rh = r eR: plain products and one factor per (sub-block pair, channel),
+// every factor <= 1. Per-pair exponentials remain inside the diagonal
+// sub-blocks, where a factor through an anchor would be > 1.
+// Layout: f32 tiles [MC][64] of r, k, v, dy, lw (then lcw), rh, kh; k
+// exp(lcw_last - lcw) [MC][65]; S_c and D_c [64][68] (16-byte rows whose
+// neighbours start on other banks); A and dA [MC][MC + 1]; the M factors:
+// ~109 KB at MC = 32, two blocks of 256 threads an SM (tiles sized for 64
+// rows whatever the chunk would take 216 KB, one block an SM). The inputs
+// and both states go in by cp.async in four groups (lw; r and k; dy and v;
+// S_c and D_c), each waited for only by the phase that reads it, so the
+// scan and the rescaled rows run while dy, v and the states land, and the
+// other block of the SM computes meanwhile. Timed by phase on the card
+// (clock64 stamps), no phase waits long on memory: the pass is bound by
+// its instructions, 4 x 4 tiles from shared memory with a load for every
+// two FMAs (4.1 ms at WKV_MAIN, against 29.2 for the first design's one
+// block an SM and per-pair exponentials). Phases, a barrier between each:
+//   A: the column scans; lcw in place of lw, rh, kh, k exp(lcw_last - lcw),
+//      the M factors;
+//   B: A and dA, one warp a 4 x 4 tile below the diagonal at a time, the
+//      channels split over 8 lanes and summed by shuffles (the forward's);
+//   C1: warps 0-3 dv, warps 4-7 dr (r dr' kept in registers), a 4 x 4 tile
+//      a thread: rows 4g .. 4g + 3, columns c, c + 16, c + 32, c + 48, so
+//      that a warp reads 16 neighbouring columns of a row (or 16
+//      neighbouring rows of S_c, D_c) at once;
+//   C2: warps 0-3 dk, k dk' over the k exp(lcw_last - lcw) tile; warps 4-7
+//      r dr' over S_c's, z (a warp a row at a time: 64 products summed in
+//      f64 by shuffles, a fixed order) and du's partial;
+//   D: dlw, 4 threads a channel: each sums its quarter of the rows in f64
+//      from the last, then walks them from the sum of the quarters after it.
+template <int MC> struct BwdTiles {
+  static constexpr int NSB = MC / SB;
+  static constexpr int NOFF = NSB * (NSB - 1) / 2;
+  static constexpr int TILE = MC * MAX_P;
+  static constexpr int KS = MAX_P + 1;          // k exp(lcw_last - lcw)
+  static constexpr int SS = MAX_P + 4;          // S_c, D_c
+  static constexpr int AS = MC + 1;             // A, dA
+  // the offsets, in floats; A's is even (it later holds doubles)
+  static constexpr int R = 0, K = TILE, V = 2 * TILE, DY = 3 * TILE,
+      LC = 4 * TILE, RH = 5 * TILE, KH = 6 * TILE, KT = 7 * TILE,
+      S = KT + MC * KS, D = S + MAX_P * SS, A = D + MAX_P * SS,
+      DA = A + MC * AS, M = DA + MC * AS, U = M + NOFF * MAX_P,
+      LAST = U + MAX_P, FLOATS = LAST + MAX_P;
+  static_assert(A % 2 == 0, "A holds doubles in phases C2 and D");
+  static_assert(MC * AS >= 5 * 2 * MAX_P, "z and dlw's partial sums fit A");
+};
+
+template <typename T, int MC>
+__global__ void __launch_bounds__(THREADS, MC == 32 ? 2 : 1)
+wkv6_bwd_chunk(const BwdParams bp) {
+  using Tl = BwdTiles<MC>;
+  constexpr int NSB = Tl::NSB, KS = Tl::KS, SS = Tl::SS, AS = Tl::AS;
+  constexpr int NTILE = MC / 4 * 16;            // 4 x 4 tiles of [MC][64]
   extern __shared__ __align__(16) float sm[];
-  float* R = sm;
-  float* K = R + BT;
-  float* V = K + BT;
-  float* LC = V + BT;                // lw, then lcw [t][p]
-  float* DY = LC + BT;
-  float* KT = DY + BT;               // k exp(lcw_last - lcw) [s][p]
-  float* Sin = KT + BT;              // S_c [p][q]
-  float* Dout = Sin + BT;            // D_c [p][q]
-  float* At = Dout + BT;             // A [t][s]
-  float* dA = At + BT;               // dA [t][s]
-  float* RD = dA + BT;               // r dr' [t][p]
-  float* KD = RD + BT;               // k dk' [s][p]
-  float* us = KD + BT;               // u [p]
-  float* lastp = us + MAX_P;         // lcw_last [p]
-  float* zs = lastp + MAX_P;         // sum_q D_c S_{c+1} [p]
+  float* R = sm + Tl::R;
+  float* K = sm + Tl::K;
+  float* V = sm + Tl::V;
+  float* DY = sm + Tl::DY;
+  float* LC = sm + Tl::LC;       // lw, then lcw
+  float* RH = sm + Tl::RH;       // r exp(prev - lcw before its sub-block)
+  float* KH = sm + Tl::KH;       // k exp(lcw after its sub-block - lcw)
+  float* KT = sm + Tl::KT;       // k exp(lcw_last - lcw) [MC][KS]; then k dk'
+  float* Ssm = sm + Tl::S;       // S_c [p][q]; then r dr' [MC][64]
+  float* Dsm = sm + Tl::D;       // D_c [p][q]
+  float* At = sm + Tl::A;        // A [t][s]; then z and dlw's sums (f64)
+  float* dA = sm + Tl::DA;       // dA [t][s]
+  float* M = sm + Tl::M;         // [pair(a, b)][64]
+  float* us = sm + Tl::U;        // u
+  float* lastp = sm + Tl::LAST;  // lcw_last
+  double* zs = reinterpret_cast<double*>(At);   // [64]
+  double* seg = zs + MAX_P;                     // [4][64]
+
   const Params& prm = bp.f;
   const BlockPos pos(prm);
   const int P = prm.p, C = prm.chunk, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int ci = pos.g;
   const int64_t rs = static_cast<int64_t>(prm.heads) * P;
   const int64_t t0 = static_cast<int64_t>(ci) * C;
@@ -1006,234 +1090,510 @@ __global__ void __launch_bounds__(THREADS, 1) wkv6_bwd_chunk(
   const int64_t slot = (static_cast<int64_t>(pos.b) * prm.heads + pos.h) *
                            prm.nc + ci;
   const int64_t pp = static_cast<int64_t>(P) * P;
-  const int i0 = 4 * (tid / 16), j0 = 4 * (tid % 16);
+  const bool vec = prm.vec;
 
-  {
-    const T* src[5] = {static_cast<const T*>(prm.r) + off,
-                       static_cast<const T*>(prm.k) + off,
-                       static_cast<const T*>(prm.v) + off,
-                       static_cast<const T*>(prm.lw) + off,
-                       static_cast<const T*>(bp.dy) + off};
-    float* dst[5] = {R, K, V, LC, DY};
+  // ---- staging: four cp.async groups ----
+  stage<T, MC>(LC, static_cast<const T*>(prm.lw) + off, rs, nv, P, vec, tid);
+  cp_commit();
+  stage<T, MC>(R, static_cast<const T*>(prm.r) + off, rs, nv, P, vec, tid);
+  stage<T, MC>(K, static_cast<const T*>(prm.k) + off, rs, nv, P, vec, tid);
+  cp_commit();
+  stage<T, MC>(DY, static_cast<const T*>(bp.dy) + off, rs, nv, P, vec, tid);
+  stage<T, MC>(V, static_cast<const T*>(prm.v) + off, rs, nv, P, vec, tid);
+  cp_commit();
+  {  // S_c and D_c [P][P] into [64][SS], zeros past P
+    const float* sg = prm.states + slot * pp;
+    const float* dg = bp.gstates + slot * pp;
+    const bool v4 = P % 4 == 0;
+    for (int i = tid; i < MAX_P * Q4; i += THREADS) {
+      const int p = i / Q4, q = (i % Q4) * 4;
+      if (v4) {
+        const bool ok = p < P && q < P;
+        cp_async16(Ssm + p * SS + q, ok ? sg + p * P + q : sg, ok);
+        cp_async16(Dsm + p * SS + q, ok ? dg + p * P + q : dg, ok);
+      } else {
 #pragma unroll
-    for (int m = 0; m < 5; ++m)
-      for (int i = tid; i < MAX_C * MAX_C; i += THREADS) {
-        const int t = i / MAX_C, q = i % MAX_C;
-        dst[m][t * BLD + q] =
-            t < nv && q < P ? to_f32(src[m][t * rs + q]) : 0.f;
-      }
-    for (int i = tid; i < MAX_P * MAX_P; i += THREADS) {
-      const int p = i / MAX_P, q = i % MAX_P;
-      const bool ok = p < P && q < P;
-      Sin[p * BLD + q] = ok ? prm.states[slot * pp + p * P + q] : 0.f;
-      Dout[p * BLD + q] = ok ? bp.gstates[slot * pp + p * P + q] : 0.f;
-    }
-    if (tid < MAX_P) us[tid] = tid < P ? prm.u[pos.h * P + tid] : 0.f;
-  }
-  __syncthreads();
-  if (tid < MAX_P) {                // the column scan; z
-    const int p = tid;
-    float run = 0.f;
-    for (int t = 0; t < C; ++t) {
-      run += LC[t * BLD + p];
-      LC[t * BLD + p] = run;
-    }
-    lastp[p] = run;
-    double z = 0.0;
-    if (ci + 1 < prm.nc && p < P) {
-      const float* next = prm.states + (slot + 1) * pp + p * P;
-      for (int q = 0; q < P; ++q)
-        z += static_cast<double>(Dout[p * BLD + q]) *
-             static_cast<double>(next[q]);
-    }
-    zs[p] = static_cast<float>(z);
-  }
-  __syncthreads();
-  for (int i = tid; i < MAX_C * MAX_P; i += THREADS) {
-    const int s = i / MAX_P, p = i % MAX_P;
-    KT[s * BLD + p] = K[s * BLD + p] * __expf(lastp[p] - LC[s * BLD + p]);
-  }
-  {  // dA = dy v^T and A, below the diagonal
-    float da[4][4], a[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) da[i][j] = a[i][j] = 0.f;
-    if (j0 <= i0 + 3) {
-      for (int q = 0; q < MAX_P; ++q) {
-        float yv[4], vv[4], rv[4], kv[4], pv[4], lv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = i0 + i, s = j0 + i;
-          yv[i] = DY[t * BLD + q];
-          vv[i] = V[s * BLD + q];
-          rv[i] = R[t * BLD + q];
-          kv[i] = K[s * BLD + q];
-          pv[i] = t > 0 ? LC[(t - 1) * BLD + q] : 0.f;
-          lv[i] = LC[s * BLD + q];
+        for (int k = 0; k < 4; ++k) {
+          const bool ok = p < P && q + k < P;
+          Ssm[p * SS + q + k] = ok ? sg[p * P + q + k] : 0.f;
+          Dsm[p * SS + q + k] = ok ? dg[p * P + q + k] : 0.f;
         }
+      }
+    }
+  }
+  cp_commit();
+  if (tid < MAX_P) us[tid] = tid < P ? prm.u[pos.h * P + tid] : 0.f;
+  const int cp = tid % MAX_P, sg0 = tid / MAX_P;
+
+  // ---- A: the column scans and the rescaled rows ----
+  cp_wait<2>();      // lw, r, k
+  __syncthreads();
+  {
+    const Scan<MC> sc(LC, cp, sg0);
+    __syncthreads();   // every column read before lcw overwrites lw
+#pragma unroll
+    for (int o = 0; o < Scan<MC>::NO; ++o) {
+      const int sg = sg0 + 4 * o;
+#pragma unroll
+      for (int r = 0; r < SB; ++r) {
+        const int t = SB * sg + r, e = t * MAX_P + cp;
+        const float lc = sc.own[o][r];
+        const float prev = r == 0 ? sc.start[o] : sc.own[o][r - 1];
+        const float kv = K[e];
+        LC[e] = lc;
+        RH[e] = R[e] * __expf(prev - sc.start[o]);
+        KH[e] = kv * __expf(sc.fin[o] - lc);
+        KT[t * KS + cp] = kv * __expf(sc.last - lc);
+      }
+#pragma unroll
+      for (int a = 1; a < NSB; ++a)
+        if (a > sg)
+          M[(a * (a - 1) / 2 + sg) * MAX_P + cp] = __expf(sc.anc[a] - sc.fin[o]);
+    }
+    if (sg0 == 0) lastp[cp] = sc.last;
+  }
+
+  // ---- B: A and dA, below the diagonal ----
+  cp_wait<1>();      // dy, v
+  __syncthreads();
+  {
+    constexpr int NLT = (MC / 4) * (MC / 4 + 1) / 2;   // 4 x 4 tiles
+    for (int task = warp; 4 * task < NLT; task += THREADS / 32) {
+      const int lt = 4 * task + lane / 8, part = lane % 8;
+      const bool have = lt < NLT;
+      int tr = 0;                      // tile row tr, column tc <= tr
+      while ((tr + 1) * (tr + 2) / 2 <= lt) ++tr;
+      const int tc = have ? lt - tr * (tr + 1) / 2 : 0;
+      const int tt = 4 * tr, ss = 4 * tc;
+      const int a = tt / SB, b = ss / SB;
+      float da[16], aa[16];
+#pragma unroll
+      for (int x = 0; x < 16; ++x) da[x] = aa[x] = 0.f;
+      if (have) {
+#pragma unroll
+        for (int it = 0; it < 2; ++it) {
+          const int ch = 4 * (part + 8 * it);
+          float4 yv[4], vv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            yv[i] = f4(DY + (tt + i) * MAX_P + ch);
+            vv[i] = f4(V + (ss + i) * MAX_P + ch);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float x = da[4 * i + j];
+              x = fmaf(yv[i].x, vv[j].x, x);
+              x = fmaf(yv[i].y, vv[j].y, x);
+              x = fmaf(yv[i].z, vv[j].z, x);
+              x = fmaf(yv[i].w, vv[j].w, x);
+              da[4 * i + j] = x;
+            }
+          if (a > b) {                 // rh_t m_ab kh_s
+            const float4 m = f4(M + (a * (a - 1) / 2 + b) * MAX_P + ch);
+            float4 kh[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) kh[j] = f4(KH + (ss + j) * MAX_P + ch);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 rh = f4(RH + (tt + i) * MAX_P + ch);
+              const float4 rm = make_float4(rh.x * m.x, rh.y * m.y,
+                                            rh.z * m.z, rh.w * m.w);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                float x = aa[4 * i + j];
+                x = fmaf(rm.x, kh[j].x, x);
+                x = fmaf(rm.y, kh[j].y, x);
+                x = fmaf(rm.z, kh[j].z, x);
+                x = fmaf(rm.w, kh[j].w, x);
+                aa[4 * i + j] = x;
+              }
+            }
+          } else {                     // the diagonal sub-block: per pair
+            float4 kk[4], ll[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              kk[j] = f4(K + (ss + j) * MAX_P + ch);
+              ll[j] = f4(LC + (ss + j) * MAX_P + ch);
+            }
+            const float4 uu = f4(us + ch);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int t = tt + i;
+              const float4 rr = f4(R + t * MAX_P + ch);
+              const float4 pv = t > 0 ? f4(LC + (t - 1) * MAX_P + ch)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int s = ss + j;
+                float x = aa[4 * i + j];
+                if (s < t) {
+                  x = fmaf(rr.x * __expf(pv.x - ll[j].x), kk[j].x, x);
+                  x = fmaf(rr.y * __expf(pv.y - ll[j].y), kk[j].y, x);
+                  x = fmaf(rr.z * __expf(pv.z - ll[j].z), kk[j].z, x);
+                  x = fmaf(rr.w * __expf(pv.w - ll[j].w), kk[j].w, x);
+                } else if (s == t) {   // the bonus
+                  x = fmaf(rr.x * uu.x, kk[j].x, x);
+                  x = fmaf(rr.y * uu.y, kk[j].y, x);
+                  x = fmaf(rr.z * uu.z, kk[j].z, x);
+                  x = fmaf(rr.w * uu.w, kk[j].w, x);
+                }
+                aa[4 * i + j] = x;
+              }
+            }
+          }
+        }
+      }
+      reduce_scatter<3>(da, lane);
+      reduce_scatter<3>(aa, lane);
+      const int base = scatter_base<3>(lane);
+      if (have) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int idx = base + x, i = idx / 4, j = idx % 4;
+          const int t = tt + i, s = ss + j;
+          dA[t * AS + s] = s <= t ? da[x] : 0.f;
+          At[t * AS + s] = s <= t ? aa[x] : 0.f;
+        }
+      }
+    }
+  }
+
+  // ---- C1: dv (warps 0-3) and dr (warps 4-7) ----
+  cp_wait<0>();      // S_c, D_c
+  __syncthreads();
+  const int grp = tid / 128, gt = tid % 128;
+  constexpr int NT = NTILE / 128;                // tiles a thread: 1 or 2
+  T* dvg = static_cast<T*>(bp.dv) + off;
+  T* drg = static_cast<T*>(bp.dr) + off;
+  T* dkg = static_cast<T*>(bp.dk) + off;
+  float rd[NT][16];                               // r dr' of the dr tiles
+  for (int n = 0; n < NT; ++n) {
+    const int tau = gt + 128 * n;
+    const int r0 = 4 * (tau / 16), cg = tau % 16;
+    float acc[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+    if (grp == 0) {
+      // dv[s][q], rows s = r0.., columns q = cg + 16j: A^T dy, then k' D_c
+      for (int t = r0; t < MC; ++t) {
+        float av[4], yv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = At[t * AS + r0 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) yv[j] = DY[t * MAX_P + cg + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[4 * i + j] = fmaf(av[i], yv[j], acc[4 * i + j]);
+      }
+#pragma unroll 4
+      for (int p = 0; p < MAX_P; ++p) {
+        float kv[4], dv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) kv[i] = KT[(r0 + i) * KS + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dv[j] = Dsm[p * SS + cg + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[4 * i + j] = fmaf(kv[i], dv[j], acc[4 * i + j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s = r0 + i, q = cg + 16 * j;
+          if (s < nv && q < P) dvg[s * rs + q] = from_f32<T>(acc[4 * i + j]);
+        }
+    } else {
+      // dr[t][p], rows t = r0.. in sub-block a, columns p = cg + 16j
+      const int a = r0 / SB;
+      float pv[16];                   // prev_t = lcw_{t-1}
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int t = r0 + i;
+          pv[4 * i + j] = t > 0 ? LC[(t - 1) * MAX_P + cg + 16 * j] : 0.f;
+        }
+      // the state term: exp(prev_t) sum_q S_c[p][q] dy_t[q]
+#pragma unroll 2
+      for (int q = 0; q < MAX_P; q += 4) {
+        float4 yv[4], sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) yv[i] = f4(DY + (r0 + i) * MAX_P + q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sv[j] = f4(Ssm + (cg + 16 * j) * SS + q);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int t = i0 + i, s = j0 + j;
-            da[i][j] = fmaf(yv[i], vv[j], da[i][j]);
-            if (s < t)
-              a[i][j] = fmaf(rv[i] * __expf(pv[i] - lv[j]), kv[j], a[i][j]);
-            else if (s == t)
-              a[i][j] = fmaf(rv[i] * us[q], kv[j], a[i][j]);
+            float x = acc[4 * i + j];
+            x = fmaf(yv[i].x, sv[j].x, x);
+            x = fmaf(yv[i].y, sv[j].y, x);
+            x = fmaf(yv[i].z, sv[j].z, x);
+            x = fmaf(yv[i].w, sv[j].w, x);
+            acc[4 * i + j] = x;
           }
       }
-    }
+      float out[16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int x = 0; x < 16; ++x) out[x] = __expf(pv[x]) * acc[x];
+      // the sub-blocks before a: eR_t sum_b M_ab sum_{s in b} dA[t,s] kh_s
+#pragma unroll
+      for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+      for (int b = 0; b < a; ++b) {
+        float y[16];
+#pragma unroll
+        for (int x = 0; x < 16; ++x) y[x] = 0.f;
+#pragma unroll
+        for (int s = SB * b; s < SB * b + SB; ++s) {
+          float dv4[4], kv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dv4[i] = dA[(r0 + i) * AS + s];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) kv[j] = KH[s * MAX_P + cg + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              y[4 * i + j] = fmaf(dv4[i], kv[j], y[4 * i + j]);
+        }
+        const int pr = (a * (a - 1) / 2 + b) * MAX_P;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float m = M[pr + cg + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[4 * i + j] = fmaf(m, y[4 * i + j], acc[4 * i + j]);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int t = i0 + i, s = j0 + j;
-        const bool in = s <= t && t < C;
-        dA[t * BLD + s] = in ? da[i][j] : 0.f;
-        At[t * BLD + s] = in ? a[i][j] : 0.f;
+        const float anc = a > 0 ? LC[(SB * a - 1) * MAX_P + cg + 16 * j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          out[4 * i + j] = fmaf(__expf(pv[4 * i + j] - anc), acc[4 * i + j],
+                                out[4 * i + j]);
       }
+      // inside sub-block a: sum_{s<t} dA[t,s] k_s exp(prev_t - lcw_s)
+      for (int s = SB * a; s < r0 + 3; ++s) {
+        float kv[4], lv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kv[j] = K[s * MAX_P + cg + 16 * j];
+          lv[j] = LC[s * MAX_P + cg + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (s >= r0 + i) continue;
+          const float w = dA[(r0 + i) * AS + s];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            out[4 * i + j] = fmaf(w * kv[j], __expf(pv[4 * i + j] - lv[j]),
+                                  out[4 * i + j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = r0 + i;
+        const float dd = dA[t * AS + t];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = cg + 16 * j, e = t * MAX_P + p;
+          rd[n][4 * i + j] = R[e] * out[4 * i + j];
+          if (t < nv && p < P)
+            drg[t * rs + p] =
+                from_f32<T>(out[4 * i + j] + dd * us[p] * K[e]);
+        }
+      }
+    }
   }
   __syncthreads();
 
-  T* dvg = static_cast<T*>(bp.dv) + off;
-  T* drg = static_cast<T*>(bp.dr) + off;
-  T* dkg = static_cast<T*>(bp.dk) + off;
-  {  // dv [s][q]
-    float acc[4][4];
+  // ---- C2: dk (warps 0-3); r dr', z, du's partial (warps 4-7) ----
+  float* KD = KT;                       // k dk' [MC][64]
+  float* RD = Ssm;                      // r dr' [MC][64]
+  if (grp == 0) {
+    for (int n = 0; n < NT; ++n) {
+      const int tau = gt + 128 * n;
+      const int r0 = 4 * (tau / 16), cg = tau % 16;
+      const int b = r0 / SB;
+      float acc[16], out[16], lv[16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int t = i0; t < C; ++t)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = At[t * BLD + i0 + i];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(w, DY[t * BLD + j0 + j], acc[i][j]);
-      }
-    for (int p = 0; p < MAX_P; ++p)
+          lv[4 * i + j] = LC[(r0 + i) * MAX_P + cg + 16 * j];
+      // the state term: exp(lcw_last - lcw_s) sum_q D_c[p][q] v_s[q]
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = KT[(i0 + i) * BLD + p];
+      for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+#pragma unroll 2
+      for (int q = 0; q < MAX_P; q += 4) {
+        float4 vv[4], dv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(w, Dout[p * BLD + j0 + j], acc[i][j]);
-      }
+        for (int i = 0; i < 4; ++i) vv[i] = f4(V + (r0 + i) * MAX_P + q);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (i0 + i < nv && j0 + j < P)
-          dvg[(i0 + i) * rs + j0 + j] = from_f32<T>(acc[i][j]);
-  }
-  {  // dr [t][p]
-    float ra[4][4], rsd[4][4], pv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = i0 + i;
-        ra[i][j] = rsd[i][j] = 0.f;
-        pv[i][j] = t > 0 ? LC[(t - 1) * BLD + j0 + j] : 0.f;
-      }
-    for (int s = 0; s < i0 + 3 && s < C; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kv = K[s * BLD + j0 + j], lv = LC[s * BLD + j0 + j];
+        for (int j = 0; j < 4; ++j) dv[j] = f4(Dsm + (cg + 16 * j) * SS + q);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (s < i0 + i)
-            ra[i][j] = fmaf(dA[(i0 + i) * BLD + s] * kv,
-                            __expf(pv[i][j] - lv), ra[i][j]);
-      }
-    for (int q = 0; q < MAX_P; ++q)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float y = DY[(i0 + i) * BLD + q];
+          for (int j = 0; j < 4; ++j) {
+            float x = acc[4 * i + j];
+            x = fmaf(vv[i].x, dv[j].x, x);
+            x = fmaf(vv[i].y, dv[j].y, x);
+            x = fmaf(vv[i].z, dv[j].z, x);
+            x = fmaf(vv[i].w, dv[j].w, x);
+            acc[4 * i + j] = x;
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          rsd[i][j] = fmaf(Sin[(j0 + j) * BLD + q], y, rsd[i][j]);
+          out[4 * i + j] = __expf(lastp[cg + 16 * j] - lv[4 * i + j]) *
+                           acc[4 * i + j];
+      // the sub-blocks after b: eK_s sum_a M_ab sum_{t in a} dA[t,s] rh_t
+#pragma unroll
+      for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+      for (int a = b + 1; a < NSB; ++a) {
+        float y[16];
+#pragma unroll
+        for (int x = 0; x < 16; ++x) y[x] = 0.f;
+#pragma unroll
+        for (int t = SB * a; t < SB * a + SB; ++t) {
+          float dv4[4], rv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dv4[i] = dA[t * AS + r0 + i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) rv[j] = RH[t * MAX_P + cg + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              y[4 * i + j] = fmaf(dv4[i], rv[j], y[4 * i + j]);
+        }
+        const int pr = (a * (a - 1) / 2 + b) * MAX_P;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float m = M[pr + cg + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[4 * i + j] = fmaf(m, y[4 * i + j], acc[4 * i + j]);
+        }
       }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = i0 + i;
-      const float dd = dA[t * BLD + t];
-#pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int p = j0 + j;
-        const float d1 = ra[i][j] + __expf(pv[i][j]) * rsd[i][j];
-        RD[t * BLD + p] = R[t * BLD + p] * d1;
-        if (t < nv && p < P)
-          drg[t * rs + p] =
-              from_f32<T>(d1 + dd * us[p] * K[t * BLD + p]);
+        const float fin = LC[(SB * b + SB - 1) * MAX_P + cg + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          out[4 * i + j] = fmaf(__expf(fin - lv[4 * i + j]), acc[4 * i + j],
+                                out[4 * i + j]);
+      }
+      // inside sub-block b: sum_{t>s} dA[t,s] r_t exp(prev_t - lcw_s)
+      for (int t = r0 + 1; t < SB * b + SB; ++t) {
+        float rv[4], pv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          rv[j] = R[t * MAX_P + cg + 16 * j];
+          pv[j] = LC[(t - 1) * MAX_P + cg + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (t <= r0 + i) continue;
+          const float w = dA[t * AS + r0 + i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            out[4 * i + j] = fmaf(w * rv[j], __expf(pv[j] - lv[4 * i + j]),
+                                  out[4 * i + j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = r0 + i;
+        const float dd = dA[s * AS + s];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = cg + 16 * j, e = s * MAX_P + p;
+          KD[e] = K[e] * out[4 * i + j];
+          if (s < nv && p < P)
+            dkg[s * rs + p] =
+                from_f32<T>(out[4 * i + j] + dd * us[p] * R[e]);
+        }
       }
     }
-  }
-  {  // dk [s][p]
-    float ka[4][4], ks[4][4];
+  } else {
+    for (int n = 0; n < NT; ++n) {
+      const int tau = gt + 128 * n;
+      const int r0 = 4 * (tau / 16), cg = tau % 16;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[i][j] = ks[i][j] = 0.f;
-    float lv[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lv[i][j] = LC[(i0 + i) * BLD + j0 + j];
-    for (int t = i0 + 1; t < C; ++t)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float rv = R[t * BLD + j0 + j];
-        const float pv = LC[(t - 1) * BLD + j0 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (t > i0 + i)
-            ka[i][j] = fmaf(dA[t * BLD + i0 + i] * rv,
-                            __expf(pv - lv[i][j]), ka[i][j]);
-      }
-    for (int q = 0; q < MAX_P; ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float vv = V[(i0 + i) * BLD + q];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          ks[i][j] = fmaf(Dout[(j0 + j) * BLD + q], vv, ks[i][j]);
+          RD[(r0 + i) * MAX_P + cg + 16 * j] = rd[n][4 * i + j];
+    }
+    // z_p = sum_q D_c[p][q] S_{c+1}[p][q]: warp 4 + w, rows 16w .. 16w + 15,
+    // every load of S_{c+1} issued before the first sum (one wait for the
+    // 16 rows, not one a row)
+    const bool next = ci + 1 < prm.nc;
+    const float* sn = prm.states + (slot + 1) * pp;
+    const int p0 = 16 * (warp - 4);
+    float sv[16][2];
+#pragma unroll
+    for (int pi = 0; pi < 16; ++pi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + pi, q = lane + 32 * h;
+        sv[pi][h] = next && p < P && q < P ? sn[p * P + q] : 0.f;
       }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = i0 + i;
-      const float dd = dA[s * BLD + s];
+    for (int pi = 0; pi < 16; ++pi) {
+      const int p = p0 + pi;
+      double z = 0.0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = j0 + j;
-        const float d1 =
-            ka[i][j] + __expf(lastp[p] - lv[i][j]) * ks[i][j];
-        KD[s * BLD + p] = K[s * BLD + p] * d1;
-        if (s < nv && p < P)
-          dkg[s * rs + p] =
-              from_f32<T>(d1 + dd * us[p] * R[s * BLD + p]);
-      }
+      for (int h = 0; h < 2; ++h)
+        z += static_cast<double>(Dsm[p * SS + lane + 32 * h]) *
+             static_cast<double>(sv[pi][h]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
+      if (lane == 0) zs[p] = z;
+    }
+    if (gt < MAX_P) {                  // du's partial, channel p, in order
+      const int p = gt;
+      float du = 0.f;
+      for (int t = 0; t < MC; ++t)
+        du = fmaf(dA[t * AS + t] * R[t * MAX_P + p], K[t * MAX_P + p], du);
+      if (p < P)
+        bp.du_part[((static_cast<int64_t>(pos.b) * prm.nc + ci) * prm.heads +
+                    pos.h) * P + p] = du;
     }
   }
   __syncthreads();
-  if (tid < MAX_P) {                // dlw and du's partial, channel p
-    const int p = tid;
-    double acc = zs[p];
-    float du = 0.f;
-    T* dlg = static_cast<T*>(bp.dlw) + off;
-    for (int t = C - 1; t >= 0; --t) {
-      acc -= static_cast<double>(KD[t * BLD + p]);
-      if (t < nv && p < P) dlg[t * rs + p] = from_f32<T>(static_cast<float>(acc));
-      acc += static_cast<double>(RD[t * BLD + p]);
+
+  // ---- D: dlw, channel p, quarter g of the rows, in f64 ----
+  {
+    constexpr int Q = MC / 4;
+    const int p = tid % MAX_P, g = tid / MAX_P;
+    double e = 0.0;
+    for (int t = Q * g + Q - 1; t >= Q * g; --t) {
+      e -= static_cast<double>(KD[t * MAX_P + p]);
+      e += static_cast<double>(RD[t * MAX_P + p]);
     }
-    for (int t = 0; t < C; ++t)
-      du = fmaf(dA[t * BLD + t] * R[t * BLD + p], K[t * BLD + p], du);
-    if (p < P)
-      bp.du_part[((static_cast<int64_t>(pos.b) * prm.nc + ci) * prm.heads +
-                  pos.h) * P + p] = du;
+    seg[g * MAX_P + p] = e;
+    __syncthreads();
+    double acc = zs[p];
+    for (int h = 3; h > g; --h) acc += seg[h * MAX_P + p];
+    T* dlg = static_cast<T*>(bp.dlw) + off;
+    for (int t = Q * g + Q - 1; t >= Q * g; --t) {
+      acc -= static_cast<double>(KD[t * MAX_P + p]);
+      if (t < nv && p < P)
+        dlg[t * rs + p] = from_f32<T>(static_cast<float>(acc));
+      acc += static_cast<double>(RD[t * MAX_P + p]);
+    }
   }
 }
 
@@ -1254,12 +1614,12 @@ __global__ void __launch_bounds__(PASS_THREADS) wkv6_bwd_du(
 template <typename T, int MC>
 cudaError_t launch_bwd(const BwdParams& bp, cudaStream_t stream) {
   constexpr int st_bytes = states_smem_floats<MC>() * 4;
-  constexpr int bwd_bytes = bwd_smem_floats() * 4;
+  constexpr int bwd_bytes = BwdTiles<MC>::FLOATS * 4;
   static const cudaError_t attr1 = cudaFuncSetAttribute(
       wkv6_states<T, MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       st_bytes);
   static const cudaError_t attr5 = cudaFuncSetAttribute(
-      wkv6_bwd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv6_bwd_chunk<T, MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bwd_bytes);
   if (attr1 != cudaSuccess) return attr1;
   if (attr5 != cudaSuccess) return attr5;
@@ -1283,14 +1643,12 @@ cudaError_t launch_bwd(const BwdParams& bp, cudaStream_t stream) {
   wkv6_bwd_gstates<T><<<static_cast<unsigned>(blocks), THREADS, 0,
                         stream>>>(bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 rev_grid(static_cast<unsigned>(p.batch * p.heads),
-                      static_cast<unsigned>((pp + PASS_THREADS - 1) /
-                                            PASS_THREADS));
-  wkv6_bwd_carry<<<rev_grid, PASS_THREADS, 0, stream>>>(bp);
+  if (v == 4) wkv6_bwd_carry<4><<<pass_grid, PASS_THREADS, 0, stream>>>(bp);
+  else wkv6_bwd_carry<1><<<pass_grid, PASS_THREADS, 0, stream>>>(bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 5: the per-chunk gradients; 6: du
-  wkv6_bwd_chunk<T><<<static_cast<unsigned>(blocks), THREADS, bwd_bytes,
-                      stream>>>(bp);
+  wkv6_bwd_chunk<T, MC><<<static_cast<unsigned>(blocks), THREADS, bwd_bytes,
+                          stream>>>(bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int64_t hp = static_cast<int64_t>(p.heads) * p.p;
   wkv6_bwd_du<<<static_cast<unsigned>((hp + PASS_THREADS - 1) / PASS_THREADS),

@@ -4,21 +4,27 @@
 
 A CUDA kernel cannot run here, so each emulation repeats its kernel's
 passes as the source describes them: the grouped matmul's dx product
-(``dy @ w[e]^T``, zeros for rows in no group) and its dw product over the
-group's rows in 64-row steps, rows past the group zeroed; the SSD scan's
-recompute of the states entering each chunk (the forward's passes 1-2),
-the chunks' local state gradients and their reverse carry, the per-chunk
-gradients with ``seg`` and the reverse cumulative sum of ``dseg`` in
-float64, then the fixed-order sums of dB and dC over head groups and of
-dA over batch and chunks; WKV6's recompute of the states entering each
-chunk, the reverse carry of dS, the per-chunk gradients and ``dlw`` as the
-reverse cumulative sum of the decay terms, every exponent a non-positive
-difference of cumulative log decays. Each emulation is held against
-``jax.vjp`` of ``moe_gmm_ref``, ``ssd_scan_ref`` and ``wkv6_ref`` at the
-kernel tests' float32 rule (``REF_RTOL`` of each gradient's max|ref|) over
-the forwards' CPU sweeps: ragged last chunks, S padding, odd head and
-state sizes, empty groups and rows in no group. ``test_torch_plain_grad.py``
-drives the ``autograd.Function``s with these emulations as their backward.
+(``dy @ w[e]^T``) into an unfilled buffer whose rows in no group the kernel
+zeroes itself (each row written exactly once), and its dw product over
+the group's rows in 64-row steps, rows past the group zeroed; the SSD
+scan's recompute of the states entering each chunk
+(the forward's passes 1-2), the chunks' local state gradients and their
+reverse carry, the per-chunk gradients with ``seg`` and the reverse
+cumulative sum of ``dseg`` in float64, then the fixed-order sums of dB and
+dC over head groups and of dA over batch and chunks; WKV6's recompute of
+the states entering each chunk, the reverse carry of dS, the per-chunk
+gradients in tiles of 32 or 64 rows with the pair terms of A, dr and dk
+outside the diagonal 8-row sub-blocks factored through the forward's
+anchors, and ``dlw`` as the reverse cumulative sum of the decay terms,
+every exponent a non-positive difference of cumulative log decays. Each
+emulation is held against ``jax.vjp`` of ``moe_gmm_ref``, ``ssd_scan_ref``
+and ``wkv6_ref`` at the kernel tests' float32 rule (``REF_RTOL`` of each
+gradient's max|ref|) over the forwards' CPU sweeps: ragged last chunks, S
+padding, odd head and state sizes, empty groups and rows in no group; and
+over skewed groups (one group of most rows) and WKV6's
+anchors at chunks 8, 32 and 64 on the model's decay range.
+``test_torch_plain_grad.py`` drives the ``autograd.Function``s with these
+emulations as their backward.
 """
 import jax
 import jax.numpy as jnp
@@ -36,35 +42,46 @@ REF_RTOL = 5e-4              # tests/test_torch_plain_grad.py's rule
 SSD_SUB = 64                 # ssd_scan_bwd's chunk: min(chunk, S, 64)
 SSD_GROUP = 8                # heads a per-chunk block of ssd_scan_bwd takes
 GMM_K = 64                   # moe_gmm_bwd's dw: rows a step
+WKV_SB = 8                   # wkv6_bwd's sub-block: the anchors' spacing
 
 
 # ---------------------------------------------------------------------------
 # moe_gmm_bwd
 # ---------------------------------------------------------------------------
 def gmm_bwd_emulated(x, w, offsets, counts, dy):
-    """(dx, dw) as moe_gmm_bwd's two products compute them: dx rows of
-    group e are dy's rows times w[e]^T, rows in no group zero; dw[e] sums
-    x^T dy over the group's rows in steps of GMM_K rows, in order, the
-    rows of a step that lie past the group zeroed (an empty group's dw is
-    zero). f32 sums, written in the inputs' type."""
+    """(dx, dw) as moe_gmm_bwd's wgmma kernels compute them. dx starts
+    unfilled (NaN here): group e's rows are dy's rows times w[e]^T, then
+    the rows that a walk over the groups finds in none are zeroed; every
+    row is written exactly once. dw[e] sums x^T dy over the group's rows in
+    steps of GMM_K rows, in order, the rows of a step that lie past the
+    group zeroed (an empty group's dw is zero). f32 sums, written in the
+    inputs' type."""
     R, D = x.shape
     E, _, F = w.shape
-    dx = torch.zeros(R, D, dtype=torch.float32)
+    dx = torch.full((R, D), float("nan"))
+    writes = torch.zeros(R, dtype=torch.int32)
     dw = torch.zeros(E, D, F, dtype=torch.float32)
     xf, wf, gf = x.float(), w.float(), dy.float()
-    for e, (o, c) in enumerate(zip(offsets.tolist(), counts.tolist())):
-        if c <= 0:
-            continue
-        dx[o:o + c] = gf[o:o + c] @ wf[e].T
+    groups = list(zip(offsets.tolist(), counts.tolist()))
+    for e, (o, c) in enumerate(groups):
+        if c > 0:
+            dx[o:o + c] = gf[o:o + c] @ wf[e].T
+            writes[o:o + c] += 1
+    bare = torch.tensor([not any(o <= r < o + c for o, c in groups)
+                         for r in range(R)], dtype=torch.bool)
+    dx[bare] = 0.0
+    writes[bare] += 1
+    assert bool((writes == 1).all()), "a row of dx written twice or never"
+    for e, (o, c) in enumerate(groups):
         acc = torch.zeros(D, F)
-        for k0 in range(0, c, GMM_K):
-            rows = torch.zeros(GMM_K, dtype=torch.bool)
-            rows[:min(GMM_K, c - k0)] = True
+        for k0 in range(0, max(c, 0), GMM_K):
+            keep = torch.zeros(GMM_K, dtype=torch.bool)
+            keep[:min(GMM_K, c - k0)] = True
             lo, hi = o + k0, min(o + k0 + GMM_K, R)
             xs = torch.zeros(GMM_K, D)
             gs = torch.zeros(GMM_K, F)
             xs[:hi - lo], gs[:hi - lo] = xf[lo:hi], gf[lo:hi]
-            xs[~rows] = 0.0                     # rows past the group
+            xs[~keep] = 0.0                     # rows past the group
             acc = acc + xs.T @ gs
         dw[e] = acc
     return dx.to(x.dtype), dw.to(w.dtype)
@@ -178,37 +195,49 @@ def ssd_bwd_emulated(xh, dt, A, Bm, Cm, dy, *, chunk):
 # wkv6_bwd
 # ---------------------------------------------------------------------------
 def wkv6_bwd_emulated(r, k, v, lw, u, dy, *, chunk):
-    """(dr, dk, dv, dlw, du) by wkv6_bwd's passes at c = min(chunk, S):
+    """(dr, dk, dv, dlw, du) by wkv6_bwd's passes at c = min(chunk, S),
+    each chunk in a tile of MC = 32 rows (c <= 32) or 64, the rows past c
+    zero (lw = 0: they change no sum):
 
     1-2. the forward's passes with groups of one chunk: the state S_c
        entering each chunk and each chunk's decay exp(lcw_last);
     3. each chunk's own state gradient G_c = (r exp(prev))^T dy;
     4. the reverse carry of dS: D_c, the gradient of the state leaving
        chunk c, D_{nc-1} = 0 and D_{c-1} = exp(lcw_last,c) D_c + G_c;
-    5. per (b, h, chunk): dA = dy v^T, A recomputed, dv = A^T dy +
-       (k exp(lcw_last - lcw)) D; dr and dk from dA with the pairs'
-       exponents exp(prev_t - lcw_s), the incoming state and D; du's
-       partial; dlw_i = sum_q D S_{c+1} + sum_{t>i} r_t dr'_t -
-       sum_{t>=i} k_t dk'_t (dr', dk' without the bonus), in f64;
+    5. per (b, h, chunk): dA = dy v^T; the pair terms exp(prev_t - lcw_s)
+       of A, dr and dk for t in sub-block a, s in sub-block b < a (rows
+       of WKV_SB) factored through the anchors anc_a (lcw before sub-block
+       a) and fin_b (lcw at b's last row): eR_t M_ab eK_s with eR_t =
+       exp(prev_t - anc_a), M_ab = exp(anc_a - fin_b), eK_s = exp(fin_b -
+       lcw_s), so that dr's part is eR sum_b M_ab (sum_{s in b} dA kh_s)
+       and dk's eK sum_a M_ab (sum_{t in a} dA rh_t) (rh = r eR, kh = k
+       eK); per-pair exponentials inside the diagonal sub-blocks; dv = A^T
+       dy + (k exp(lcw_last - lcw)) D; the incoming state and D's terms;
+       du's partial; dlw_i = z + sum_{t>i} r_t dr'_t - sum_{t>=i} k_t dk'_t
+       with z = sum_q D S_{c+1} (dr', dk' without the bonus), in f64;
     6. du summed over (b, chunk) in order.
-    Every exponent is a difference lcw_j - lcw_i with j >= i: <= 0."""
+    Every exponent is a difference lcw_j - lcw_i with j >= i: <= 0. Returns
+    the gradients and every exponent taken, flat."""
     B, S, H, P = r.shape
     c = min(chunk, S)
     nc = -(-S // c)
     pad = nc * c - S
+    mc = 32 if c <= 32 else 64
+    nsb = mc // WKV_SB
+    fpad = torch.nn.functional.pad
 
-    def chunks(t):                   # [B, S, H, P] -> [B, H, nc, c, P] f32
-        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
-        return t.reshape(B, nc, c, H, P).permute(0, 3, 1, 2, 4)
+    def chunks(t):           # [B, S, H, P] -> [B, H, nc, mc, P] f32
+        t = fpad(t.float(), (0, 0, 0, 0, 0, pad))
+        t = t.reshape(B, nc, c, H, P).permute(0, 3, 1, 2, 4)
+        return fpad(t, (0, 0, 0, mc - c))
 
     rf, kf, vf, lwf, gf = (chunks(t) for t in (r, k, v, lw, dy))
     uf = u.float()[None, :, None, None, :]
     lcw = torch.cumsum(lwf, dim=3)
-    prev = torch.nn.functional.pad(lcw, (0, 0, 1, 0))[..., :-1, :]
+    prev = fpad(lcw, (0, 0, 1, 0))[..., :-1, :]
     last = lcw[..., -1:, :]                                # [B,H,nc,1,P]
-    args = [prev, last]
+    args = [prev, last - lcw]
     kt = kf * torch.exp(last - lcw)
-    args.append(last - lcw)
     d = torch.exp(last)[..., 0, :, None]                   # [B,H,nc,P,1]
     # passes 1-2: the state entering each chunk
     U = kt.transpose(-1, -2) @ vf                          # [B,H,nc,P,P]
@@ -228,25 +257,49 @@ def wkv6_bwd_emulated(r, k, v, lw, u, dy, *, chunk):
         acc = d[:, :, i] * acc + G[:, :, i]
     dout = torch.stack(dout, 2)                            # [B,H,nc,P,P]
     sout = torch.cat([sin[:, :, 1:], torch.zeros(B, H, 1, P, P)], 2)
-    # pass 5: the per-chunk gradients
-    strict = torch.tril(torch.ones(c, c, dtype=torch.bool), -1)
+    # pass 5: the anchors and their factors
+    sb = torch.arange(mc) // WKV_SB                        # a row's sub-block
+    first = torch.arange(nsb) * WKV_SB
+    anc = torch.cat([torch.zeros_like(lcw[..., :1, :]),
+                     lcw[..., first[1:] - 1, :]], 3)       # [..,nsb,P]
+    fin = lcw[..., first + WKV_SB - 1, :]                  # [..,nsb,P]
+    er_arg, ek_arg = prev - anc[..., sb, :], fin[..., sb, :] - lcw
+    ab = torch.arange(nsb)[:, None] > torch.arange(nsb)[None, :]
+    m_arg = anc[..., :, None, :] - fin[..., None, :, :]    # [..,a,b,P]
+    args += [er_arg, ek_arg, m_arg[..., ab, :]]
+    eR, eK = torch.exp(er_arg), torch.exp(ek_arg)
+    Mab = torch.exp(m_arg.masked_fill(~ab[..., None], -1e30))   # 0 if a <= b
+    rh, kh = rf * eR, kf * eK
+    strict = torch.tril(torch.ones(mc, mc, dtype=torch.bool), -1)
+    same = strict & (sb[:, None] == sb[None, :])           # diagonal blocks
     diff = prev[..., :, None, :] - lcw[..., None, :, :]    # [..,t,s,P]
-    args.append(diff[..., strict, :])
-    ex = torch.exp(diff.masked_fill(~strict[..., None], -1e30))
-    A = torch.einsum("bhctp,bhctsp,bhcsp->bhcts", rf, ex, kf)
+    args.append(diff[..., same, :])
+    ex = torch.exp(diff.masked_fill(~same[..., None], -1e30))
+    Mts = Mab[..., sb, :, :][..., :, sb, :]                # M_{a(t), b(s)}
+    A = torch.einsum("bhctp,bhctsp,bhcsp->bhcts", rh, Mts, kh) \
+        + torch.einsum("bhctp,bhctsp,bhcsp->bhcts", rf, ex, kf)
     diag = (rf * uf * kf).sum(-1)                          # A[t, t]
     A = A + torch.diag_embed(diag)
     dA = torch.tril(gf @ vf.transpose(-1, -2))             # dy_t . v_s
     dAd = torch.diagonal(dA, dim1=-2, dim2=-1)             # dA[t, t]
     dv = A.transpose(-1, -2) @ gf + kt @ dout
-    drA = torch.einsum("bhcts,bhctsp,bhcsp->bhctp", dA, ex, kf)
+    blk = dA.shape[:3]
+    X = torch.einsum("bhctaj,bhcajp->bhctap",              # sum_{s in a}
+                     dA.reshape(*blk, mc, nsb, WKV_SB),
+                     kh.reshape(*blk, nsb, WKV_SB, P))
+    drA = eR * (Mab[..., sb, :, :] * X).sum(-2) \
+        + torch.einsum("bhcts,bhctsp,bhcsp->bhctp", dA, ex, kf)
+    Y = torch.einsum("bhcajs,bhcajp->bhcsap",              # sum_{t in a}
+                     dA.reshape(*blk, nsb, WKV_SB, mc),
+                     rh.reshape(*blk, nsb, WKV_SB, P))
+    dkA = eK * (Mab[..., sb, :].transpose(-3, -2) * Y).sum(-2) \
+        + torch.einsum("bhcts,bhctsp,bhctp->bhcsp", dA, ex, rf)
     drS = torch.exp(prev) * (gf @ sin.transpose(-1, -2))
-    dkA = torch.einsum("bhcts,bhctsp,bhctp->bhcsp", dA, ex, rf)
     dkS = torch.exp(last - lcw) * (vf @ dout.transpose(-1, -2))
     dr = drA + drS + dAd[..., None] * uf * kf
     dk = dkA + dkS + dAd[..., None] * uf * rf
     du_part = (dAd[..., None] * rf * kf).sum(3)            # [B,H,nc,P]
-    z = (dout * sout).sum(-1).double()                     # [B,H,nc,P]
+    z = (dout.double() * sout.double()).sum(-1)            # [B,H,nc,P]
     rd = (rf * (drA + drS)).double()
     kd = (kf * (dkA + dkS)).double()
     # dlw_i = z + sum_{t > i} rd_t - sum_{t >= i} kd_t
@@ -255,7 +308,8 @@ def wkv6_bwd_emulated(r, k, v, lw, u, dy, *, chunk):
     du = du_part.permute(0, 2, 1, 3).reshape(B * nc, H, P).double().sum(0)
 
     def unchunk(t):
-        return t.permute(0, 2, 3, 1, 4).reshape(B, nc * c, H, P)[:, :S]
+        return t[..., :c, :].permute(0, 2, 3, 1, 4).reshape(
+            B, nc * c, H, P)[:, :S]
 
     flat = torch.cat([a.reshape(-1) for a in args])
     return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),
@@ -302,10 +356,13 @@ def test_gmm_bwd_emulation_matches_reference_vjp(E, C, D, F):
 
 # (offsets, counts, R): an empty group, rows in no group (between groups
 # and after the last), a group of more than one 64-row step that ends
-# inside a step, one group of every row
+# inside a step, one group of every row; two empty groups in a row; groups
+# on whole 64-row steps with rows in no group before and after them
 RAGGED = [([0, 7, 7, 20], [7, 0, 9, 6], 30),
           ([3, 70, 70, 200], [67, 0, 130, 1], 210),
-          ([0, 0, 0], [0, 150, 0], 150)]
+          ([0, 0, 0], [0, 150, 0], 150),
+          ([0, 10, 10, 10], [10, 0, 0, 54], 80),
+          ([64, 128], [64, 64], 256)]
 
 
 @pytest.mark.parametrize("case", range(len(RAGGED)))
@@ -321,6 +378,48 @@ def test_gmm_bwd_emulation_ragged_groups(case):
     dx, dw = gmm_bwd_emulated(_t(x), _t(w),
                               torch.tensor(offs, dtype=torch.int32),
                               torch.tensor(cnts, dtype=torch.int32), _t(dy))
+    covered = np.zeros(R, bool)
+    for e, (o, c) in enumerate(zip(offs, cnts)):
+        covered[o:o + c] = True
+        if c == 0:
+            assert float(dw[e].abs().max()) == 0.0
+            continue
+        _, vjp = jax.vjp(moe_gmm_ref, jnp.asarray(x[None, o:o + c]),
+                         jnp.asarray(w[None, e]))
+        rx, rw = vjp(jnp.asarray(dy[None, o:o + c]))
+        _close_to_ref(dx[o:o + c], np.asarray(rx)[0], f"dx[{e}]")
+        _close_to_ref(dw[e], np.asarray(rw)[0], f"dw[{e}]")
+    assert float(dx[torch.from_numpy(~covered)].abs().sum()) == 0.0
+
+
+# (offsets, counts, R): one group of most rows (its last 64-row step
+# ragged) with an empty group and rows in no group after it; one group of
+# all rows but a few, in no group before and after it; two large groups
+# and a small one, the last a single row past a step; one group of every
+# row but one, beside an empty group and a group of one row; most rows in
+# the last group; 100 rows in no group before the big one
+SKEWED = [([0, 2500, 2800, 2800], [2500, 300, 0, 150], 3000),
+          ([5, 2053, 2053], [2048, 0, 40], 2100),
+          ([0, 1100, 3600], [1100, 2500, 2049], 5700),
+          ([0, 2999, 2999], [2999, 0, 1], 3000),
+          ([0, 64, 64, 128], [64, 0, 64, 3008], 3136),
+          ([100, 4100], [4000, 30], 4200)]
+
+
+@pytest.mark.parametrize("case", range(len(SKEWED)))
+def test_gmm_bwd_emulation_skewed_groups(case):
+    """Skewed groups, one group's whole depth one sum: against jax.vjp of
+    moe_gmm_ref on each group's rows, dx = 0 on rows in no group, an empty
+    group's dw = 0."""
+    offs, cnts, R = SKEWED[case]
+    rng = np.random.default_rng(20 + case)
+    E, D, F = len(offs), 24, 16
+    x = rng.normal(size=(R, D)).astype(np.float32)
+    w = (rng.normal(size=(E, D, F)) / np.sqrt(D)).astype(np.float32)
+    dy = rng.normal(size=(R, F)).astype(np.float32)
+    dx, dw = gmm_bwd_emulated(
+        _t(x), _t(w), torch.tensor(offs, dtype=torch.int32),
+        torch.tensor(cnts, dtype=torch.int32), _t(dy))
     covered = np.zeros(R, bool)
     for e, (o, c) in enumerate(zip(offs, cnts)):
         covered[o:o + c] = True
@@ -386,6 +485,29 @@ def test_wkv6_bwd_emulation_matches_reference_vjp(B, S, H, P, chunk, model):
     """Every exponent the passes take is <= 0 and every gradient finite and
     within the rule of jax.vjp of wkv6_ref."""
     *arrs, dy = wkv6_inputs(B, S, H, P, model_range=model)
+    got, args = wkv6_bwd_emulated(*map(_t, arrs), _t(dy), chunk=chunk)
+    assert float(args.max()) <= 0.0
+    _, vjp = jax.vjp(lambda *a: wkv6_ref(*a, chunk=chunk),
+                     *map(jnp.asarray, arrs))
+    for name, gt, rf in zip(("r", "k", "v", "lw", "u"), got,
+                            vjp(jnp.asarray(dy))):
+        assert bool(torch.isfinite(gt).all()), name
+        _close_to_ref(gt, rf, name)
+
+
+# (B, S, H, P, chunk): the anchors at chunks 8 (one sub-block a chunk, a
+# tile of 32 rows), 32 and 64, each with a ragged last chunk
+WKV_FACTORED = [(1, 3 * 8 + 5, 2, 64, 8), (2, 3 * 32 + 7, 2, 64, 32),
+                (1, 2 * 64 + 9, 2, 32, 64)]
+
+
+@pytest.mark.parametrize("B,S,H,P,chunk", WKV_FACTORED)
+def test_wkv6_bwd_factored_on_the_models_decay_range(B, S, H, P, chunk):
+    """The factored pair terms on rwkv6-7b's log decays, -exp(2 N(0,1) - 6)
+    clipped at -20, with rows at the clip: every exponent <= 0, every
+    gradient finite and within the rule of jax.vjp of wkv6_ref."""
+    *arrs, dy = wkv6_inputs(B, S, H, P, seed=7, model_range=True)
+    arrs[3][:, 3::11] = -20.0
     got, args = wkv6_bwd_emulated(*map(_t, arrs), _t(dy), chunk=chunk)
     assert float(args.max()) <= 0.0
     _, vjp = jax.vjp(lambda *a: wkv6_ref(*a, chunk=chunk),

@@ -1852,6 +1852,76 @@ def test_moe_gmm_bwd_ragged_groups_on_card(cuda, dtype):
     assert float(got[1][1].abs().sum()) == float(got[1][4].abs().sum()) == 0
 
 
+# (R, counts): one group of most rows and an empty one; the same with rows
+# in no group between and after the groups
+MOE_SKEWED = [(4096, [3000, 500, 0, 596]), (4200, [3001, 0, 600, 450])]
+
+
+@pytest.mark.parametrize("case", range(len(MOE_SKEWED)))
+def test_moe_gmm_bwd_skewed_group_on_card(cuda, case):
+    """One group of most rows on the wgmma kernels, its dw one block's sum
+    over the group's whole depth: dx and dw within gmm_tol of the plain
+    backward, rows in no group zero, two calls byte for byte, two device
+    launches a call."""
+    R, cnts = MOE_SKEWED[case]
+    D, F = 64, 64
+    gen = torch.Generator(device=cuda).manual_seed(14 + case)
+    offs, o = [], 0
+    for c in cnts:                     # rows in no group after each group
+        offs.append(o)
+        o += c + (0 if case == 0 else 7)
+    assert o <= R
+    x = torch.randn(R, D, generator=gen, device=cuda).bfloat16()
+    w = torch.randn(len(cnts), D, F, generator=gen, device=cuda).bfloat16()
+    dy = torch.randn(R, F, generator=gen, device=cuda).bfloat16()
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    cnt = torch.tensor(cnts, dtype=torch.int32, device=cuda)
+    before = (moe_gmm_bwd.launches, moe_gmm_bwd.kernel_launches)
+    got = moe_gmm_bwd(x, w, off, cnt, dy)
+    again = moe_gmm_bwd(x, w, off, cnt, dy)
+    torch.cuda.synchronize()
+    assert (moe_gmm_bwd.launches - before[0],
+            moe_gmm_bwd.kernel_launches - before[1]) == (2, 4)
+    assert _same(got, again)
+    rtol, atol = gmm_tol(torch.bfloat16, max(cnts))
+    _grads_close(got, grouped_matmul_bwd_plain(x, w, off, cnt, dy),
+                 (atol, rtol), ("dx", "dw"))
+    outside = torch.ones(R, dtype=torch.bool, device=cuda)
+    for o, c in zip(offs, cnts):
+        outside[o:o + c] = False
+    assert float(got[0][outside].abs().sum()) == 0.0
+    assert float(got[1][cnts.index(0)].abs().sum()) == 0.0
+
+
+# (B, S, H, P, chunk): wkv6_bwd's anchors at chunks 8, 32 and 64, ragged
+# last chunks
+WKV_FACTORED = [(1, 3 * 8 + 5, 4, 64, 8), (2, 7 * 32 + 7, 4, 64, 32),
+                (1, 5 * 64 + 9, 4, 32, 64)]
+
+
+@pytest.mark.parametrize("case", WKV_FACTORED)
+def test_wkv6_bwd_factored_on_the_models_decay_range(cuda, case):
+    """wkv6_bwd's factored pair terms on rwkv6-7b's log decays (-exp(N(0,
+    2) - 6) clipped at -20, rows at the clip): every gradient finite,
+    within SCAN_TOL of the plain backward, two calls byte for byte."""
+    B, S, H, P, chunk = case
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    r, k, v, dy = (torch.randn(B, S, H, P, generator=gen, device=cuda)
+                   for _ in range(4))
+    lw = (-torch.exp(torch.randn(B, S, H, P, generator=gen, device=cuda)
+                     * 2.0 - 6.0)).clamp(-20, 0)
+    lw[:, 3::11] = -20.0
+    u = torch.randn(H, P, generator=gen, device=cuda)
+    got = wkv6_bwd(r, k, v, lw, u, dy, chunk=chunk)
+    again = wkv6_bwd(r, k, v, lw, u, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _same(got, again)
+    _grads_close(got, wkv6_bwd_plain(r, k, v, lw, u, dy, chunk=chunk),
+                 SCAN_TOL["wkv6"][torch.float32],
+                 ("dr", "dk", "dv", "dlw", "du"))
+
+
 @pytest.mark.parametrize("product", ["gate", "down"])
 def test_moe_gmm_bwd_routed_on_wgmma(cuda, product):
     """The serving prefill's routed rows through moonshot's gate and down
