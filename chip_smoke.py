@@ -153,7 +153,8 @@ failure:
    1 x 4096, remat='full'): every adapter gradient finite and nonzero,
    each step's launches forward and backward asserted
    (``recurrent_train_launches``: the scan twice forward and once
-   backward a layer, six device launches a backward call), step time and
+   backward a layer, five device launches a backward call of ssd_scan_bwd
+   and six of wkv6_bwd), step time and
    peak allocated bytes; then one step with the scan swapped for its
    plain version (``plain_scans``), timed as a yardstick only.
 6c. The float32 gradient check at full width and cut depth
@@ -364,9 +365,11 @@ times and the step's device time by kernel, the two checkouts in turns.
 of both checkouts in turns (``ab_decode``), the host cost the serving
 paths show. ``--ab-moe-train OTHER_ROOT`` does the same for phase 12
 (d)'s step, un-meshed (``ab_moe_train``): step times and the profiled
-step's device time by kernel. ``--ab-recurrent-train OTHER_ROOT`` does it
-for rwkv6-7b's LoRA step of phase 6b (``ab_recurrent_train``), then
-profiles zamba2-7b's step once on this tree.
+step's device time by kernel. ``--ab-recurrent-train OTHER_ROOT [ARCH]``
+does it for the LoRA step of phase 6b of ARCH (``ab_recurrent_train``;
+rwkv6-7b by default, or zamba2-7b), each profiled step's scan backward
+summed beside it, then profiles the other recurrent arch's step once on
+this tree.
 
 The line before the last is ``{"kernels": [...]}``, one record per kernel
 (``launches`` of rmsnorm, flash attention and moe_gmm counted on the MoE
@@ -377,7 +380,7 @@ as ``kernel_launches``; of rmsnorm_bwd and flash_attention_bwd on the
 supervised training run, each with its wrapper's device launches as
 ``kernel_launches``; of moe_gmm_bwd on phase 12 (d)'s meshed step; of
 ssd_scan_bwd and wkv6_bwd on zamba2-7b's and rwkv6-7b's LoRA steps, with
-their device launches, six per call); the last line is ``{"ok": true,
+their device launches, five and six per call); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -424,6 +427,10 @@ HBM_ALLOWANCE = WS_PAIRS * (CUBLAS_WS_BYTES + CUBLASLT_WS_BYTES) + \
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 F16_FLOPS = 989e12                 # H100 SXM bf16/f16 tensor cores, dense
+TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
+# float32-accurate products on the tensor cores: 3xTF32 runs three TF32
+# products (hi*hi + hi*lo + lo*hi) for each float32 one
+F32_TC_FLOPS = TF32_FLOPS / 3
 # kernel-vs-plain tolerance per dtype: |k - p| <= atol + rtol * |p|. The
 # two differ only in the f32 summation order and the final rounding to
 # the storage type, so the tolerance is about one unit in the last place.
@@ -1047,6 +1054,21 @@ def ssd_bound_ms(B, S, H, P, N, chunk, itemsize) -> tuple[float, str]:
     and y written once; ssd_ops) at the f32 rate."""
     from repro_torch.kernels.ssd_scan.ops import ssd_cost
     return _bound(*ssd_cost(B, S, H, P, N, chunk, itemsize), F32_FLOPS)
+
+
+def ssd_bwd_bound_ms(B, S, H, P, N, chunk, itemsize) -> tuple[float, str]:
+    """Least time for the SSD scan's VJP: ``ssd_bwd_cost``'s bytes over the
+    memory rate, or its operations (``ssd_bwd_ops_split``), the products at
+    F32_TC_FLOPS (float32-accurate on the tensor cores, as the kernel runs
+    them) and the rest at the f32 rate, whichever takes longer."""
+    from repro_torch.kernels.ssd_scan.ops import (ssd_bwd_cost,
+                                                  ssd_bwd_ops_split)
+    products, rest = ssd_bwd_ops_split(B, S, H, P, N, chunk)
+    t_bytes = ssd_bwd_cost(B, S, H, P, N, chunk, itemsize)[1] / \
+        HBM_BYTES_PER_S
+    t_ops = products / F32_TC_FLOPS + rest / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def wkv6_ops(B, S, H, P, chunk) -> int:
@@ -2410,7 +2432,7 @@ def recurrent_train_launches(cfg) -> dict:
                 "flash_attention": 0, "flash_attention_bwd": 0,
                 "flash_attention_bwd_kernel": 0}
     ng = L // cfg.zamba_group
-    return {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "ssd_scan_bwd_kernel": 6 * L,
+    return {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "ssd_scan_bwd_kernel": 5 * L,
             "rmsnorm": 2 * (L + 2 * ng) + 1, "rmsnorm_bwd": L + 2 * ng,
             "rmsnorm_bwd_kernel": L + 2 * ng, "flash_attention": 2 * ng,
             "flash_attention_bwd": ng, "flash_attention_bwd_kernel": 2 * ng}
@@ -3077,10 +3099,11 @@ def ab_decode_worker() -> int:
 AB_TRAIN_STEPS = 4                 # timed steps a worker, after a warm-up
 
 
-def _ab_turns(other_root: str, flag: str, tag: str, rounds: int):
+def _ab_turns(other_root: str, flag: str, tag: str, rounds: int,
+              extra: tuple = ()):
     """Run this checkout's port and another checkout's (``other_root``) in
-    separate worker processes (``chip_smoke.py FLAG SRC``) taken in turns:
-    other, tree, then tree, other, ``rounds`` times. Each worker's
+    separate worker processes (``chip_smoke.py FLAG SRC *EXTRA``) taken in
+    turns: other, tree, then tree, other, ``rounds`` times. Each worker's
     ``profile`` lines are printed; yields (round, name, the JSON of its
     last line that starts with ``TAG``)."""
     other_src = os.path.join(os.path.abspath(other_root), "src")
@@ -3089,7 +3112,8 @@ def _ab_turns(other_root: str, flag: str, tag: str, rounds: int):
     for r in range(rounds):
         order = (("other", other_src), ("tree", os.path.join(ROOT, "src")))
         for name, src in (order if r % 2 == 0 else order[::-1]):
-            cmd = [sys.executable, os.path.abspath(__file__), flag, src]
+            cmd = [sys.executable, os.path.abspath(__file__), flag, src,
+                   *extra]
             env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
             got = subprocess.run(cmd, capture_output=True, text=True,
                                  env=env, cwd=ROOT, timeout=900)
@@ -3227,23 +3251,27 @@ def ab_moe_worker() -> int:
 
 
 AB_RECURRENT_ARCH = "rwkv6-7b"      # the recurrent LoRA step timed in turns
-AB_RECURRENT_PROFILED = "zamba2-7b"  # and this tree's other one, profiled once
 AB_RECURRENT_STEPS = 3              # timed steps a worker, after a warm-up
 
 
-def ab_recurrent_train(other_root: str, rounds: int = 2) -> int:
-    """The recurrent LoRA step of phase 6b (AB_RECURRENT_ARCH at
-    RECURRENT_TRAIN's batch and sequence: rank 16, AdamW, remat='full',
-    bfloat16) of this checkout's port against another checkout's
-    (``other_root``), in turns (``_ab_turns``); then one worker of this
-    tree on AB_RECURRENT_PROFILED. Each worker (``ab_recurrent_worker``)
-    prints its step times and its profiled step's device time by kernel
-    (``profile_kernels``) and summed over the scan's backward kernels; the
-    medians by checkout come last."""
+def ab_recurrent_train(other_root: str, arch: str = AB_RECURRENT_ARCH,
+                       rounds: int = 2) -> int:
+    """The recurrent LoRA step of phase 6b (``arch``, AB_RECURRENT_ARCH by
+    default, at RECURRENT_TRAIN's batch and sequence: rank 16, AdamW,
+    remat='full', bfloat16) of this checkout's port against another
+    checkout's (``other_root``), in turns (``_ab_turns``); then one worker
+    of this tree on the other recurrent arch. Each worker
+    (``ab_recurrent_worker``) prints its step times and its profiled
+    step's device time by kernel (``profile_kernels``) and summed over the
+    scan's backward kernels; the medians by checkout come last."""
+    if arch not in RECURRENT_ARCHS:
+        raise SystemExit(f"--ab-recurrent-train: arch must be one of "
+                         f"{RECURRENT_ARCHS}, got {arch!r}")
+    profiled = next(a for a in RECURRENT_ARCHS if a != arch)
     steps: dict[str, list[float]] = {}
     scan_ms: dict[str, list[float]] = {}
     for r, name, res in _ab_turns(other_root, "--ab-recurrent-worker", "ABR",
-                                  rounds):
+                                  rounds, (arch,)):
         print(f"ab round {r} {name} ({res['port']}): {res['arch']} step_s "
               f"{res['step_s']} warm-up {res['warmup_s']:.3f} s; profiled "
               f"step device_ms {res['device_ms']:.3f}, scan backward "
@@ -3251,13 +3279,13 @@ def ab_recurrent_train(other_root: str, rounds: int = 2) -> int:
         steps.setdefault(name, []).extend(res["step_s"])
         scan_ms.setdefault(name, []).append(res["scan_bwd_ms"])
     for name in steps:
-        print(f"ab median {name}: {AB_RECURRENT_ARCH} step_s "
+        print(f"ab median {name}: {arch} step_s "
               f"{statistics.median(steps[name]):.4f} scan backward ms a "
               f"profiled step {statistics.median(scan_ms[name]):.3f}",
               flush=True)
     got = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--ab-recurrent-worker",
-         os.path.join(ROOT, "src"), AB_RECURRENT_PROFILED],
+         os.path.join(ROOT, "src"), profiled],
         capture_output=True, text=True, cwd=ROOT, timeout=900,
         env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     lines = [ln for ln in got.stdout.splitlines() if ln.startswith("ABR ")]
@@ -3266,7 +3294,7 @@ def ab_recurrent_train(other_root: str, rounds: int = 2) -> int:
             print(f"ab tree: {ln}", flush=True)
     if got.returncode != 0 or not lines:
         print(got.stdout[-3000:], got.stderr[-3000:], flush=True)
-        raise RuntimeError(f"ab worker {AB_RECURRENT_PROFILED} failed")
+        raise RuntimeError(f"ab worker {profiled} failed")
     res = json.loads(lines[-1][4:])
     print(f"ab tree {res['arch']}: step_s {res['step_s']} profiled step "
           f"device_ms {res['device_ms']:.3f}, scan backward "
@@ -3614,6 +3642,27 @@ def _gmm_bwd_split_check(label: str, split: dict) -> None:
                              f"{sorted(split)}, expected {GMM_BWD_KERNELS}")
 
 
+# the scans' backward device launches a call
+BWD_LAUNCHES = {"ssd_scan_bwd": 5, "wkv6_bwd": 6}
+# ssd_scan_bwd's five launches, as the profiler names them: each chunk's
+# state and state gradient, the pass forward and in reverse, the per-chunk
+# gradients, the sums
+SSD_BWD_KERNELS = (r"ssd_bwd_states<", r"ssd_pass<\d+, false>",
+                   r"ssd_pass<\d+, true>", r"ssd_bwd_chunk<",
+                   r"ssd_bwd_reduce<")
+
+
+def _ssd_bwd_split_check(split: dict) -> None:
+    """An ssd_scan_bwd call's ``launch_split`` holds exactly its five
+    kernels, SSD_BWD_KERNELS, each once, and no other device operation."""
+    import re
+    found = [k for k in SSD_BWD_KERNELS
+             if sum(bool(re.search(k, n)) for n in split) == 1]
+    if len(split) != len(SSD_BWD_KERNELS) or len(found) != len(split):
+        raise AssertionError(f"ssd_scan_bwd: device operations "
+                             f"{sorted(split)}, expected {SSD_BWD_KERNELS}")
+
+
 def bwd_phase(torch, device) -> dict:
     """The three backward kernels against the plain backward (autograd
     through the plain forward, which is what the training path ran before
@@ -3635,7 +3684,8 @@ def bwd_phase(torch, device) -> dict:
       (ssd_bwd_model_range);
     * wkv6_bwd at WKV_MAIN on the model's decay range (float32) and on
       WKV_SWEEP in float32 and bfloat16.
-    The scans' main shapes are split by launch too. Returns each kernel's
+    The scans' main shapes are split by launch too, ssd_scan_bwd's held to
+    its five kernels (``_ssd_bwd_split_check``). Returns each kernel's
     record at its main shape (with the splits, and moe_gmm_bwd's down
     product and skewed case beside it)."""
     from repro_torch.kernels.moe_gmm.ops import (
@@ -3814,8 +3864,9 @@ def bwd_phase(torch, device) -> dict:
                     else make(*dims, dt))
             reset_launches(fn)
             got = twice(fn, *args, chunk=chunk)
-            if device.type == "cuda":      # two calls of six launches
-                assert (fn.launches, fn.kernel_launches) == (2, 12), \
+            if device.type == "cuda":      # two calls of five or six
+                assert (fn.launches, fn.kernel_launches) == (
+                    2, 2 * BWD_LAUNCHES[name]), \
                     (name, fn.launches, fn.kernel_launches)
             want = plain(*args, chunk=chunk)
             dname = str(dt).removeprefix("torch.")
@@ -3831,7 +3882,9 @@ def bwd_phase(torch, device) -> dict:
                 c = (min(chunk, dims[1], BWD_CHUNK) if fwd == "ssd_scan"
                      else chunk)
                 cost = cost_fn(*dims, c, 4)
-                bound_ms, bound_by = _bound(*cost, F32_FLOPS)
+                bound_ms, bound_by = (
+                    ssd_bwd_bound_ms(*dims, c, 4) if fwd == "ssd_scan"
+                    else _bound(*cost, F32_FLOPS))
                 print(f"kernel {label}: kernel_ms {k_ms:.4f} plain_ms "
                       f"{p_ms:.4f} library_ms None bound_ms {bound_ms:.4f} "
                       f"({bound_by}) " + rate(cost[0], k_ms, bound_ms)
@@ -3841,6 +3894,8 @@ def bwd_phase(torch, device) -> dict:
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                     split_ms=launch_split(torch, label, lambda: fn(
                         *args, chunk=chunk), flush))
+                if fwd == "ssd_scan":
+                    _ssd_bwd_split_check(records[name]["split_ms"])
             del args, got
             gc.collect()
             torch.cuda.empty_cache()
@@ -4794,7 +4849,8 @@ def main(argv: list[str]) -> int:
         rest = argv[argv.index("--ab-recurrent-worker") + 2:]
         return ab_recurrent_worker(*rest[:1])
     if "--ab-recurrent-train" in argv:
-        return ab_recurrent_train(argv[argv.index("--ab-recurrent-train") + 1])
+        rest = argv[argv.index("--ab-recurrent-train") + 1:]
+        return ab_recurrent_train(*rest[:2])
     from repro_torch.configs import get_arch
     from repro_torch.core.bridge import inputs_from_reference
     from repro_torch.kernels import build

@@ -56,23 +56,37 @@
 // Backward (ssd_scan_bwd_launch), the VJP for x, dt, A, B and C; the
 // reference has no backward kernel (its models differentiate _ssd_chunked
 // in XLA). The chunk states are not saved by the forward (at 2 x 8192 they
-// take 235 MB a call): six launches recompute what they need at the
+// take 235 MB a call): five launches recompute what they need at the
 // backward's chunk c <= 64 (its tiles; the scan's value does not depend on
 // the chunking, only its rounding does):
-//   1-2. the forward's passes: the state h_c entering each chunk;
-//   3. ssd_states<GRAD>: each chunk's own state gradient
-//      G_c = sum_t exp(seg_t) dy_t C_t^T;
-//   4. ssd_pass<REV>: the chunks in reverse, G_c overwritten by g_c, the
+//   1. ssd_bwd_states, one block per (b, chunk, 8 heads): each chunk's own
+//      state S_c and decay, as the forward's pass 1, and its own state
+//      gradient G_c = sum_t exp(seg_t) dy_t C_t^T;
+//   2. ssd_pass: the chunks in order, S_c overwritten by h_c, the state
+//      entering chunk c (the forward's pass 2);
+//   3. ssd_pass<REV>: the chunks in reverse, G_c overwritten by g_c, the
 //      gradient of the state leaving chunk c;
-//   5. ssd_bwd_chunk, one block per (b, chunk, 8 heads): per head dx, ddt
-//      and dseg (ssd_bwd_chunk's comment has the formulas), seg and the
-//      reverse cumulative sum of dseg in f64, dA's partial; the group's dB
-//      and dC partials, the C.B^T terms summed over its heads first;
-//   6. ssd_bwd_reduce: dB and dC over the groups and dA over (b, chunk),
+//   4. ssd_bwd_chunk, one block per (b, chunk, 8 heads): per head dx, ddt
+//      and dseg (ssd_bwd_chunk's comment has the formulas), the reverse
+//      cumulative sum of dseg in f64, dA's partial; the group's dB and dC
+//      partials, the C.B^T terms summed over its heads first;
+//   5. ssd_bwd_reduce: dB and dC over the groups and dA over (b, chunk),
 //      each in a fixed order: no atomics, two calls give the same bytes.
-// At SSD_MAIN it needs ~92 GFLOP (1.37 ms at 67 TFLOP/s f32, ssd_bwd_ops):
-// bound by operations. The products stay on the f32 FMA units, as the
-// forward's.
+// At SSD_MAIN it needs ~92 GFLOP (ssd_bwd_ops_split), 90.6 of them in
+// products: at 165 TFLOP/s for those (float32-accurate on the tensor
+// cores, 3xTF32 at a third of the TF32 rate) and 67 TFLOP/s f32 for the
+// rest, 0.56 ms, above the 0.43 ms of its bytes: bound by operations.
+// Passes 1 and 4 run their products on the tensor cores, as 3xTF32 MMAs
+// (mma.sync m16n8k8; split_tf32 and warp_mm say how close to an f32
+// FMA's rounding they stay): as f32 FMAs from shared memory, every float
+// a thread reads costs a warp a wavefront whether or not its lanes share
+// it, so a 4 x 4 or 4 x 2 register tile (one float read for 2 or 1.3
+// FMAs) held pass 4 to ~30% of the f32 rate. Measured on an H100 80GB
+// HBM3 at 700 W, at SSD_MAIN: 4.15-4.28 ms a call (CUDA events, L2
+// flushed; 0.13-0.14 of the bound), of which pass 4 2.40, pass 1 1.04,
+// passes 2 and 3 0.34 each, pass 5 0.07 (profiler); a design of six
+// launches whose pass 4 ran f32 FMAs in one block of 8 warps an SM took
+// 9.85.
 //
 // Each kernel allocates nothing and launches on the caller's stream, so
 // the workspace's write by pass 1, its overwrite by pass 2 and its read by
@@ -169,10 +183,7 @@ constexpr int st_smem_bytes() {
   return (2 * MC * MAX_P + 2 * MC) * 4 + MC * 8;
 }
 
-// GRAD (the backward's pass 3): the same product with x -> dy, B -> C and
-// the row weights exp(seg_t): G_c = sum_t exp(seg_t) dy_t C_t^T, written to
-// gstates; no decay.
-template <typename T, bool GRAD>
+template <typename T>
 __global__ void __launch_bounds__(ST_THREADS, 3) ssd_states(const Params prm) {
   extern __shared__ __align__(16) float sm[];
   float* xs = sm;                  // [MC][MAX_P]
@@ -188,8 +199,8 @@ __global__ void __launch_bounds__(ST_THREADS, 3) ssd_states(const Params prm) {
   const int nv = min(C, prm.seq - t0);      // rows of the chunk inside S
   const int tid = threadIdx.x;
   const int64_t row0 = static_cast<int64_t>(b) * prm.seq + t0;
-  const T* xg = static_cast<const T*>(GRAD ? prm.dy : prm.x);
-  const T* bg = static_cast<const T*>(GRAD ? prm.cm : prm.bm);
+  const T* xg = static_cast<const T*>(prm.x);
+  const T* bg = static_cast<const T*>(prm.bm);
   const T* dg = static_cast<const T*>(prm.dt);
 
   // loads in batches of 16 a thread, then the shared stores
@@ -223,13 +234,9 @@ __global__ void __launch_bounds__(ST_THREADS, 3) ssd_states(const Params prm) {
   if (tid < 32) chunk_seg(seg, dts, prm.a[h], C, tid);
   __syncthreads();
   const double seg_last = seg[C - 1];
-  if (tid < MC) {
-    if (GRAD)
-      tail[tid] = tid < C ? expf(static_cast<float>(seg[tid])) : 0.f;
-    else
-      tail[tid] = tid < C
-          ? expf(static_cast<float>(seg_last - seg[tid])) * dts[tid] : 0.f;
-  }
+  if (tid < MC)
+    tail[tid] = tid < C
+        ? expf(static_cast<float>(seg_last - seg[tid])) * dts[tid] : 0.f;
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < PER; ++r) {
@@ -257,15 +264,14 @@ __global__ void __launch_bounds__(ST_THREADS, 3) ssd_states(const Params prm) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], ba[j], acc[i][j]);
     }
-    float* out = (GRAD ? prm.gstates : prm.states) +
-                 (static_cast<int64_t>(bh) * prm.nc + ci) * P * N;
+    float* out = prm.states + (static_cast<int64_t>(bh) * prm.nc + ci) * P * N;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (p0 + i < P && n0 + j < N) out[(p0 + i) * N + n0 + j] = acc[i][j];
   }
-  if (!GRAD && tid == 0)
+  if (tid == 0)
     prm.decay[static_cast<int64_t>(bh) * prm.nc + ci] =
         expf(static_cast<float>(seg_last));
 }
@@ -276,7 +282,7 @@ __global__ void __launch_bounds__(ST_THREADS, 3) ssd_states(const Params prm) {
 constexpr int PASS_AHEAD = 8;    // chunk states loaded ahead of the recurrence
 
 // Each thread carries V neighbouring state elements (V = 4: 16-byte loads
-// and stores, when P * N is a multiple of 4). REV (the backward's pass 4):
+// and stores, when P * N is a multiple of 4). REV (the backward's pass 3):
 // the chunks in reverse order over gstates, each G_c overwritten by the
 // gradient of the state leaving chunk c, g <- exp(seg_last,c) g + G_c.
 template <int V, bool REV>
@@ -539,7 +545,7 @@ template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   // opted in once per type, at the largest chunk, head and state size
   static const cudaError_t attr1 = cudaFuncSetAttribute(
-      ssd_states<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_states<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       st_smem_bytes());
   static const cudaError_t attr3 = cudaFuncSetAttribute(
       ssd_out<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -551,8 +557,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int64_t pn = static_cast<int64_t>(p.p) * p.n;
   if (bh * p.nc > INT_MAX || p.batch * groups * p.nc > INT_MAX)
     return cudaErrorInvalidValue;
-  ssd_states<T, false><<<static_cast<unsigned>(bh * p.nc), ST_THREADS,
-                         st_smem_bytes(), stream>>>(p);
+  ssd_states<T><<<static_cast<unsigned>(bh * p.nc), ST_THREADS,
+                  st_smem_bytes(), stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int v = pn % 4 == 0 ? 4 : 1;
@@ -570,17 +576,23 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// The backward (ssd_scan_bwd_launch): six launches at the backward's chunk
+// The backward (ssd_scan_bwd_launch): five launches at the backward's chunk
 // c <= BC, through the f32 workspace the wrapper allocates.
 // ---------------------------------------------------------------------------
 constexpr int BC = 64;          // the backward's largest chunk: its tiles
 constexpr int BG = 8;           // heads a per-chunk block takes in turn
-constexpr int BLD = BC + 1;     // row stride of the [64][64] tiles
-constexpr int BWD_THREADS = 256;    // 16 x 16 threads, 4 x 4 outputs each
+constexpr int BWD_THREADS = 512;    // 16 warps, each a 16 x 16 output tile
 constexpr int RED_THREADS = 256;
+// Row strides of the [64][64] f32 tiles: LDA for tiles read along their
+// rows by the MMA fragments (8 rows x 4 columns a load, 4 banks apart),
+// LDK for tiles read down their columns (4 rows x 8 columns, 8 banks
+// apart); both keep 16-byte rows for cp.async.
+constexpr int LDA = BC + 4;
+constexpr int LDK = BC + 8;
+constexpr int TA = BC * LDA, TK = BC * LDK;   // floats of a tile
 
 struct BwdParams {
-  Params f;         // the forward's, at chunk c (passes 1-4)
+  Params f;         // the forward's, at chunk c (passes 1-3)
   void* dx;         // [B, S, H, P]
   void* ddt;        // [B, S, H]
   float* da;        // [H] f32
@@ -590,59 +602,344 @@ struct BwdParams {
   float* db_part;   // [groups, B, S, N]
   float* dc_part;   // [groups, B, S, N]
   int groups;
+  bool vec;         // f32 inputs in 16-byte rows: staged by cp.async
 };
 
-// acc[i][j] (+)= sum_{k in [k0, k1)} a(i0 + i, k) b(k, j0 + j): one thread's
-// 4 x 4 outputs of a product of shared tiles.
-template <class FA, class FB>
-__device__ __forceinline__ void mm44(float (&acc)[4][4], int i0, int j0,
-                                     int k0, int k1, FA a, FB b) {
-  for (int k = k0; k < k1; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a(i0 + i, k);
-      bv[i] = b(k, j0 + i);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ void zero44(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// a [64][BLD] tile from rows [row0, row0 + nv) of a [.., stride] tensor,
-// columns [0, w); zeros elsewhere
+// rows [0, rows) x columns [0, cols) of a row-major tensor (row stride rs)
+// into a [64][64] tile of row stride ld, zeros elsewhere: by cp.async when
+// `vec` (f32, 16-byte rows; the caller commits the group), else through
+// registers
 template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* src,
-                                          int64_t row0, int64_t stride,
-                                          int nv, int w, int tid) {
-  for (int i = tid; i < BC * BC; i += BWD_THREADS) {
-    const int t = i / BC, q = i % BC;
-    tile[t * BLD + q] =
-        t < nv && q < w ? to_f32(src[(row0 + t) * stride + q]) : 0.f;
+__device__ __forceinline__ void stage(float* tile, int ld, const T* src,
+                                      int64_t rs, int rows, int cols,
+                                      bool vec, int tid) {
+  constexpr int PER = BC * 16 / BWD_THREADS;     // 16-byte chunks a thread
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = tid + k * BWD_THREADS, r = i / 16, q = 4 * (i % 16);
+        const bool ok = r < rows && q < cols;
+        cp_async16(tile + r * ld + q, ok ? src + r * rs + q : src, ok);
+      }
+      return;
+    }
+  }
+  float4 v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * BWD_THREADS, r = i / 16, c = 4 * (i % 16);
+    float e[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      e[u] = r < rows && c + u < cols ? to_f32(src[r * rs + c + u]) : 0.f;
+    v[k] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * BWD_THREADS;
+    *reinterpret_cast<float4*>(tile + (i / 16) * ld + 4 * (i % 16)) = v[k];
   }
 }
 
-constexpr int bwd_smem_bytes() {
-  // C, B, C.B^T, sum_h dCB, x, dy, h_c, g_c, two scratch tiles [64][BLD];
-  // per-row f32 dt, exp(seg), exp(seg_last - seg), tail, colsum, rowsum,
-  // dtail, ddt; f64 seg, dseg; a reduction line
-  return 10 * BC * BLD * 4 + 8 * BC * 4 + 2 * BC * 8 + BWD_THREADS * 8;
+// The 3xTF32 split, v = hi + lo: hi is v rounded to TF32 (a 10-bit
+// mantissa; half an ulp added to the magnitude, the low 13 bits cleared),
+// lo = v - hi exactly, handed to the MMA as it is (the tensor cores read a
+// TF32 operand's top 19 bits: lo loses what lies below 2^-10 of it, ~2^-21
+// of v). Integer and add instructions only: cvt.rna.tf32 runs on the
+// conversion pipe, which held the products to ~15% of the TF32 rate.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-// Pass 5: one (b, chunk, group of BG heads). For each head in turn:
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's 16 x 16 output tile: rows R0 + g + 8 i (i < 2), columns C0 +
+// 8 nt + 2 q + e (nt, e < 2), g = lane / 4 and q = lane % 4; the MMA
+// accumulator layout, held as acc[nt][2 i + e].
+struct Place {
+  int R0, C0, g, q, bt, bs;
+};
+using Acc = float[2][4];
+
+// acc += A B over k in [8 k0, 8 k1), A [rows][k] and B [k][cols] f32 tiles
+// in shared memory read as MMA fragments: A stored [row][k] (row stride
+// lda) or, AK, [k][row]; B stored [col][k] or, BK, [k][col]. Each 16 x 8
+// x 8 step runs as three TF32 MMAs, hi*hi + hi*lo + lo*hi (3xTF32): the
+// products keep about the float32 rounding of an FMA (lo*lo, ~2^-22 of a
+// product, is dropped).
+template <bool AK, bool BK>
+__device__ __forceinline__ void warp_mm(Acc& acc, const float* A, int lda,
+                                        const float* B, int ldb,
+                                        const Place& pl, int k0, int k1) {
+  const int g = pl.g, q = pl.q;
+#pragma unroll 2
+  for (int kb = k0; kb < k1; ++kb) {
+    const int k = 8 * kb;
+    float av[4];
+    if (AK) {
+      av[0] = A[(k + q) * lda + pl.R0 + g];
+      av[1] = A[(k + q) * lda + pl.R0 + g + 8];
+      av[2] = A[(k + q + 4) * lda + pl.R0 + g];
+      av[3] = A[(k + q + 4) * lda + pl.R0 + g + 8];
+    } else {
+      av[0] = A[(pl.R0 + g) * lda + k + q];
+      av[1] = A[(pl.R0 + g + 8) * lda + k + q];
+      av[2] = A[(pl.R0 + g) * lda + k + q + 4];
+      av[3] = A[(pl.R0 + g + 8) * lda + k + q + 4];
+    }
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(av[r], ah[r], al[r]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int n = pl.C0 + 8 * nt + g;
+      const float b0 = BK ? B[(k + q) * ldb + n] : B[n * ldb + k + q];
+      const float b1 = BK ? B[(k + q + 4) * ldb + n] : B[n * ldb + k + q + 4];
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b0, bh0, bl0);
+      split_tf32(b1, bh1, bl1);
+      mma_tf32(acc[nt], al, bh0, bh1);
+      mma_tf32(acc[nt], ah, bl0, bl1);
+      mma_tf32(acc[nt], ah, bh0, bh1);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+}
+
+// the warp's row r (i) and column c (nt, e) of acc[nt][2 i + e]
+__device__ __forceinline__ int row_of(const Place& pl, int i) {
+  return pl.R0 + pl.g + 8 * i;
+}
+__device__ __forceinline__ int col_of(const Place& pl, int nt, int e) {
+  return pl.C0 + 8 * nt + 2 * pl.q + e;
+}
+
+// sums over the lanes of a row (q: 4 lanes) or of a column (g: 8 lanes),
+// the same tree in every lane
+__device__ __forceinline__ float row_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float col_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Warp w's output tile (bt, bs) = (w / 4, BS[w]) of the 4 x 4 grid of
+// 16 x 16 tiles: the warps of one scheduler (w % 4) hold every row block
+// and every column block once (a Latin square), and 2 or 3 of the 10
+// tiles with bs <= bt, where the triangles s <= t lie.
+__constant__ int BS[16] = {0, 1, 2, 3, 2, 0, 3, 1, 3, 2, 1, 0, 1, 3, 0, 2};
+
+__device__ __forceinline__ Place place_of(int tid) {
+  Place pl;
+  const int w = tid / 32, lane = tid % 32;
+  pl.bt = w / 4;
+  pl.bs = BS[w];
+  pl.R0 = 16 * pl.bt;
+  pl.C0 = 16 * pl.bs;
+  pl.g = lane / 4;
+  pl.q = lane % 4;
+  return pl;
+}
+
+struct StSmem {
+  // C, B; x, dy in two buffers, all read down their columns (LDK); the
+  // group's seg (f64) [BG][BC], dt, then per head and row exp(seg_t) and
+  // tail_t = exp(seg_last - seg_t) dt_t
+  static constexpr int C = 0, B = TK, X = 2 * TK, DY = 4 * TK,
+      SEG = 6 * TK, DT = SEG + 2 * BG * BC, ES = DT + BG * BC,
+      TAIL = ES + BG * BC, FLOATS = TAIL + BG * BC;
+};
+
+constexpr int st_bwd_smem_bytes() { return StSmem::FLOATS * 4; }
+
+// Pass 1: per (b, chunk, group of BG heads), C and B staged once, each
+// head's own state and state gradient
+//   S_c = sum_s (x_s tail_s) B_s^T,  G_c = sum_t (dy_t exp(seg_t)) C_t^T,
+// [p][n] each (x and dy scaled in place first, as the forward's pass 1
+// scales x), and the chunk's decay exp(seg_last). One block of 16 warps
+// an SM (118 KB of shared memory), each warp a 16 x 16 tile of both
+// products; the next head's x and dy land by cp.async while this head
+// computes. 1.04 ms at SSD_MAIN (H100 80GB HBM3, 700 W; the ~1.9 GB it
+// moves take 0.56 ms at 3.35 TB/s), against 0.90 ms for each of the two
+// launches of the forward's pass 1 it replaces.
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS, 1) ssd_bwd_states(
+    const BwdParams bp) {
+  extern __shared__ __align__(16) float sm[];
+  using L = StSmem;
+  const float* Cs = sm + L::C;
+  const float* Bs = sm + L::B;
+  double* segs = reinterpret_cast<double*>(sm + L::SEG);   // [BG][BC]
+  float* dts = sm + L::DT;           // [BG][BC]
+  float* ess = sm + L::ES;           // [BG][BC]
+  float* tails = sm + L::TAIL;       // [BG][BC]
+
+  const Params& prm = bp.f;
+  const int P = prm.p, N = prm.n, H = prm.heads, C = prm.chunk;
+  const int g = blockIdx.x % bp.groups;
+  const int ci = (blockIdx.x / bp.groups) % prm.nc;
+  const int b = blockIdx.x / bp.groups / prm.nc;
+  const int h0 = g * BG, hn = min(BG, H - h0);
+  const int nv = min(C, prm.seq - ci * C);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const Place pl = place_of(tid);
+  const int64_t row0 = static_cast<int64_t>(b) * prm.seq + ci * C;
+  const int64_t rs = static_cast<int64_t>(H) * P;
+  const int64_t pn = static_cast<int64_t>(P) * N;
+  const T* xg = static_cast<const T*>(prm.x) + row0 * rs;
+  const T* dyg = static_cast<const T*>(prm.dy) + row0 * rs;
+  const T* dg = static_cast<const T*>(prm.dt);
+  const bool vec = bp.vec;
+  const int64_t slot0 = (static_cast<int64_t>(b) * H + h0) * prm.nc + ci;
+
+  auto stage_head = [&](int k) {
+    const int u = (k & 1) * TK;
+    stage(sm + L::X + u, LDK, xg + static_cast<int64_t>(h0 + k) * P, rs, nv,
+          P, vec, tid);
+    stage(sm + L::DY + u, LDK, dyg + static_cast<int64_t>(h0 + k) * P, rs,
+          nv, P, vec, tid);
+    cp_commit();
+  };
+
+  stage(sm + L::C, LDK, static_cast<const T*>(prm.cm) + row0 * N, N, nv, N,
+        vec, tid);
+  stage(sm + L::B, LDK, static_cast<const T*>(prm.bm) + row0 * N, N, nv, N,
+        vec, tid);
+  stage_head(0);
+  for (int i = tid; i < BG * BC; i += BWD_THREADS) {
+    const int t = i / BG, k = i % BG;
+    dts[k * BC + t] =
+        k < hn && t < nv ? to_f32(dg[(row0 + t) * H + h0 + k]) : 0.f;
+  }
+  __syncthreads();
+  if (w < hn) {
+    double* seg = segs + w * BC;
+    chunk_seg(seg, dts + w * BC, prm.a[h0 + w], C, lane);
+    __syncwarp();
+    const double seg_last = seg[C - 1];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int t = lane + 32 * v;
+      const bool in = t < C;
+      ess[w * BC + t] = in ? expf(static_cast<float>(seg[t])) : 0.f;
+      tails[w * BC + t] = in
+          ? expf(static_cast<float>(seg_last - seg[t])) * dts[w * BC + t]
+          : 0.f;
+    }
+    if (lane == 0)
+      prm.decay[slot0 + w * static_cast<int64_t>(prm.nc)] =
+          expf(static_cast<float>(seg_last));
+  }
+
+  for (int k = 0; k < hn; ++k) {
+    const int u = (k & 1) * TK;
+    float* Xs = sm + L::X + u;
+    float* DY = sm + L::DY + u;
+    if (k + 1 < hn) stage_head(k + 1);
+    else cp_commit();
+    cp_wait<1>();                // head k's x and dy
+    __syncthreads();
+#pragma unroll
+    for (int e = tid; e < BC * BC; e += BWD_THREADS) {
+      const int t = e / BC, o = t * LDK + e % BC;
+      Xs[o] *= tails[k * BC + t];
+      DY[o] *= ess[k * BC + t];
+    }
+    __syncthreads();
+    Acc st, gt;                  // S_c, G_c [p][n]
+    zero(st);
+    zero(gt);
+    warp_mm<true, true>(st, Xs, LDK, Bs, LDK, pl, 0, 8);
+    warp_mm<true, true>(gt, DY, LDK, Cs, LDK, pl, 0, 8);
+    const int64_t off = (slot0 + k * static_cast<int64_t>(prm.nc)) * pn;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row_of(pl, i);
+      if (r >= P) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = col_of(pl, nt, 0);
+        float* so = prm.states + off + r * N + n;
+        float* go = prm.gstates + off + r * N + n;
+        if (N % 2 == 0 && n < N) {
+          *reinterpret_cast<float2*>(so) =
+              make_float2(st[nt][2 * i], st[nt][2 * i + 1]);
+          *reinterpret_cast<float2*>(go) =
+              make_float2(gt[nt][2 * i], gt[nt][2 * i + 1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n + e < N) {
+              so[e] = st[nt][2 * i + e];
+              go[e] = gt[nt][2 * i + e];
+            }
+        }
+      }
+    }
+    __syncthreads();             // head k's buffers are read
+  }
+}
+
+struct BwdSmem {
+  // C, B, W^T; x, dy, g_c and h_c in two buffers (head k's and head
+  // k + 1's), h_c read down its columns (LDK), the rest along rows (LDA);
+  // the group's seg (f64) [BG][BC]; by head parity, the warps' g_c . h_c
+  // (f64) [2][16]; dt, exp(seg_t), exp(seg_last - seg_t) and tail_t
+  // [BG][BC]; by head parity, a head's partial sums by row block
+  // [2][4][BC]: colsum (sum_t Q), dtail (x . g_c B); by column block
+  // [2][4][BC]: rowsum (sum_s Q dt_s), C . dC(state)
+  static constexpr int C = 0, B = TA, W = 2 * TA, G = 3 * TA, X = 5 * TA,
+      DY = 7 * TA, H = 9 * TA, SEG = H + 2 * TK,
+      GH = SEG + 2 * BG * BC, DT = GH + 2 * 2 * 16, ES = DT + BG * BC,
+      ETL = ES + BG * BC, TAIL = ETL + BG * BC, CPART = TAIL + BG * BC,
+      DTP = CPART + 8 * BC, ROWS = DTP + 8 * BC, CDC = ROWS + 8 * BC,
+      FLOATS = CDC + 8 * BC;
+};
+
+constexpr int bwd_smem_bytes() { return BwdSmem::FLOATS * 4; }
+
+// Pass 4: one (b, chunk, group of BG heads). For each head in turn:
 //   dWE[t,s] = (dy_t . x_s) exp(seg_t - seg_s), s <= t; Q = dWE * CB;
 //   W = (CB * exp(seg_t - seg_s)) * dt_s, the forward's weights;
 //   sum_h dCB += dWE * dt_s (for dB and dC once per group);
-//   dx_s = sum_{t>=s} W[t,s] dy_t + tail_s (g_c B_s);
+//   dx_s = tail_s (g_c B_s) + sum_{t>=s} W[t,s] dy_t;
 //   dC_t += exp(seg_t) h_c^T dy_t;  dB_s += tail_s g_c^T x_s;
 //   ddt_s = sum_t Q[t,s] + dtail_s exp(seg_last - seg_s) + dDA_s a;
 //   dseg_t = sum_s Q[t,s] dt_s - dt_t sum_s Q[s,t] + C_t . dC_t(state)
@@ -652,33 +949,47 @@ constexpr int bwd_smem_bytes() {
 //   sum_t dDA_t dt_t, in f64.
 // Then dC_t += sum_s dCB[t,s] B_s and dB_s += sum_t dCB[t,s] C_t, the
 // group's partials.
+// Layout: one block of 16 warps an SM (512 threads, 209 KB of shared
+// memory: C, B, W^T; x, dy, g_c and h_c in two buffers, head k's and head
+// k + 1's; the group's seg in f64 and its per-row factors; the phases'
+// partial sums). Every product is [64 x 64] over k = 64, each warp a
+// 16 x 16 output tile at the same (row block, column block) in all of
+// them, so that a thread keeps its share of C.B^T, sum_h dCB, dC and dB
+// in registers (32 floats) through the group. The triangles skip the
+// tiles and k-steps they do not reach (C.B^T and dWE: the 10 tiles with
+// s <= t; dx and the end's dB: k >= the column block), and the warps of
+// one scheduler hold the same share of them. Phases, a barrier between
+// each; head k + 1's four tiles go in by cp.async one a phase, each into
+// the buffer head k - 1 has done with:
+//   S1: dC(state) = exp(seg_t) dy h_c, its row dots C . dC, g_c . h_c;
+//   S2: dWE, Q, W and sum_h dCB; W^T to shared memory; Q's row and column
+//       sums; warp 1, whose tile lies above the diagonal, meanwhile takes
+//       the previous head's row terms (rows_of);
+//   S3: g_c B, dtail's partials, dx = tail (g_c B) + W^T dy;
+//   S4: dB += tail (x g_c)^T.
+// Row and column sums go by shuffles inside a warp, then over the 4 row
+// or column blocks in order. At SSD_MAIN on an H100 80GB HBM3 (700 W) the
+// pass takes 2.40 ms, against 6.76 for a design of 8 warps, f32 FMAs and
+// one-thread row terms. Thread 0's clock64 stamps put 21% of a block in
+// S1, 18% in S2, 29% in S3, 15% in S4, 7% in the prologue and 6% at the
+// barriers; without its products the pass takes 1.00 ms, mostly the
+// ~1.9 GB of tiles it loads; the split's integer and add instructions
+// cost ~0.4 ms and the two extra MMAs of each step ~0.2.
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS, 1) ssd_bwd_chunk(
     const BwdParams bp) {
   extern __shared__ __align__(16) float sm[];
-  const Params& prm = bp.f;
-  float* Cs = sm;                    // C [t][n]
-  float* Bs = Cs + BC * BLD;         // B [s][n]
-  float* CB = Bs + BC * BLD;         // C.B^T [t][s], zero above the diagonal
-  float* dCB = CB + BC * BLD;        // sum over the group's heads [t][s]
-  float* X = dCB + BC * BLD;         // x [s][p]
-  float* DY = X + BC * BLD;          // dy [t][p]
-  float* Hs = DY + BC * BLD;         // h_c [p][n]
-  float* Gs = Hs + BC * BLD;         // g_c [p][n]
-  float* T1 = Gs + BC * BLD;         // Q [t][s], then g_c B [s][p]
-  float* T2 = T1 + BC * BLD;         // W [t][s], then dC(state) [t][n]
-  float* dts = T2 + BC * BLD;        // [BC] each
-  float* es = dts + BC;
-  float* etl = es + BC;
-  float* tail = etl + BC;
-  float* colsum = tail + BC;
-  float* rowsum = colsum + BC;
-  float* dtail = rowsum + BC;
-  float* ddt = dtail + BC;
-  double* seg = reinterpret_cast<double*>(ddt + BC);   // [BC]
-  double* dseg = seg + BC;                             // [BC]
-  double* red = dseg + BC;                             // [BWD_THREADS]
+  using L = BwdSmem;
+  const float* Cs = sm + L::C;       // C [t][n]
+  const float* Bs = sm + L::B;       // B [s][n]
+  float* Wt = sm + L::W;             // W^T [s][t]; at the end sum_h dCB^T
+  double* segs = reinterpret_cast<double*>(sm + L::SEG);   // [BG][BC]
+  float* dts = sm + L::DT;           // [BG][BC] each
+  float* ess = sm + L::ES;
+  float* etls = sm + L::ETL;
+  float* tails = sm + L::TAIL;
 
+  const Params& prm = bp.f;
   const int P = prm.p, N = prm.n, H = prm.heads, C = prm.chunk;
   const int g = blockIdx.x % bp.groups;
   const int ci = (blockIdx.x / bp.groups) % prm.nc;
@@ -686,206 +997,370 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ssd_bwd_chunk(
   const int h0 = g * BG, hn = min(BG, H - h0);
   const int t0c = ci * C;
   const int nv = min(C, prm.seq - t0c);
-  const int tid = threadIdx.x;
-  const int i0 = 4 * (tid / 16), j0 = 4 * (tid % 16);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const Place pl = place_of(tid);
+  const int bt = pl.bt, bs = pl.bs;
+  const bool tri = bs <= bt;         // the tile reaches s <= t
   const int64_t row0 = static_cast<int64_t>(b) * prm.seq + t0c;
-  const T* xg = static_cast<const T*>(prm.x);
-  const T* dyg = static_cast<const T*>(prm.dy);
+  const int64_t rs = static_cast<int64_t>(H) * P;
+  const int64_t pn = static_cast<int64_t>(P) * N;
+  const T* xg = static_cast<const T*>(prm.x) + row0 * rs;
+  const T* dyg = static_cast<const T*>(prm.dy) + row0 * rs;
   const T* dg = static_cast<const T*>(prm.dt);
   T* dxg = static_cast<T*>(bp.dx);
   T* ddtg = static_cast<T*>(bp.ddt);
+  const bool vec = bp.vec, svec = N % 4 == 0;
+  const int64_t slot0 = (static_cast<int64_t>(b) * H + h0) * prm.nc + ci;
 
-  load_tile(Cs, static_cast<const T*>(prm.cm), row0, N, nv, N, tid);
-  load_tile(Bs, static_cast<const T*>(prm.bm), row0, N, nv, N, tid);
+  // one of head k's tiles into buffer k % 2 (no more than hn heads)
+  auto stage_x = [&](int k) {
+    if (k < hn)
+      stage(sm + L::X + (k & 1) * TA, LDA,
+            xg + static_cast<int64_t>(h0 + k) * P, rs, nv, P, vec, tid);
+  };
+  auto stage_dy = [&](int k) {
+    if (k < hn)
+      stage(sm + L::DY + (k & 1) * TA, LDA,
+            dyg + static_cast<int64_t>(h0 + k) * P, rs, nv, P, vec, tid);
+  };
+  auto stage_h = [&](int k) {
+    if (k < hn)
+      stage(sm + L::H + (k & 1) * TK, LDK,
+            prm.states + (slot0 + k * static_cast<int64_t>(prm.nc)) * pn, N,
+            P, N, svec, tid);
+  };
+  auto stage_g = [&](int k) {
+    if (k < hn)
+      stage(sm + L::G + (k & 1) * TA, LDA,
+            prm.gstates + (slot0 + k * static_cast<int64_t>(prm.nc)) * pn, N,
+            P, N, svec, tid);
+  };
+  // head k's row terms, by one warp (lane's rows 2 lane, 2 lane + 1),
+  // from the partial sums its phases left by row or column block (its
+  // parity's arrays): its ddt, the reverse cumulative sum dDA of dseg in
+  // f64 (a warp scan), and dA's partial sum_t dDA_t dt_t in f64
+  auto rows_of = [&](int k) {
+    const int u = k & 1;
+    const double* seg = segs + k * BC;
+    const float* dth = dts + k * BC;
+    const float* cpart = sm + L::CPART + u * 4 * BC;
+    const float* dtp = sm + L::DTP + u * 4 * BC;
+    const float* rows = sm + L::ROWS + u * 4 * BC;
+    const float* cdcs = sm + L::CDC + u * 4 * BC;
+    const double* ghp = reinterpret_cast<const double*>(sm + L::GH) + u * 16;
+    double dsg[2], endp = 0.0;
+    float ddt0[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int r = 2 * lane + v;
+      const bool in = r < C;
+      float cs = 0.f, dtail = 0.f, rw = 0.f, cdc = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        cs += cpart[i * BC + r];
+        dtail += dtp[i * BC + r];
+        rw += rows[i * BC + r];
+        cdc += cdcs[i * BC + r];
+      }
+      const float dtt = __fmul_rn(dtail, tails[k * BC + r]);
+      ddt0[v] = __fadd_rn(cs, __fmul_rn(dtail, etls[k * BC + r]));
+      dsg[v] = in ? static_cast<double>(rw) -
+                    static_cast<double>(__fmul_rn(dth[r], cs)) +
+                    static_cast<double>(cdc) - static_cast<double>(dtt)
+                  : 0.0;
+      endp += in ? static_cast<double>(dtt) : 0.0;
+    }
+    double gh = 0.0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) gh += ghp[i];
+    const double end = warp_sum(endp) +
+        static_cast<double>(expf(static_cast<float>(seg[C - 1]))) * gh;
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+      if (2 * lane + v == C - 1) dsg[v] += end;
+    // dDA_t = sum_{r>=t} dseg_r: the lanes after this one, by a scan
+    const double run = dsg[0] + dsg[1];
+    double incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double dn = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += dn;
+    }
+    const double dda[2] = {(incl - run) + dsg[1] + dsg[0],
+                           (incl - run) + dsg[1]};
+    const double av = static_cast<double>(prm.a[h0 + k]);
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int r = 2 * lane + v;
+      if (r < nv)
+        ddtg[(row0 + r) * H + h0 + k] = from_f32<T>(
+            __fadd_rn(ddt0[v], static_cast<float>(dda[v] * av)));
+    }
+    const double da = warp_sum(dda[0] * static_cast<double>(dth[2 * lane]) +
+                               dda[1] * static_cast<double>(dth[2 * lane + 1]));
+    if (lane == 0)
+      bp.da_part[(static_cast<int64_t>(b) * prm.nc + ci) * H + h0 + k] = da;
+  };
+
+  // ---- prologue: C, B and head 0's tiles; dt of the group's heads; each
+  // head's seg and row factors, a warp a head; C.B^T ----
+  stage(sm + L::C, LDA, static_cast<const T*>(prm.cm) + row0 * N, N, nv, N,
+        vec, tid);
+  stage(sm + L::B, LDA, static_cast<const T*>(prm.bm) + row0 * N, N, nv, N,
+        vec, tid);
+  stage_dy(0);
+  stage_h(0);
+  stage_x(0);
+  stage_g(0);
+  cp_commit();
+  for (int i = tid; i < BG * BC; i += BWD_THREADS) {
+    const int t = i / BG, k = i % BG;
+    dts[k * BC + t] =
+        k < hn && t < nv ? to_f32(dg[(row0 + t) * H + h0 + k]) : 0.f;
+  }
+  cp_wait<0>();
   __syncthreads();
-  {  // C.B^T below the diagonal; sum_h dCB zero
-    float acc[4][4];
-    zero44(acc);
-    mm44(acc, i0, j0, 0, N, [&](int i, int k) { return Cs[i * BLD + k]; },
-         [&](int k, int j) { return Bs[j * BLD + k]; });
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = i0 + i, s = j0 + j;
-        CB[t * BLD + s] = s <= t && t < C ? acc[i][j] : 0.f;
-        dCB[t * BLD + s] = 0.f;
-      }
-  }
-  float accB[4][4], accC[4][4];      // dB [s][n], dC [t][n] of the group
-  zero44(accB);
-  zero44(accC);
-
-  for (int k = 0; k < hn; ++k) {
-    const int h = h0 + k;
-    const int64_t slot = ((static_cast<int64_t>(b) * H + h) * prm.nc + ci);
-    load_tile(X, xg + static_cast<int64_t>(h) * P, row0, H * P, nv, P, tid);
-    load_tile(DY, dyg + static_cast<int64_t>(h) * P, row0, H * P, nv, P,
-              tid);
-    for (int i = tid; i < BC * BC; i += BWD_THREADS) {
-      const int q = i / BC, n = i % BC;
-      const bool ok = q < P && n < N;
-      Hs[q * BLD + n] = ok ? prm.states[slot * P * N + q * N + n] : 0.f;
-      Gs[q * BLD + n] = ok ? prm.gstates[slot * P * N + q * N + n] : 0.f;
-    }
-    if (tid < BC)
-      dts[tid] = tid < nv ? to_f32(dg[(row0 + tid) * H + h]) : 0.f;
-    __syncthreads();
-    if (tid < 32) chunk_seg(seg, dts, prm.a[h], C, tid);
-    __syncthreads();
+  if (w < hn) {
+    double* seg = segs + w * BC;
+    chunk_seg(seg, dts + w * BC, prm.a[h0 + w], C, lane);
+    __syncwarp();
     const double seg_last = seg[C - 1];
-    if (tid < BC) {
-      const bool in = tid < C;
-      es[tid] = in ? expf(static_cast<float>(seg[tid])) : 0.f;
-      etl[tid] = in ? expf(static_cast<float>(seg_last - seg[tid])) : 0.f;
-      tail[tid] = in ? etl[tid] * dts[tid] : 0.f;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int t = lane + 32 * v, o = w * BC + t;
+      const bool in = t < C;
+      const float etl = in ? expf(static_cast<float>(seg_last - seg[t]))
+                           : 0.f;
+      ess[o] = in ? expf(static_cast<float>(seg[t])) : 0.f;
+      etls[o] = etl;
+      tails[o] = __fmul_rn(etl, dts[o]);
     }
-    __syncthreads();
+  }
+  Acc CB, dCB;                   // C.B^T below the diagonal, sum_h dCB [t][s]
+  Acc accC, accB;                // the group's dC [t][n], dB^T [n][s]
+  zero(CB);
+  zero(dCB);
+  zero(accC);
+  zero(accB);
+  if (tri) warp_mm<false, false>(CB, Cs, LDA, Bs, LDA, pl, 0, 8);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int t = row_of(pl, r / 2), s = col_of(pl, nt, r % 2);
+      if (!(s <= t && t < C)) CB[nt][r] = 0.f;
+    }
+  __syncthreads();               // every head's seg and row factors
 
-    {  // dWE, Q, W; sum_h dCB
-      float acc[4][4];
-      zero44(acc);
-      mm44(acc, i0, j0, 0, P, [&](int i, int q) { return DY[i * BLD + q]; },
-           [&](int q, int j) { return X[j * BLD + q]; });
+  // Head k + 1's tiles go in one a phase of head k, each into the buffer
+  // head k - 1 has done with, one cp.async group each: dy (read first by
+  // S1), h_c, x, g_c. Each wait lets the two latest groups stay in flight.
+  for (int k = 0; k < hn; ++k) {
+    const int h = h0 + k, u = k & 1;
+    const float* Xs = sm + L::X + u * TA;
+    const float* DY = sm + L::DY + u * TA;
+    const float* Hs = sm + L::H + u * TK;
+    const float* Gs = sm + L::G + u * TA;
+    const double* seg = segs + k * BC;
+    const float* dth = dts + k * BC;
+    const float* esh = ess + k * BC;
+    const float* tlh = tails + k * BC;
+    float* cpart = sm + L::CPART + u * 4 * BC;
+    float* dtp = sm + L::DTP + u * 4 * BC;
+    float* rows = sm + L::ROWS + u * 4 * BC;
+    float* cdcs = sm + L::CDC + u * 4 * BC;
+    double* ghp = reinterpret_cast<double*>(sm + L::GH) + u * 16;
+    stage_dy(k + 1);
+    cp_commit();
+    {  // S1: dC(state) = exp(seg_t) dy_t h_c [t][n]; C . dC(state); g_c . h_c
+      Acc acc;
+      zero(acc);
+      warp_mm<false, true>(acc, DY, LDA, Hs, LDK, pl, 0, 8);
+      float part[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 2; ++i) {
+        const int t = row_of(pl, i);
+        const float e = esh[t];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = i0 + i, s = j0 + j;
-          float q = 0.f, w = 0.f;
-          if (s <= t && t < C) {
-            const float e = expf(static_cast<float>(seg[t] - seg[s]));
-            const float cb = CB[t * BLD + s];
-            const float dwe = __fmul_rn(acc[i][j], e);
-            q = __fmul_rn(dwe, cb);
-            w = __fmul_rn(__fmul_rn(cb, e), dts[s]);
-            dCB[t * BLD + s] += __fmul_rn(dwe, dts[s]);
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float dci = __fmul_rn(acc[nt][2 * i + c], e);
+            accC[nt][2 * i + c] += dci;
+            part[i] = fmaf(Cs[t * LDA + col_of(pl, nt, c)], dci, part[i]);
           }
-          T1[t * BLD + s] = q;
-          T2[t * BLD + s] = w;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = row_sum(part[i]);
+        if (pl.q == 0) cdcs[bs * BC + row_of(pl, i)] = v;
+      }
+      float gh = 0.f;            // over the tiles, zero past P and N
+#pragma unroll
+      for (int e = tid; e < BC * BC; e += BWD_THREADS) {
+        const int r = e / BC, c = e % BC;
+        gh = fmaf(Gs[r * LDA + c], Hs[r * LDK + c], gh);
+      }
+      const double ghs = warp_sum(static_cast<double>(gh));
+      if (lane == 0) ghp[w] = ghs;
+    }
+    cp_wait<2>();                // head k's x
+    __syncthreads();             // S1's sums; h_c is read
+    stage_h(k + 1);
+    cp_commit();
+    {  // S2: dWE, Q, W [t][s]; sum_h dCB; W^T; Q's row and column sums
+      Acc acc;
+      zero(acc);
+      if (tri) warp_mm<false, false>(acc, DY, LDA, Xs, LDA, pl, 0, 8);
+      float rsum[2] = {0.f, 0.f}, csum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int t = row_of(pl, i);
+        const double st = seg[t];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int s = col_of(pl, nt, c), r = 2 * i + c;
+            const float ds = dth[s];
+            float q = 0.f, wt = 0.f;
+            if (s <= t && t < C) {
+              const float e = expf(static_cast<float>(st - seg[s]));
+              const float cb = CB[nt][r];
+              const float dwe = __fmul_rn(acc[nt][r], e);
+              q = __fmul_rn(dwe, cb);
+              wt = __fmul_rn(__fmul_rn(cb, e), ds);
+              dCB[nt][r] += __fmul_rn(dwe, ds);
+            }
+            if (tri) Wt[s * LDA + t] = wt;
+            rsum[i] = fmaf(q, ds, rsum[i]);
+            csum[nt][c] += q;
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = row_sum(rsum[i]);
+        if (pl.q == 0) rows[bs * BC + row_of(pl, i)] = v;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = col_sum(csum[nt][c]);
+          if (pl.g == 0) cpart[bt * BC + col_of(pl, nt, c)] = v;
+        }
+      // warp 1's tile lies above the diagonal: it takes the previous
+      // head's row terms meanwhile
+      if (w == 1 && k > 0) rows_of(k - 1);
+    }
+    cp_wait<2>();                // head k's g_c
+    __syncthreads();             // W^T and Q's sums are ready
+    stage_x(k + 1);
+    cp_commit();
+    {  // S3: g_c B [p][s]; dtail's partials; dx = tail (g_c B) + W^T dy
+      Acc acc;
+      zero(acc);
+      warp_mm<false, false>(acc, Gs, LDA, Bs, LDA, pl, 0, 8);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int s = col_of(pl, nt, c);
+          float v = 0.f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            v = fmaf(Xs[s * LDA + row_of(pl, i)], acc[nt][2 * i + c], v);
+          v = col_sum(v);
+          if (pl.g == 0) dtp[bt * BC + s] = v;
+          const float tl = tlh[s];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            acc[nt][2 * i + c] = __fmul_rn(tl, acc[nt][2 * i + c]);
+        }
+      warp_mm<true, false>(acc, DY, LDA, Wt, LDA, pl, 2 * bs, 8);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int s = col_of(pl, nt, c);
+          if (s >= nv) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int p = row_of(pl, i);
+            if (p < P)
+              dxg[((row0 + s) * H + h) * P + p] =
+                  from_f32<T>(acc[nt][2 * i + c]);
+          }
         }
     }
-    __syncthreads();
-    if (tid < BC) {             // sum_t Q[t, s] (s = tid)
-      float cs = 0.f;
-      for (int t = tid; t < C; ++t) cs += T1[t * BLD + tid];
-      colsum[tid] = cs;
-    } else if (tid < 2 * BC) {  // sum_s Q[t, s] dt_s (t = tid - 64)
-      const int t = tid - BC;
-      float rs = 0.f;
-      for (int s = 0; s <= t && s < C; ++s)
-        rs = fmaf(T1[t * BLD + s], dts[s], rs);
-      rowsum[t] = rs;
-    }
-    __syncthreads();
-    {  // dx = W^T dy + tail (g_c B); g_c B to T1
-      float acc[4][4], gb[4][4];
-      zero44(acc);
-      zero44(gb);
-      mm44(acc, i0, j0, i0, C, [&](int s, int t) { return T2[t * BLD + s]; },
-           [&](int t, int q) { return DY[t * BLD + q]; });
-      mm44(gb, i0, j0, 0, N, [&](int s, int n) { return Bs[s * BLD + n]; },
-           [&](int n, int q) { return Gs[q * BLD + n]; });
+    __syncthreads();             // dy, W^T and dtail's partials are read
+    stage_g(k + 1);
+    cp_commit();
+    {  // S4: dB^T += tail_s (x g_c)^T [n][s]
+      Acc acc;
+      zero(acc);
+      warp_mm<true, false>(acc, Gs, LDA, Xs, LDA, pl, 0, 8);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = i0 + i;
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int q = j0 + j;
-          T1[s * BLD + q] = gb[i][j];
-          if (s < nv && q < P)
-            dxg[((row0 + s) * H + h) * P + q] = from_f32<T>(
-                __fadd_rn(acc[i][j], __fmul_rn(tail[s], gb[i][j])));
+        for (int c = 0; c < 2; ++c) {
+          const float tl = tlh[col_of(pl, nt, c)];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            accB[nt][2 * i + c] += __fmul_rn(tl, acc[nt][2 * i + c]);
         }
-      }
     }
-    __syncthreads();
-    {  // dC(state) = exp(seg_t) dy_t h_c to T2 and dC; dB += tail g_c^T x
-      float acc[4][4], xb[4][4];
-      zero44(acc);
-      zero44(xb);
-      mm44(acc, i0, j0, 0, P, [&](int t, int q) { return DY[t * BLD + q]; },
-           [&](int q, int n) { return Hs[q * BLD + n]; });
-      mm44(xb, i0, j0, 0, P, [&](int s, int q) { return X[s * BLD + q]; },
-           [&](int q, int n) { return Gs[q * BLD + n]; });
-      float gh = 0.f;           // this thread's share of sum g_c h_c
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i0 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float dci = __fmul_rn(acc[i][j], es[r]);
-          T2[r * BLD + j0 + j] = dci;
-          accC[i][j] += dci;
-          accB[i][j] += __fmul_rn(tail[r], xb[i][j]);
-          gh = fmaf(Gs[r * BLD + j0 + j], Hs[r * BLD + j0 + j], gh);
-        }
-      }
-      red[tid] = gh;
-    }
-    __syncthreads();
-    if (tid < BC) {             // the row terms of dseg and ddt (r = tid)
-      const int r = tid;
-      float dtl = 0.f, cdc = 0.f;
-      for (int q = 0; q < BC; ++q) {
-        dtl = fmaf(X[r * BLD + q], T1[r * BLD + q], dtl);
-        cdc = fmaf(Cs[r * BLD + q], T2[r * BLD + q], cdc);
-      }
-      dtail[r] = dtl;
-      ddt[r] = __fadd_rn(colsum[r], __fmul_rn(dtl, etl[r]));
-      dseg[r] = r < C ? static_cast<double>(rowsum[r]) -
-                        static_cast<double>(__fmul_rn(dts[r], colsum[r])) +
-                        static_cast<double>(cdc) -
-                        static_cast<double>(__fmul_rn(dtl, tail[r]))
-                      : 0.0;
-    }
-    __syncthreads();
-    if (tid == 0) {             // the last row's terms, then dDA and dA
-      double end = 0.0, gh = 0.0;
-      for (int s = 0; s < C; ++s)
-        end += static_cast<double>(__fmul_rn(dtail[s], tail[s]));
-      for (int i = 0; i < BWD_THREADS; ++i) gh += red[i];
-      end += static_cast<double>(expf(static_cast<float>(seg_last))) * gh;
-      dseg[C - 1] += end;
-      double run = 0.0, da = 0.0;
-      for (int t = C - 1; t >= 0; --t) {
-        run += dseg[t];
-        dseg[t] = run;             // dDA_t
-        da += run * static_cast<double>(dts[t]);
-      }
-      bp.da_part[(static_cast<int64_t>(b) * prm.nc + ci) * H + h] = da;
-    }
-    __syncthreads();
-    if (tid < nv)
-      ddtg[(row0 + tid) * H + h] = from_f32<T>(__fadd_rn(
-          ddt[tid], static_cast<float>(dseg[tid] * static_cast<double>(
-                                           prm.a[h]))));
-    __syncthreads();   // the tiles are read before the next head's
+    cp_wait<2>();                // head k + 1's dy and h_c
+    __syncthreads();             // head k's tiles are read
   }
 
-  {  // the group's dC and dB: + sum_h dCB B and + sum_h dCB^T C
-    mm44(accC, i0, j0, 0, C, [&](int t, int s) { return dCB[t * BLD + s]; },
-         [&](int s, int n) { return Bs[s * BLD + n]; });
-    mm44(accB, i0, j0, i0, C, [&](int s, int t) { return dCB[t * BLD + s]; },
-         [&](int t, int n) { return Cs[t * BLD + n]; });
-    const int64_t base = (static_cast<int64_t>(g) * prm.batch + b) * prm.seq +
-                         t0c;
+  // ---- the last head's row terms; the group's dC and dB: + sum_h dCB B
+  // and + sum_h dCB^T C ----
+  if (w == 1) rows_of(hn - 1);
+  if (tri) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i0 + i;
-      if (r >= nv) continue;
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = j0 + j;
-        if (n >= N) continue;
-        bp.dc_part[(base + r) * N + n] = accC[i][j];
-        bp.db_part[(base + r) * N + n] = accB[i][j];
+      for (int r = 0; r < 4; ++r)
+        Wt[col_of(pl, nt, r % 2) * LDA + row_of(pl, r / 2)] = dCB[nt][r];
+  }
+  __syncthreads();
+  warp_mm<true, true>(accC, Wt, LDA, Bs, LDA, pl, 0, 2 * bt + 2);
+  warp_mm<true, false>(accB, Cs, LDA, Wt, LDA, pl, 2 * bs, 8);
+  const int64_t base = (static_cast<int64_t>(g) * prm.batch + b) * prm.seq +
+                       t0c;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      {  // dC [t][n]: t = row, n = column
+        const int t = row_of(pl, i), n = col_of(pl, nt, 0);
+        if (t < nv) {
+          float* dst = bp.dc_part + (base + t) * N + n;
+          if (svec && n < N) {
+            *reinterpret_cast<float2*>(dst) =
+                make_float2(accC[nt][2 * i], accC[nt][2 * i + 1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (n + e < N) dst[e] = accC[nt][2 * i + e];
+          }
+        }
+      }
+      {  // dB [s][n]: n = row, s = column
+        const int n = row_of(pl, i);
+        if (n < N) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int s = col_of(pl, nt, e);
+            if (s < nv) bp.db_part[(base + s) * N + n] = accB[nt][2 * i + e];
+          }
+        }
       }
     }
-  }
 }
 
-// Pass 6: the fixed-order sums. dB and dC: one thread per (b, t, n) over
+// Pass 5: the fixed-order sums. dB and dC: one thread per (b, t, n) over
 // the groups in order; dA: one thread per head over (b, chunk) in order,
 // in f64.
 template <typename T>
@@ -915,48 +1390,42 @@ __global__ void __launch_bounds__(RED_THREADS) ssd_bwd_reduce(
 template <typename T>
 cudaError_t launch_bwd(const BwdParams& bp, cudaStream_t stream) {
   static const cudaError_t attr1 = cudaFuncSetAttribute(
-      ssd_states<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      st_smem_bytes());
-  static const cudaError_t attr3 = cudaFuncSetAttribute(
-      ssd_states<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      st_smem_bytes());
-  static const cudaError_t attr5 = cudaFuncSetAttribute(
+      ssd_bwd_states<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      st_bwd_smem_bytes());
+  static const cudaError_t attr4 = cudaFuncSetAttribute(
       ssd_bwd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bwd_smem_bytes());
   if (attr1 != cudaSuccess) return attr1;
-  if (attr3 != cudaSuccess) return attr3;
-  if (attr5 != cudaSuccess) return attr5;
+  if (attr4 != cudaSuccess) return attr4;
   const Params& p = bp.f;
   const int64_t bh = static_cast<int64_t>(p.batch) * p.heads;
   const int64_t pn = static_cast<int64_t>(p.p) * p.n;
   const int64_t red = static_cast<int64_t>(p.batch) * p.seq * p.n;
   const int64_t red_blocks =
       ((red > p.heads ? red : p.heads) + RED_THREADS - 1) / RED_THREADS;
-  if (bh * p.nc > INT_MAX || p.batch * bp.groups * p.nc > INT_MAX ||
-      red_blocks > INT_MAX)
+  const int64_t chunk_blocks = static_cast<int64_t>(p.batch) * bp.groups * p.nc;
+  if (chunk_blocks > INT_MAX || red_blocks > INT_MAX)
     return cudaErrorInvalidValue;
   const int v = pn % 4 == 0 ? 4 : 1;
   const dim3 pass_grid(static_cast<unsigned>(bh),
                        static_cast<unsigned>((pn / v + PASS_THREADS - 1) /
                                              PASS_THREADS));
-  // 1-2: the states entering each chunk (the forward's passes)
-  ssd_states<T, false><<<static_cast<unsigned>(bh * p.nc), ST_THREADS,
-                         st_smem_bytes(), stream>>>(p);
+  // 1: each chunk's own state, decay and state gradient
+  ssd_bwd_states<T><<<static_cast<unsigned>(chunk_blocks), BWD_THREADS,
+                      st_bwd_smem_bytes(), stream>>>(bp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // 2-3: the states entering each chunk; the reverse carry of the
+  // gradients, the gradient of the state leaving each chunk
   if (v == 4) ssd_pass<4, false><<<pass_grid, PASS_THREADS, 0, stream>>>(p);
   else ssd_pass<1, false><<<pass_grid, PASS_THREADS, 0, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 3-4: each chunk's own state gradient, then the reverse carry
-  ssd_states<T, true><<<static_cast<unsigned>(bh * p.nc), ST_THREADS,
-                        st_smem_bytes(), stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (v == 4) ssd_pass<4, true><<<pass_grid, PASS_THREADS, 0, stream>>>(p);
   else ssd_pass<1, true><<<pass_grid, PASS_THREADS, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 5: the per-chunk gradients; 6: the fixed-order sums
-  ssd_bwd_chunk<T><<<static_cast<unsigned>(p.batch * bp.groups * p.nc),
-                     BWD_THREADS, bwd_smem_bytes(), stream>>>(bp);
+  // 4: the per-chunk gradients; 5: the fixed-order sums
+  ssd_bwd_chunk<T><<<static_cast<unsigned>(chunk_blocks), BWD_THREADS,
+                     bwd_smem_bytes(), stream>>>(bp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ssd_bwd_reduce<T><<<static_cast<unsigned>(red_blocks), RED_THREADS, 0,
                       stream>>>(bp);
@@ -1003,7 +1472,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
 // (dA's f64 partials) + B H nc P N + r4(B H nc) + B H nc P N (the states
 // entering each chunk, the decays, the state gradients) + 2 groups B S N
 // (dB's and dC's partials) floats, r4 rounding up to a multiple of 4,
-// nc = ceil(S / chunk), groups = ceil(H / 8) (ops.py's ssd_bwd_work). Six
+// nc = ceil(S / chunk), groups = ceil(H / 8) (ops.py's ssd_bwd_work). Five
 // launches on `stream`. Returns a cudaError_t (0 = launched).
 extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    const void* a, const void* bm,
@@ -1032,6 +1501,11 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
   bp.dc_part = bp.db_part + static_cast<int64_t>(bp.groups) * batch * seq * n;
   bp.dx = dx; bp.ddt = ddt; bp.da = static_cast<float*>(da);
   bp.dbm = dbm; bp.dcm = dcm;
+  auto al16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  bp.vec = dtype == 0 && p % 4 == 0 && n % 4 == 0 && al16(x) && al16(dy) &&
+           al16(bm) && al16(cm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return static_cast<int>(launch_bwd<float>(bp, s));

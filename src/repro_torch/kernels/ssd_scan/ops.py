@@ -21,14 +21,15 @@ last chunk itself, so unlike the reference wrapper this one pads nothing.
 
 :func:`ssd_scan_bwd` is the VJP (dxh, ddt, dA, dBm, dCm), the same file's
 second entry point, with :func:`ssd_scan_bwd_plain` beside it and the same
-CPU/CUDA rule. It recomputes the states entering each chunk with the
-forward's passes 1-2 at its own chunk ``min(chunk, S, BWD_CHUNK)`` (the
-scan's value does not depend on the chunking, only its rounding does),
-then four launches: each chunk's state gradient, their reverse carry, the
-per-chunk gradients and the fixed-order sums of dB, dC and dA, through an
-f32 workspace (:func:`ssd_bwd_work`) the wrapper allocates.
-``ssd_scan_bwd.launches`` counts its calls on the card and
-``kernel_launches`` its device launches, six a call. On a shape-only
+CPU/CUDA rule. It runs at its own chunk ``min(chunk, S, BWD_CHUNK)`` (the
+scan's value does not depend on the chunking, only its rounding does), in
+five launches through an f32 workspace (:func:`ssd_bwd_work`) the wrapper
+allocates: each chunk's own state and state gradient, the pass across
+chunks that turns them into the state entering each chunk, the reverse
+pass that turns the gradients into the gradient of the state leaving
+each chunk, the per-chunk gradients, and the fixed-order sums of dB, dC
+and dA. ``ssd_scan_bwd.launches`` counts its calls on the card and
+``kernel_launches`` its device launches, five a call. On a shape-only
 tensor it records :func:`ssd_bwd_cost` under ``ssd_scan_bwd`` and
 allocates the outputs and the workspace. Under grad on the card
 :func:`ssd_scan` goes through :class:`SSDScanFn`: the forward on one
@@ -46,7 +47,7 @@ from ..shape_only import record, shape_only
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "SSDScanFn", "ssd_ops",
            "ssd_cost", "ssd_scan_bwd", "ssd_scan_bwd_plain", "ssd_bwd_ops",
-           "ssd_bwd_cost", "ssd_bwd_work"]
+           "ssd_bwd_ops_split", "ssd_bwd_cost", "ssd_bwd_work"]
 
 MAX_P = 64                 # what csrc/ssd_scan.cu is built for
 MAX_N = 64
@@ -54,8 +55,8 @@ MAX_CHUNK = 128
 KERNELS_PER_CALL = 3       # chunk states, state pass, outputs
 BWD_CHUNK = 64             # the backward's largest chunk (its tiles)
 BWD_GROUP = 8              # heads a per-chunk block of the backward takes
-BWD_KERNELS_PER_CALL = 6   # states, pass, state gradients, reverse pass,
-                           # per-chunk gradients, sums
+BWD_KERNELS_PER_CALL = 5   # chunk states and state gradients, pass,
+                           # reverse pass, per-chunk gradients, sums
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # as csrc/ instantiates
 _count_lock = threading.Lock()
 _fn = None
@@ -85,23 +86,31 @@ def ssd_cost(B, S, H, P, N, chunk, itemsize) -> tuple[int, int]:
             (2 * B * S * H * P + B * S * H + 2 * B * S * N) * itemsize)
 
 
-def ssd_bwd_ops(B, S, H, P, N, chunk) -> int:
+def ssd_bwd_ops_split(B, S, H, P, N, chunk) -> tuple[int, int]:
     """The SSD scan's VJP's operations at the backward's chunk
-    ``min(chunk, S, BWD_CHUNK)``: per chunk of n rows, per b, C.B^T and the
-    head-summed dCB's two products into dB and dC (3 x n(n+1)/2 x N
-    multiply-adds); per (b, h) dy.x^T and W^T dy (2 x n(n+1)/2 x P), the
-    pair terms (8 a pair: the exponential, W, dWE, Q, dCB and two sums),
-    five n x P x N products (the recomputed state, its gradient, g_c B,
-    g_c^T x, dy h_c) and the two carries (2 x P x N): two operations a
-    multiply-add."""
+    ``min(chunk, S, BWD_CHUNK)``, as (products, the rest). Products: per
+    chunk of n rows, per b, C.B^T and the head-summed dCB's two products
+    into dB and dC (3 x n(n+1)/2 x N multiply-adds); per (b, h) dy.x^T and
+    W^T dy (2 x n(n+1)/2 x P) and five n x P x N products (the recomputed
+    state, its gradient, g_c B, g_c^T x, dy h_c). The rest: per (b, h) the
+    pair terms (8 a pair: the exponential, W, dWE, Q, dCB and two sums) and
+    the two carries (2 x P x N). Two operations a multiply-add. Both are
+    the function's float32 operations; the kernel runs each product as
+    three TF32 tensor-core products (3xTF32), the rest on the f32 units."""
     c = max(1, min(chunk, S, BWD_CHUNK))
-    ops = 0
+    products = rest = 0
     for t0 in range(0, S, c):
         n = min(c, S - t0)
         tri = n * (n + 1) // 2
-        ops += B * 2 * 3 * tri * N + B * H * (
-            2 * 2 * tri * P + 8 * tri + 2 * 5 * n * P * N + 2 * 2 * P * N)
-    return ops
+        products += B * 2 * 3 * tri * N + B * H * (
+            2 * 2 * tri * P + 2 * 5 * n * P * N)
+        rest += B * H * (8 * tri + 2 * 2 * P * N)
+    return products, rest
+
+
+def ssd_bwd_ops(B, S, H, P, N, chunk) -> int:
+    """All of :func:`ssd_bwd_ops_split`'s operations."""
+    return sum(ssd_bwd_ops_split(B, S, H, P, N, chunk))
 
 
 def ssd_bwd_cost(B, S, H, P, N, chunk, itemsize) -> tuple[int, int]:
@@ -324,7 +333,7 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _launch_bwd(xh, dt, A, Bm, Cm, dy, chunk):
-    """The backward's six launches on checked CUDA tensors."""
+    """The backward's five launches on checked CUDA tensors."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     c = max(1, min(int(chunk), S, BWD_CHUNK))

@@ -90,105 +90,211 @@ def gmm_bwd_emulated(x, w, offsets, counts, dy):
 # ---------------------------------------------------------------------------
 # ssd_scan_bwd
 # ---------------------------------------------------------------------------
-def ssd_bwd_emulated(xh, dt, A, Bm, Cm, dy, *, chunk):
-    """(dxh, ddt, dA, dBm, dCm) by ssd_scan_bwd's passes, at the backward's
-    chunk c = min(chunk, S, SSD_SUB) (the scan's value does not depend on
-    its chunking; only its rounding does):
+def _seq(v, dim):
+    """A sum over ``dim`` in index order, as one thread adds its terms."""
+    out = v.select(dim, 0)
+    for i in range(1, v.shape[dim]):
+        out = out + v.select(dim, i)
+    return out
 
-    1-2. the forward's passes at chunk c: each chunk's own state and decay
-       exp(seg_last), then the state h_c entering each chunk;
-    3. each chunk's own state gradient G_c = sum_t exp(seg_t) dy_t C_t^T;
-    4. the reverse carry: g_c, the gradient of the state leaving chunk c,
+
+def _pairs(v, dim):
+    """A sum over ``dim`` (a power of two) in the order of a butterfly over
+    the lanes by offsets 1, 2, 4, ...: neighbours first."""
+    dim %= v.dim()
+    while v.shape[dim] > 1:
+        v = v.unflatten(dim, (v.shape[dim] // 2, 2))
+        v = v.select(dim + 1, 0) + v.select(dim + 1, 1)
+    return v.squeeze(dim)
+
+
+def _halves(v, dim):
+    """A sum over ``dim`` (a power of two) in the order of a butterfly by
+    offsets n/2, n/4, ..., 1 (``warp_sum``)."""
+    n = v.shape[dim]
+    while n > 1:
+        n //= 2
+        v = v.narrow(dim, 0, n) + v.narrow(dim, n, n)
+    return v.squeeze(dim)
+
+
+def _row_sum(v):
+    """Pass 4's sum of a [.., 64 rows, 64 columns] tile over its columns:
+    a warp's 16-column block holds column 8 nt + 2 q + c in lane q, which
+    adds its four terms in (nt, c) order, then the 4 lanes of a row add
+    theirs (offsets 1, 2), then the 4 column blocks are added in order."""
+    v = v.unflatten(-1, (4, 2, 4, 2)).permute(
+        *range(v.dim() - 1), -4, -2, -3, -1)        # [.., blk, q, nt, c]
+    v = _seq(v.flatten(-2), -1)
+    return _seq(_pairs(v, -1), -1)
+
+
+def _col_sum(v):
+    """Pass 4's sum of a [.., 64 rows, cols] tile over its rows: a warp's
+    16-row block holds rows g and g + 8 in lane group g, added in that
+    order, then the 8 lane groups (offsets 4, 8, 16 of the lanes), then
+    the 4 row blocks in order."""
+    v = v.unflatten(-2, (4, 2, 8))                  # [.., blk, i, g, cols]
+    return _seq(_pairs(_seq(v, -3), -2), -2)
+
+
+def _tf32_round(v):
+    """v rounded to TF32 as pass 4 splits it: half an ulp of a 10-bit
+    mantissa added to the magnitude, the low 13 bits cleared."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(v):
+    """What the tensor cores read of an f32 operand: its top 19 bits."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as pass 4's 3xTF32 MMAs: a = ah + al, b = bh + bl (ah, bh
+    rounded to TF32, al, bl the rest as the tensor cores read it), and
+    al bh + ah bl + ah bh in float32 (al bl dropped)."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_bwd_emulated(xh, dt, A, Bm, Cm, dy, *, chunk):
+    """(dxh, ddt, dA, dBm, dCm) by ssd_scan_bwd's five passes, at the
+    backward's chunk c = min(chunk, S, SSD_SUB) (the scan's value does not
+    depend on its chunking; only its rounding does), the per-chunk tiles
+    zero past c rows and past P and N (64 x 64), every product of passes 1
+    and 4 by 3xTF32 MMAs (``_mm3``):
+
+    1. per (b, chunk, head): the chunk's own state S_c = (x tail)^T B, its
+       decay exp(seg_last), and its own state gradient G_c = (dy
+       exp(seg))^T C (x and dy scaled first);
+    2. the states entering each chunk, h <- exp(seg_last) h + S_c;
+    3. the reverse carry: g_c, the gradient of the state leaving chunk c,
        g_{nc-1} = 0 and g_{c-1} = exp(seg_last,c) g_c + G_c;
-    5. per (b, chunk, group of heads): dx, ddt and dseg per head, seg and
-       the reverse cumulative sum of dseg in f64, dA's partial per
-       (b, chunk, head), dB's and dC's per (b, chunk, group);
-    6. the fixed-order sums: dB and dC over the groups, dA over (b, chunk).
+    4. per (b, chunk, group of SSD_GROUP heads), the heads in turn, as
+       ssd_bwd_chunk's phases: S1 dC(state), its row dots C . dC
+       (``_row_sum``), g_c . h_c (a thread's 8 products of the 64 x 64
+       tiles in order, an f64 butterfly over the warp, the 16 warps in
+       order); S2 dWE, Q, W and sum_h dCB, Q's row sums (``_row_sum``) and
+       column sums (``_col_sum``); S3 g_c B, dtail (``_col_sum``), dx =
+       tail (g_c B) + W^T dy; S4 dB += tail x g_c; the row terms in f64,
+       dDA the reverse cumulative sum, dA's partial; then the group's
+       dC += dCB B and dB += dCB^T C;
+    5. the fixed-order sums: dB and dC over the groups, dA over (b, chunk).
     """
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     c = min(chunk, S, SSD_SUB)
     nc = -(-S // c)
-    pad = nc * c - S
+    T64 = SSD_SUB
 
-    def chunks(t):                       # [B, S, ...] -> [B, nc, c, ...] f32
+    def chunks(t):            # [B, S, ...] -> [B, nc, 64, ...] f32, zeros past c
         t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
-                                    + (0, pad))
-        return t.reshape(B, nc, c, *t.shape[2:])
+                                    + (0, nc * c - S))
+        t = t.reshape(B, nc, c, *t.shape[2:])
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3)
+                                       + (0, T64 - c))
 
-    x, d, Bf, Cf, g = (chunks(t) for t in (xh, dt, Bm, Cm, dy))
+    def pad64(t):             # zero-pad the last dimension to 64
+        return torch.nn.functional.pad(t, (0, T64 - t.shape[-1]))
+
+    x, g = pad64(chunks(xh)), pad64(chunks(dy))       # [B,nc,64,H,64]
+    d = chunks(dt)                                    # [B,nc,64,H]
+    Bf, Cf = pad64(chunks(Bm)), pad64(chunks(Cm))     # [B,nc,64,64]
     a = A.float()
-    seg = torch.cumsum((d * a).double(), dim=2)             # [B,nc,c,H] f64
-    last = seg[:, :, -1]                                    # [B,nc,H]
-    es = torch.exp(seg.float())                             # exp(seg_t)
-    tail = torch.exp((last[:, :, None] - seg).float()) * d  # [B,nc,c,H]
-    decay = torch.exp(last.float())                         # [B,nc,H]
-    # passes 1-2: the state entering each chunk
-    own = torch.einsum("bcshp,bcsn->bchpn", x * tail[..., None], Bf)
-    h = torch.zeros(B, H, P, N)
+    inrow = torch.arange(T64) < c
+    seg = torch.cumsum((d * a).double(), dim=2)       # [B,nc,64,H] f64
+    last = seg[:, :, c - 1]                           # [B,nc,H]
+    es = torch.where(inrow[:, None], torch.exp(seg.float()), 0.0)
+    etl = torch.where(inrow[:, None],
+                      torch.exp((last[:, :, None] - seg).float()), 0.0)
+    tail = etl * d                                    # [B,nc,64,H]
+    decay = torch.exp(last.float())                   # [B,nc,H]
+    # pass 1: each chunk's own state and state gradient [B,nc,H,p,n]
+    xt = (x * tail[..., None]).permute(0, 1, 3, 4, 2)    # [B,nc,H,p,t]
+    gt = (g * es[..., None]).permute(0, 1, 3, 4, 2)
+    own = _mm3(xt, Bf[:, :, None])
+    G = _mm3(gt, Cf[:, :, None])
+    # passes 2-3: the state entering each chunk; the reverse carry
+    h = torch.zeros(B, H, T64, T64)
     hin = []
     for i in range(nc):
         hin.append(h)
         h = decay[:, i, :, None, None] * h + own[:, i]
-    hin = torch.stack(hin, 1)                               # [B,nc,H,P,N]
-    # pass 3: each chunk's own state gradient; pass 4: the reverse carry
-    G = torch.einsum("bcthp,bctn->bchpn", g * es[..., None], Cf)
-    gacc = torch.zeros(B, H, P, N)
+    hin = torch.stack(hin, 1)                         # [B,nc,H,p,n]
+    gacc = torch.zeros(B, H, T64, T64)
     gout = [None] * nc
     for i in reversed(range(nc)):
         gout[i] = gacc
         gacc = decay[:, i, :, None, None] * gacc + G[:, i]
-    gout = torch.stack(gout, 1)                             # [B,nc,H,P,N]
-    # pass 5: the per-chunk gradients
-    tri = torch.tril(torch.ones(c, c, dtype=torch.bool))[..., None]
-    cb = torch.einsum("bctn,bcsn->bcts", Cf, Bf)[..., None]  # [B,nc,t,s,1]
-    diff = (seg[:, :, :, None] - seg[:, :, None]).float()    # [B,nc,t,s,H]
-    E = torch.exp(diff.masked_fill(~tri, -1e30))
-    ds = d[:, :, None]                                      # dt_s
-    W = (cb * E) * ds
-    dWE = torch.einsum("bcthp,bcshp->bctsh", g, x) * E      # dy_t.x_s E
-    Q = dWE * cb
-    dx = torch.einsum("bctsh,bcthp->bcshp", W, g)
-    gB = torch.einsum("bchpn,bcsn->bcshp", gout, Bf)
-    dx = dx + tail[..., None] * gB
-    dtail = (x * gB).sum(-1)                                # [B,nc,c,H]
-    colsum = Q.sum(2)                                       # over t
-    rowsum = (Q * ds).sum(3)                                # over s
-    ddt = colsum + dtail * torch.exp((last[:, :, None] - seg).float())
-    dCi = torch.einsum("bcthp,bchpn->bcthn", g, hin) * es[..., None]
-    dseg = (rowsum.double() - (d * colsum).double()
-            + (Cf[:, :, :, None] * dCi).sum(-1).double()
-            - (dtail * tail).double())
-    end = (dtail * tail).sum(2).double() \
-        + (decay * (gout * hin).sum((-1, -2))).double()     # [B,nc,H]
-    dseg[:, :, -1] += end
-    dDA = torch.flip(torch.cumsum(torch.flip(dseg, [2]), 2), [2])   # f64
-    ddt = ddt + (dDA * a.double()).float()
-    dA_part = (dDA * d.double()).sum(2)                     # [B,nc,H] f64
-    # per group of heads, in order: dB and dC partials
-    dCBs, dBs, dCs = [], [], []
+    gout = torch.stack(gout, 1)                       # [B,nc,H,p,n]
+    # pass 4
+    tri = (torch.arange(T64)[None] <= torch.arange(T64)[:, None]) \
+        & inrow[:, None]                              # [t, s]: s <= t < c
+    CB = torch.where(tri, _mm3(Cf, Bf.transpose(-1, -2)), 0.0)
+    dx = torch.zeros(B, nc, T64, H, T64)
+    ddt = torch.zeros(B, nc, T64, H)
+    dA_part = torch.zeros(B, nc, H, dtype=torch.float64)
+    dB_parts, dC_parts = [], []
     for h0 in range(0, H, SSD_GROUP):
-        hs = slice(h0, h0 + SSD_GROUP)
-        dcb = (dWE[..., hs] * ds[..., hs]).sum(-1)          # [B,nc,t,s]
-        dCs.append(dCi[:, :, :, hs].sum(3)
-                   + torch.einsum("bcts,bcsn->bctn", dcb, Bf))
-        dBs.append(torch.einsum("bcshp,bchpn->bcsn",
-                                x[..., hs, :] * tail[..., hs, None],
-                                gout[:, :, hs])
-                   + torch.einsum("bcts,bctn->bcsn", dcb, Cf))
-    # pass 6: fixed-order sums over groups and over (b, chunk)
-    dB = torch.zeros_like(dBs[0])
-    dC = torch.zeros_like(dCs[0])
-    for pb, pc in zip(dBs, dCs):
+        dCB = torch.zeros(B, nc, T64, T64)
+        accB = torch.zeros(B, nc, T64, T64)           # [s][n]
+        accC = torch.zeros(B, nc, T64, T64)           # [t][n]
+        for h in range(h0, min(h0 + SSD_GROUP, H)):
+            xs, gy = x[:, :, :, h], g[:, :, :, h]     # [B,nc,64,64]
+            hc, gc = hin[:, :, h], gout[:, :, h]      # [B,nc,p,n]
+            sg, dth, tl = seg[..., h], d[..., h], tail[..., h]
+            # S1: dC(state), C . dC(state) by row, g_c . h_c
+            dci = _mm3(gy, hc) * es[..., h, None]
+            accC = accC + dci
+            cdc = _row_sum(Cf * dci)                            # [B,nc,t]
+            part = _seq((gc * hc).reshape(B, nc, 8, 512), 2)  # a thread's
+            gh = _seq(_halves(part.double().reshape(B, nc, 16, 32), -1), -1)
+            # S2: dWE, Q, W, sum_h dCB; Q's row and column sums
+            E = torch.exp(torch.where(
+                tri, sg[:, :, :, None] - sg[:, :, None], -1e30).float())
+            dwe = _mm3(gy, xs.transpose(-1, -2)) * E
+            q = dwe * CB
+            W = (CB * E) * dth[:, :, None]
+            dCB = dCB + dwe * dth[:, :, None]
+            rows = _row_sum(q * dth[:, :, None])
+            colsum = _col_sum(q)
+            # S3: g_c B [p][s]; dtail; dx
+            gB = _mm3(gc, Bf.transpose(-1, -2))                 # [B,nc,p,s]
+            dtail = _col_sum(xs.transpose(-1, -2) * gB)
+            dx[:, :, :, h] = (tl[:, :, None] * gB
+                              + _mm3(gy.transpose(-1, -2),
+                                     W)).transpose(-1, -2)
+            # S4: dB^T += tail (x g_c)^T; the row terms
+            accB = accB + tl[..., None] * _mm3(xs, gc)
+            ddt0 = colsum + dtail * etl[..., h]
+            dtt = dtail * tl
+            dseg = torch.where(inrow, rows.double() - (dth * colsum).double()
+                               + cdc.double() - dtt.double(), 0.0)
+            end = torch.where(inrow, dtt.double(), 0.0).sum(-1) \
+                + decay[..., h].double() * gh
+            dseg[:, :, c - 1] += end
+            dDA = torch.flip(torch.cumsum(torch.flip(dseg, [2]), 2), [2])
+            ddt[:, :, :, h] = ddt0 + (dDA * float(a[h])).float()
+            dA_part[:, :, h] = (dDA * dth.double()).sum(-1)
+        dC_parts.append(accC + _mm3(dCB, Bf))
+        dB_parts.append(accB + _mm3(dCB.transpose(-1, -2), Cf))
+    # pass 5: fixed-order sums over groups and over (b, chunk)
+    dB = torch.zeros_like(dB_parts[0])
+    dC = torch.zeros_like(dC_parts[0])
+    for pb, pc in zip(dB_parts, dC_parts):
         dB, dC = dB + pb, dC + pc
     dA = dA_part.reshape(-1, H).sum(0)
 
-    def unchunk(t):
-        return t.reshape(B, nc * c, *t.shape[3:])[:, :S]
+    def unchunk(t, *keep):
+        t = t[:, :, :c]
+        t = t.reshape(B, nc * c, *t.shape[3:])[:, :S]
+        return t[(..., *(slice(0, k) for k in keep))] if keep else t
 
-    return (unchunk(dx).to(xh.dtype), unchunk(ddt).to(dt.dtype),
-            dA.float().to(A.dtype), unchunk(dB).to(Bm.dtype),
-            unchunk(dC).to(Cm.dtype))
+    return (unchunk(dx, P).to(xh.dtype), unchunk(ddt).to(dt.dtype),
+            dA.float().to(A.dtype), unchunk(dB, N).to(Bm.dtype),
+            unchunk(dC, N).to(Cm.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -516,3 +622,37 @@ def test_wkv6_bwd_factored_on_the_models_decay_range(B, S, H, P, chunk):
                             vjp(jnp.asarray(dy))):
         assert bool(torch.isfinite(gt).all()), name
         _close_to_ref(gt, rf, name)
+
+
+# zamba2-7b's ranges as chip_smoke.py's ssd_bwd_model_range draws them:
+# dt = softplus(N(0, 1)), A from -1 to -16 over the heads, x, B, C, dy ~
+# N(0, 1); seg reaches ~-10^3 within a 64-row chunk
+SSD_MODEL_RANGE = [(1, 192, 9, 64, 64, 128), (2, 100, 3, 32, 16, 64)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_MODEL_RANGE)
+def test_ssd_bwd_3xtf32_on_the_models_ranges(B, S, H, P, N, chunk):
+    """ssd_scan_bwd's products by 3xTF32 MMAs (the emulation's ``_mm3``)
+    on zamba2-7b's ranges: each gradient's error against autograd through
+    a float64 evaluation of the model's recurrence (models/ssm.py::
+    _ssd_chunked) at most twice the plain float32 backward's, the card's
+    rule (chip_smoke.py::ssd_bwd_model_range)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_bwd_plain
+    from repro_torch.models.ssm import _ssd_chunked
+    rng = np.random.default_rng(3)
+    x, dt_raw, Bm, Cm, dy = (torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)) for s in ((B, S, H, P), (B, S, H), (B, S, N),
+                               (B, S, N), (B, S, H, P)))
+    args = (x, torch.nn.functional.softplus(dt_raw),
+            -torch.linspace(1.0, 16.0, H), Bm, Cm)
+    got = ssd_bwd_emulated(*args, dy, chunk=chunk)
+    plain = ssd_scan_bwd_plain(*args, dy, chunk=chunk)
+    leaves = [t.double().requires_grad_() for t in args]
+    y, _ = _ssd_chunked(*leaves, chunk=chunk,
+                        h0=torch.zeros(B, H, P, N, dtype=torch.float64))
+    exact = torch.autograd.grad(y, leaves, dy.double())
+    for name, gt, pl, ex in zip(("dxh", "ddt", "dA", "dBm", "dCm"), got,
+                                plain, exact):
+        err = (gt.double() - ex).abs().max().item()
+        err_plain = (pl.double() - ex).abs().max().item()
+        assert err <= 2 * err_plain, (name, err, err_plain)
