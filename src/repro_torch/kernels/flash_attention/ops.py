@@ -41,6 +41,7 @@ import threading
 import torch
 
 from ..shape_only import record, shape_only
+from ...spans import spanned
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention_limit",
            "gradient_limit", "lse_plain", "flash_attention_bwd",
@@ -280,6 +281,7 @@ def _check_lse(lse, q) -> None:
                          f"[{B}, {Hq}, {Sq}] on {q.device}")
 
 
+@spanned("turnip.kernel.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     out: torch.Tensor | None = None,
@@ -343,6 +345,7 @@ def lse_plain(q, k, causal: bool, q_offset: int) -> torch.Tensor:
     return torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq).float()
 
 
+@spanned("turnip.kernel.flash_attention_bwd")
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0):

@@ -49,6 +49,7 @@ import torch
 
 from ..plain_grad import needs_grad, plain_grads
 from ..shape_only import record, shape_only
+from ...spans import spanned
 
 __all__ = ["grouped_matmul", "grouped_matmul_plain", "moe_gmm",
            "moe_gmm_plain", "GroupedMatmulFn", "gmm_cost", "moe_gmm_bwd",
@@ -185,6 +186,7 @@ class GroupedMatmulFn(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+@spanned("turnip.kernel.moe_gmm")
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                    counts: torch.Tensor, *,
                    out: torch.Tensor | None = None,
@@ -274,6 +276,7 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
                        need_dw=need_dw)
 
 
+@spanned("turnip.kernel.moe_gmm_bwd")
 def _launch_bwd(x, w, offsets, counts, dy, *, need_dx=True, need_dw=True,
                 rows=None):
     """The backward's launches on checked CUDA tensors: one a product

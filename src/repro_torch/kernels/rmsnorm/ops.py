@@ -24,6 +24,7 @@ import threading
 import torch
 
 from ..shape_only import record, shape_only
+from ...spans import spanned
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_bwd", "rmsnorm_bwd_plain",
            "RMSNormFn", "rmsnorm_cost", "rmsnorm_bwd_cost"]
@@ -127,6 +128,7 @@ def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
                          f"cannot be read as rows without a copy") from e
 
 
+@spanned("turnip.kernel.rmsnorm")
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
             out: torch.Tensor | None = None) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2, -1) + eps) * g, written into ``out`` when
@@ -174,6 +176,7 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
 rmsnorm.launches = 0
 
 
+@spanned("turnip.kernel.rmsnorm_bwd")
 def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6, need_dg: bool = True,
                 out: torch.Tensor | None = None):

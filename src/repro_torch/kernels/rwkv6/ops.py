@@ -43,6 +43,7 @@ import torch
 
 from ..plain_grad import needs_grad, plain_grads
 from ..shape_only import record, shape_only
+from ...spans import spanned
 
 __all__ = ["wkv6", "wkv6_plain", "WKV6Fn", "wkv6_ops", "wkv6_cost",
            "wkv6_bwd", "wkv6_bwd_plain", "wkv6_bwd_ops", "wkv6_bwd_cost",
@@ -211,6 +212,7 @@ class WKV6Fn(torch.autograd.Function):
                   zip(grads, ctx.needs_input_grad[:5])), None, None, None)
 
 
+@spanned("turnip.kernel.wkv6")
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          lw: torch.Tensor, u: torch.Tensor, *, chunk: int = 32
          ) -> torch.Tensor:
@@ -301,6 +303,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch_bwd(r, k, v, lw, u, dy, chunk)
 
 
+@spanned("turnip.kernel.wkv6_bwd")
 def _launch_bwd(r, k, v, lw, u, dy, chunk):
     """The backward's six launches on checked CUDA tensors."""
     B, S, H, P = r.shape

@@ -44,6 +44,7 @@ import torch
 
 from ..plain_grad import needs_grad, plain_grads
 from ..shape_only import record, shape_only
+from ...spans import spanned
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "SSDScanFn", "ssd_ops",
            "ssd_cost", "ssd_scan_bwd", "ssd_scan_bwd_plain", "ssd_bwd_ops",
@@ -239,6 +240,7 @@ class SSDScanFn(torch.autograd.Function):
                   zip(grads, ctx.needs_input_grad[:5])), None, None, None)
 
 
+@spanned("turnip.kernel.ssd_scan")
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *,
              chunk: int = 128) -> torch.Tensor:
@@ -332,6 +334,7 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _launch_bwd(xh, dt, A, Bm, Cm, dy, chunk)
 
 
+@spanned("turnip.kernel.ssd_scan_bwd")
 def _launch_bwd(xh, dt, A, Bm, Cm, dy, chunk):
     """The backward's five launches on checked CUDA tensors."""
     B, S, H, P = xh.shape

@@ -74,6 +74,7 @@ from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from ..sharding.rules import (active_mesh, constrain, embed_rows,
                               fsdp_gather, meshed, shard_dim, unembed)
+from ..spans import span, spanned
 from . import layers as L
 from . import rwkv as R
 from . import ssm as SSM
@@ -98,7 +99,9 @@ def wrap_remat(body, mode: str | None,
                off: ResidualOffload | None = None):
     """``body(h, *args)`` under the activation-checkpoint policy ``mode``
     (one of ``REMAT_MODES``); ``'offload'`` sends the layer's input
-    ``h`` through ``off``."""
+    ``h`` through ``off``. The body runs inside the span ``turnip.layer``,
+    in the forward and in the recompute alike."""
+    body = spanned("turnip.layer")(body)
     if mode is None:
         return body
     if mode == "full":
@@ -398,7 +401,8 @@ class LM:
                 h = mamba(h, "mamba_tail", j)
         # the norm gathers the sequence: the logits come out of the head's
         # product in their own layout (batch x vocabulary)
-        return unembed(_norm(cfg, params, "ln_f", h), params["unembed"])
+        with span("turnip.lm.head"):
+            return unembed(_norm(cfg, params, "ln_f", h), params["unembed"])
 
     # -------------------------------------------------------------- loss
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -412,8 +416,9 @@ class LM:
         labels = torch.as_tensor(batch["labels"], device=self.device)
         logits = self.apply(params, tokens.long(),
                             vision_embeds=batch.get("vision_embeds"))
-        logits = logits[:, logits.shape[1] - labels.shape[1]:].float()
-        loss = token_nll(logits, labels.long(), cfg.vocab_size).mean()
+        with span("turnip.lm.head"):
+            logits = logits[:, logits.shape[1] - labels.shape[1]:].float()
+            loss = token_nll(logits, labels.long(), cfg.vocab_size).mean()
         if cfg.family == "moe":
             loss = loss + 0.01 * self._aux / cfg.n_layers
         return loss

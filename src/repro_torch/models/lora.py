@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 
+from ..spans import span
 from ..train.tree import flatten
 
 __all__ = ["lora_init", "lora_apply", "make_lora_loss", "merge",
@@ -63,9 +64,10 @@ def merge(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     ...ri->...io')`` is, so that ``remat='dots'`` does not save it."""
     d_out, r = b.shape[-2:]
     d_in = a.shape[-1]
-    delta = torch.bmm(b.reshape(-1, d_out, r), a.reshape(-1, r, d_in))
-    delta = delta.reshape(*b.shape[:-2], d_out, d_in).transpose(-1, -2)
-    return (w + scale * delta).to(w.dtype)
+    with span("turnip.lora.merge"):
+        delta = torch.bmm(b.reshape(-1, d_out, r), a.reshape(-1, r, d_in))
+        delta = delta.reshape(*b.shape[:-2], d_out, d_in).transpose(-1, -2)
+        return (w + scale * delta).to(w.dtype)
 
 
 class MergedStack:

@@ -24,6 +24,11 @@ engines ``"d2h"`` and ``"h2d"``), the pattern of ROADMAP C3
 (``serve/kv_cache.py``). On the CPU the "host" copy is a clone: the same
 control flow, no streams.
 
+The pack's copy, a reload and the compute stream's wait on it each run
+inside a profiler span (``turnip.offload.pack``, ``.reload``, ``.wait``;
+:mod:`repro_torch.spans`), so that a trace ties each copy and each wait to
+the offload.
+
 The object lives as long as the autograd graph that holds its hooks, so
 its pinned host slots go with the graph. ``moved`` counts the bytes that
 every offload of the process moved out and back in since
@@ -37,6 +42,7 @@ import threading
 import torch
 
 from ..core.executor import stream_for
+from ..spans import span, spanned
 
 __all__ = ["ResidualOffload", "moved", "reset_moved"]
 
@@ -88,23 +94,25 @@ class ResidualOffload:
             return ("keep", t)
         local = getattr(t, "_local_tensor", t)      # a DTensor's shard
         nbytes = local.numel() * local.element_size()
-        if not self.cuda:
-            self._slots.append({"host": t.detach().clone(), "dev": None})
-        else:
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            made = torch.cuda.Event()
-            made.record(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self.d2h):
-                self.d2h.wait_event(made)
-                host.copy_(t, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.d2h)
-            t.record_stream(self.d2h)
-            self._slots.append({"host": host, "d2h": done, "dev": None,
-                                "h2d": None})
+        with span("turnip.offload.pack"):
+            if not self.cuda:
+                self._slots.append({"host": t.detach().clone(), "dev": None})
+            else:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                made = torch.cuda.Event()
+                made.record(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self.d2h):
+                    self.d2h.wait_event(made)
+                    host.copy_(t, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(self.d2h)
+                t.record_stream(self.d2h)
+                self._slots.append({"host": host, "d2h": done, "dev": None,
+                                    "h2d": None})
         _count("offloaded", nbytes)
         return ("slot", len(self._slots) - 1)
 
+    @spanned("turnip.offload.reload")
     def _reload(self, i: int) -> None:
         s = self._slots[i]
         host = s["host"]
@@ -132,7 +140,8 @@ class ResidualOffload:
             self._reload(val)
         dev, s["dev"] = s["dev"], None
         if self.cuda:
-            torch.cuda.current_stream(self.device).wait_event(s["h2d"])
+            with span("turnip.offload.wait"):
+                torch.cuda.current_stream(self.device).wait_event(s["h2d"])
         # the backward walks the layers in reverse: issue the next reload
         if val > 0 and self._slots[val - 1]["dev"] is None:
             self._reload(val - 1)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..core.device import resolve_device
 from ..kernels.rwkv6.ops import wkv6
 from ..sharding.rules import constrain, meshed, split_last
+from ..spans import span, spanned
 from . import layers as L
 
 __all__ = ["rwkv6_init", "wkv6_chunked", "rwkv6_time_mix",
@@ -126,6 +127,7 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, S_in
 
 
+@spanned("turnip.rwkv.time_mix")
 def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
                    chunk: int = 32, state: tuple | None = None,
                    return_state: bool = False):
@@ -142,37 +144,40 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
     H = D // headdim
     Pd = headdim
     prev = state[0] if state is not None else None
-    xs = _token_shift(x, prev)
-    dx = xs - x
-    # data-dependent mixing coefficients (5 heads of a shared LoRA)
-    lr = split_last(torch.tanh(x @ p["mix_lora_A"]), B, S, 5, -1)
-    mixes = p["mix_rkvwg"][None, None] + torch.einsum(
-        "bsfr,frd->bsfd", lr, p["mix_lora_B"])        # [B, S, 5, D]
-    xr, xk, xv, xw, xg = (x + dx * mixes[:, :, i] for i in range(5))
+    with span("turnip.rwkv.mix"):
+        xs = _token_shift(x, prev)
+        dx = xs - x
+        # data-dependent mixing coefficients (5 heads of a shared LoRA)
+        lr = split_last(torch.tanh(x @ p["mix_lora_A"]), B, S, 5, -1)
+        mixes = p["mix_rkvwg"][None, None] + torch.einsum(
+            "bsfr,frd->bsfd", lr, p["mix_lora_B"])    # [B, S, 5, D]
+        xr, xk, xv, xw, xg = (x + dx * mixes[:, :, i] for i in range(5))
 
-    r = split_last(xr @ p["wr"], B, S, H, Pd).float()
-    k = split_last(xk @ p["wk"], B, S, H, Pd).float()
-    v = split_last(xv @ p["wv"], B, S, H, Pd).float()
+    r = split_last(xr @ p["wr"], B, S, H, Pd)
+    k = split_last(xk @ p["wk"], B, S, H, Pd)
+    v = split_last(xv @ p["wv"], B, S, H, Pd)
     g = F.silu(xg @ p["wg"])
-    # data-dependent decay w in (0, 1): log w = -exp(...) (<= 0 always)
-    lw = p["w_base"] + (torch.tanh(xw @ p["w_lora_A"]) @ p["w_lora_B"]
-                        ).float()
-    lw = split_last(-torch.exp(lw), B, S, H, Pd)
-
-    if state is None and not return_state:
-        if meshed(r):
+    lw = torch.tanh(xw @ p["w_lora_A"]) @ p["w_lora_B"]
+    with span("turnip.rwkv.wkv"):
+        r = r.float()
+        k = k.float()
+        v = v.float()
+        # data-dependent decay w in (0, 1): log w = -exp(...) (<= 0 always)
+        lw = split_last(-torch.exp(p["w_base"] + lw.float()), B, S, H, Pd)
+        if state is None and not return_state:
+            if meshed(r):
+                from ..sharding.local import wkv6 as meshed_wkv6
+                y = meshed_wkv6(wkv6, r, k, v, lw, p["bonus_u"], chunk)
+            else:
+                y = wkv6(r, k, v, lw, p["bonus_u"], chunk=chunk)
+        elif state is not None and meshed(r):
             from ..sharding.local import wkv6 as meshed_wkv6
-            y = meshed_wkv6(wkv6, r, k, v, lw, p["bonus_u"], chunk)
+            y, sT = meshed_wkv6(wkv6_chunked, r, k, v, lw, p["bonus_u"],
+                                chunk, state=state[1])
         else:
-            y = wkv6(r, k, v, lw, p["bonus_u"], chunk=chunk)
-    elif state is not None and meshed(r):
-        from ..sharding.local import wkv6 as meshed_wkv6
-        y, sT = meshed_wkv6(wkv6_chunked, r, k, v, lw, p["bonus_u"], chunk,
-                            state=state[1])
-    else:
-        y, sT = wkv6_chunked(r, k, v, lw, p["bonus_u"], chunk=chunk,
-                             s0=state[1] if state is not None else None)
-    y = y.reshape(B, S, D).to(x.dtype)
+            y, sT = wkv6_chunked(r, k, v, lw, p["bonus_u"], chunk=chunk,
+                                 s0=state[1] if state is not None else None)
+        y = y.reshape(B, S, D).to(x.dtype)
     y = L.rmsnorm(y, p["ln_x_g"]) * g    # GroupNorm ~ per-head rmsnorm
     # placed by batch before the residual add (``layers._batch_sharded``)
     out = constrain(y @ p["wo"], ("pod", "data"), None, None)
@@ -181,15 +186,17 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
     return out
 
 
+@spanned("turnip.rwkv.channel_mix")
 def rwkv6_channel_mix(p: dict, x: torch.Tensor, *,
                       state: torch.Tensor | None = None,
                       return_state: bool = False):
     """x: [B, S, D]; ``state`` the shift [B, 1, D]; with it (or
     ``return_state``) returns ``(out, x[:, -1:])``."""
-    xs = _token_shift(x, state)
-    dx = xs - x
-    xk = x + dx * p["cmix_k"]
-    xr = x + dx * p["cmix_r"]
+    with span("turnip.rwkv.mix"):
+        xs = _token_shift(x, state)
+        dx = xs - x
+        xk = x + dx * p["cmix_k"]
+        xr = x + dx * p["cmix_r"]
     k = torch.square(torch.relu(xk @ p["ck"]))
     kv = k @ p["cv"]
     out = constrain(torch.sigmoid(xr @ p["cr"]) * kv, ("pod", "data"), None,

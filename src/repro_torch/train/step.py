@@ -16,6 +16,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..spans import span
 from .optim import AdamW, apply_updates
 from .tree import flatten, leaves, tree_map, unflatten
 
@@ -34,8 +35,10 @@ def value_and_grad(fn: Callable, params: Any, batch: dict):
     gradients shaped like ``params`` (zeros for a leaf the loss does not
     reach)."""
     flat = [p.detach().requires_grad_() for _, p in flatten(params)]
-    loss = fn(unflatten(params, flat), batch)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    with span("turnip.step.forward"):
+        loss = fn(unflatten(params, flat), batch)
+    with span("turnip.step.backward"):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     return loss.detach(), unflatten(params, grads)
@@ -70,11 +73,13 @@ def make_train_step(model, optimizer=None, *, grad_accum: int = 1,
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         loss, grads = compute_grads(state["params"], batch)
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in leaves(grads)))
-        updates, opt_state = opt.update(grads, state["opt"], state["params"])
-        params = apply_updates(state["params"], updates)
+        with span("turnip.step.optimizer"):
+            with torch.no_grad():
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for g in leaves(grads)))
+            updates, opt_state = opt.update(grads, state["opt"],
+                                            state["params"])
+            params = apply_updates(state["params"], updates)
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1},
                 {"loss": loss, "grad_norm": gnorm})
