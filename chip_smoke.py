@@ -51,7 +51,11 @@ failure:
    evaluation (``ssd_model_range`` says why); ``wkv6`` at rwkv6-7b's
    (2 x 8192, 64 heads of 64, chunk 32; log decays -exp(-6 + 2 N(0, 1))
    clipped at -20). No single PyTorch call computes either scan, so their
-   library time is none. The three backward kernels (slice 16, ROADMAP
+   library time is none. RWKV-6's token-shift mixes (``mix_phase``,
+   ``rwkv_mix``), time and channel mix, forward and backward, at rwkv6-7b's
+   training shape (MIX_MAIN, bfloat16) against the float32 composition and
+   the backward's formulas, timed beside the bfloat16 composition under
+   autograd. The three backward kernels (slice 16, ROADMAP
    B5; ``bwd_phase``) against the plain backward (autograd through the
    plain forward): ``moe_gmm_bwd`` at granite-moe-1b-a400m's expert
    products as phase 12 (d) runs them (4 x 4096 tokens routed top-8 by a
@@ -139,9 +143,9 @@ failure:
    zero-initialised leaves redrawn, see ``build_recurrent``). ``apply`` on
    2 x 8192 tokens (numpy seed 0): one warm-up, then 3 timed runs; the
    median, tokens/s, the peak allocated bytes and each kernel's launches,
-   asserted per forward (rwkv6-7b: 32 wkv6 and 32 rmsnorm; zamba2-7b: 81
-   ssd_scan, 108 rmsnorm and 13 flash attention; each scan call three
-   device launches), and the bfloat16 noise
+   asserted per forward (rwkv6-7b: 32 wkv6, 32 rmsnorm and 64
+   rwkv_mix; zamba2-7b: 81 ssd_scan, 108 rmsnorm and 13 flash attention;
+   each scan call three device launches), and the bfloat16 noise
    floor (``apply`` on one token at two batch shapes). Then the
    reference's own check at full size, decode against apply, on the same
    model drawn in float32 (``decode_check``'s rule, and why float32): 150
@@ -154,9 +158,11 @@ failure:
    each step's launches forward and backward asserted
    (``recurrent_train_launches``: the scan twice forward and once
    backward a layer, five device launches a backward call of ssd_scan_bwd
-   and six of wkv6_bwd), step time and
-   peak allocated bytes; then one step with the scan swapped for its
-   plain version (``plain_scans``), timed as a yardstick only.
+   and six of wkv6_bwd; rwkv_mix four times forward a layer and twice
+   backward but for layer 0's time mix), step time and
+   peak allocated bytes; then one step with the scans and the mixes
+   swapped for their plain versions (``plain_scans``), timed as a
+   yardstick only.
 6c. The float32 gradient check at full width and cut depth
    (``recurrent_grad_check``: two rwkv6 layers; one group of six Mamba
    layers with the shared block): the LoRA gradient through every kernel,
@@ -538,6 +544,11 @@ SCAN_TOL = {"ssd_scan": {"float32": (5e-4, 5e-4), "bfloat16": (3e-2, 3e-2)},
 # rwkv6-7b's time mix (B, S, H, P, chunk) at the recurrent path's 2 x 8192
 SSD_MAIN = (2, 8192, 112, 64, 64, 128)
 WKV_MAIN = (2, 8192, 64, 64, 32)
+# rwkv_mix at rwkv6-7b's training shape (B, S, D, R), bfloat16; its rule:
+# each output and gradient within MIX_RTOL x max|float32 plain| (one
+# rounding of bfloat16 on store, and of the products and G)
+MIX_MAIN = (2, 8192, 4096, 64)
+MIX_RTOL = 2 ** -7
 # tests/test_kernels.py's TestSSDScan and TestWKV6 sweeps (S padding
 # included)
 SSD_SWEEP = [(2, 100, 3, 32, 16, 32), (1, 64, 2, 64, 64, 16),
@@ -1172,6 +1183,114 @@ def scan_phase(torch, device) -> dict:
             del args, y, p
     ssd_model_range(torch, ssd_inputs(*SSD_MAIN[:5], torch.float32, True),
                     SSD_MAIN[5])
+    del flush
+    return records
+
+
+def mix_phase(torch, device) -> dict:
+    """rwkv_mix (time and channel mix) against its plain version on the
+    card at MIX_MAIN in bfloat16, inputs in the model's ranges: the
+    outputs and the backward's dx, dprev and dlr within MIX_RTOL x
+    max|float32 plain| (the composition in float32 and the backward's
+    formulas), one launch a forward call and two a time mix's backward
+    call (the tiles, their seams; one a channel mix's). Then the op's
+    forward and backward times, and their split by launch, against the
+    bound of the op's least bytes (x and lr read, the outputs written; the
+    dy read and dx written, and with lr x and lr read and dlr written),
+    and the plain composition's forward and backward under autograd in
+    bfloat16, the model's path before the op. Returns each kind's
+    record."""
+    from repro_torch.kernels.rwkv6.mix import (rwkv_mix, rwkv_mix_bwd,
+                                               rwkv_mix_bwd_plain,
+                                               rwkv_mix_plain)
+    B, S, D, R = MIX_MAIN
+    N, bf = B * S, torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(512 * 2**20, dtype=torch.uint8, device=device)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    records = {}
+    for kind, K in (("time", 5), ("channel", 2)):
+        x = randn(B, S, D).to(bf)
+        prev = randn(B, 1, D).to(bf)
+        mix = randn(K, D, scale=0.1).to(bf)
+        lr = lb = None
+        if kind == "time":
+            lr = torch.tanh(randn(B, S, K, R)).to(bf)
+            lb = randn(K, R, D, scale=0.1).to(bf)
+        else:
+            mix = tuple(mix.unbind(0))
+        args = (x, prev, mix, lr, lb)
+        f32 = [None if t is None else t.float() for t in (x, prev, lr, lb)]
+        mixf = (mix.float() if kind == "time"
+                else tuple(m.float() for m in mix))
+        reset_launches(rwkv_mix)
+        reset_launches(rwkv_mix_bwd)
+        outs = rwkv_mix(*args)
+        dys = [randn(B, S, D, scale=0.1).to(bf) for _ in outs]
+        grads = rwkv_mix_bwd(*args, dys)
+        torch.cuda.synchronize()
+        # the time mix's backward: the tiles, then their seams
+        n_bwd = 2 if kind == "time" else 1
+        assert (rwkv_mix.launches, rwkv_mix.kernel_launches,
+                rwkv_mix_bwd.launches, rwkv_mix_bwd.kernel_launches) == \
+            (1, 1, 1, n_bwd), (kind, rwkv_mix.kernel_launches,
+                               rwkv_mix_bwd.kernel_launches)
+        label = f"rwkv_mix {kind} main {B}x{S}x{D} bfloat16"
+        want = rwkv_mix_plain(f32[0], f32[1], mixf, f32[2], f32[3])
+        worst = 0.0
+        for i, (o, w) in enumerate(zip(outs, want)):
+            tol = MIX_RTOL * w.abs().max().item()
+            worst = max(worst, _check_close(f"{label} out{i}", o, w,
+                                            (tol, 0.0)))
+        del outs, want
+        ref = rwkv_mix_bwd_plain(f32[0], f32[1], mixf, f32[2], f32[3],
+                                 [d.float() for d in dys])
+        for name, g, w in zip(("dx", "dprev", "dlr"), grads, ref):
+            if w is None:
+                assert g is None, name
+                continue
+            tol = MIX_RTOL * w.float().abs().max().item()
+            _check_close(f"{label} {name}", g, w, (tol, 0.0))
+        del grads, ref, f32
+        fwd_ms = _median_ms(lambda: rwkv_mix(*args), torch, flush, reps=20)
+        bwd_ms = _median_ms(lambda: rwkv_mix_bwd(*args, dys), torch, flush,
+                            reps=20)
+        split = launch_split(torch, f"{label} forward",
+                             lambda: rwkv_mix(*args), flush)
+        split.update(launch_split(torch, f"{label} backward",
+                                  lambda: rwkv_mix_bwd(*args, dys), flush))
+        kernel_ms = {k: v for k, v in split.items() if "rwkv_mix" in k}
+
+        def plain_step():
+            xg = x.detach().requires_grad_()
+            lg = None if lr is None else lr.detach().requires_grad_()
+            ys = rwkv_mix_plain(xg, prev, mix, lg, lb)
+            torch.autograd.grad(ys, [t for t in (xg, lg) if t is not None],
+                                dys)
+        plain_ms = _median_ms(plain_step, torch, flush, reps=5)
+        item = x.element_size()
+        fwd_bytes = (N * D + (N * K * R if lr is not None else 0)
+                     + K * N * D) * item
+        bwd_bytes = (K * N * D + N * D        # the dy read, dx written
+                     + ((N * D + 2 * N * K * R) if lr is not None else 0)
+                     ) * item                  # x, lr read; dlr written
+        fb = fwd_bytes / HBM_BYTES_PER_S * 1e3
+        bb = bwd_bytes / HBM_BYTES_PER_S * 1e3
+        kernels = {k.replace("void ", "")
+                   .replace("(anonymous namespace)::", "").split("(")[0]:
+                   round(v, 4) for k, v in kernel_ms.items()}
+        print(f"kernel {label}: forward_ms {fwd_ms:.4f} backward_ms "
+              f"{bwd_ms:.4f} plain_fwd_bwd_ms {plain_ms:.4f} library_ms None "
+              f"bound_ms {fb:.4f} {bb:.4f} (bytes) share {fb / fwd_ms:.3f} "
+              f"{bb / bwd_ms:.3f} kernels_ms {kernels} launches a call 1 "
+              f"{n_bwd}", flush=True)
+        records[kind] = dict(forward_ms=fwd_ms, backward_ms=bwd_ms,
+                             plain_ms=plain_ms, bound_ms=(fb, bb),
+                             max_abs_err=worst)
+        del args, x, prev, mix, lr, lb, dys
     del flush
     return records
 
@@ -2239,12 +2358,14 @@ def build_recurrent(torch, device, arch):
 
 
 def recurrent_launches_per_forward(cfg) -> dict[str, int]:
-    """Kernel launches of one ``apply``: per rwkv layer one wkv6 and one
-    rmsnorm (``ln_x``; its other norms are layernorms); per zamba Mamba
-    layer one ssd_scan and one rmsnorm, per shared-block call one flash
-    attention and two rmsnorm, and the final norm."""
+    """Kernel launches of one ``apply``: per rwkv layer one wkv6, one
+    rmsnorm (``ln_x``; its other norms are layernorms) and two rwkv_mix
+    (the time and the channel mix); per zamba Mamba layer one ssd_scan and
+    one rmsnorm, per shared-block call one flash attention and two
+    rmsnorm, and the final norm."""
     if cfg.family == "rwkv":
-        return {"wkv6": cfg.n_layers, "rmsnorm": cfg.n_layers}
+        return {"wkv6": cfg.n_layers, "rmsnorm": cfg.n_layers,
+                "rwkv_mix": 2 * cfg.n_layers}
     calls = cfg.n_layers // cfg.zamba_group
     return {"ssd_scan": cfg.n_layers, "flash_attention": calls,
             "rmsnorm": cfg.n_layers + 2 * calls + 1}
@@ -2261,6 +2382,7 @@ def run_recurrent(torch, device, model, params, *,
     the last bit otherwise). Returns the launches of the timed runs."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rwkv6.mix import rwkv_mix
     from repro_torch.kernels.rwkv6.ops import wkv6
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
@@ -2268,7 +2390,7 @@ def run_recurrent(torch, device, model, params, *,
     cuda = device.type == "cuda"
     per_fwd = recurrent_launches_per_forward(cfg)
     kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
-               "ssd_scan": ssd_scan, "wkv6": wkv6}
+               "ssd_scan": ssd_scan, "wkv6": wkv6, "rwkv_mix": rwkv_mix}
     kernels = {name: kernels[name] for name in per_fwd}
     B, S = RECURRENT_TOKENS
     rng = np.random.default_rng(0)
@@ -2423,14 +2545,21 @@ def recurrent_train_launches(cfg) -> dict:
     twice forward (the shared block is recomputed too), the final norm
     once, and backward all but the first call's input norm (its input, the
     frozen embedding, takes no gradient); flash twice forward and once
-    backward a shared-block call, two device launches each. Each backward
-    wrapper's device launches (``_kernel``) beside its calls."""
+    backward a shared-block call, two device launches each; rwkv: rwkv_mix
+    twice a layer forward (the time and the channel mix), so four with
+    the recompute, and backward twice a layer but for layer 0's time mix
+    (its input, the frozen embedding's, takes no gradient), one device
+    launch a forward call and two a time mix's backward call (the tiles,
+    their seams), one a channel mix's. Each backward wrapper's device
+    launches (``_kernel``) beside its calls."""
     L = cfg.n_layers
     if cfg.family == "rwkv":
         return {"wkv6": 2 * L, "wkv6_bwd": L, "wkv6_bwd_kernel": 6 * L,
                 "rmsnorm": 2 * L, "rmsnorm_bwd": L, "rmsnorm_bwd_kernel": L,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "flash_attention_bwd_kernel": 0}
+                "flash_attention_bwd_kernel": 0, "rwkv_mix": 4 * L,
+                "rwkv_mix_kernel": 4 * L, "rwkv_mix_bwd": 2 * L - 1,
+                "rwkv_mix_bwd_kernel": 3 * L - 2}
     ng = L // cfg.zamba_group
     return {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "ssd_scan_bwd_kernel": 5 * L,
             "rmsnorm": 2 * (L + 2 * ng) + 1, "rmsnorm_bwd": L + 2 * ng,
@@ -2443,8 +2572,13 @@ def _recurrent_launches(cfg) -> dict:
     (``_train_launches``' and the family's scan, forward and backward)."""
     out = _train_launches()
     if cfg.family == "rwkv":
+        from repro_torch.kernels.rwkv6.mix import rwkv_mix, rwkv_mix_bwd
         from repro_torch.kernels.rwkv6.ops import wkv6 as scan, wkv6_bwd as bwd
         name = "wkv6"
+        out.update({"rwkv_mix": rwkv_mix.launches,
+                    "rwkv_mix_kernel": rwkv_mix.kernel_launches,
+                    "rwkv_mix_bwd": rwkv_mix_bwd.launches,
+                    "rwkv_mix_bwd_kernel": rwkv_mix_bwd.kernel_launches})
     else:
         from repro_torch.kernels.ssd_scan.ops import (ssd_scan as scan,
                                                       ssd_scan_bwd as bwd)
@@ -2455,27 +2589,32 @@ def _recurrent_launches(cfg) -> dict:
 
 
 def _reset_recurrent_launches() -> None:
+    from repro_torch.kernels.rwkv6.mix import rwkv_mix, rwkv_mix_bwd
     from repro_torch.kernels.rwkv6.ops import wkv6, wkv6_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_bwd
     _reset_train_launches()
-    for fn in (wkv6, wkv6_bwd, ssd_scan, ssd_scan_bwd):
+    for fn in (wkv6, wkv6_bwd, ssd_scan, ssd_scan_bwd, rwkv_mix,
+               rwkv_mix_bwd):
         reset_launches(fn)
 
 
 @contextlib.contextmanager
 def plain_scans():
-    """The models' ssd_scan and wkv6 swapped for their plain versions,
-    differentiated by autograd (the yardstick of the training path, and
-    with ``plain_layers`` the all-plain oracle of its gradient check)."""
+    """The models' ssd_scan, wkv6 and rwkv_mix (the token-shift mixes)
+    swapped for their plain versions, differentiated by autograd (the
+    yardstick of the training path, and with ``plain_layers`` the
+    all-plain oracle of its gradient check)."""
+    from repro_torch.kernels.rwkv6.mix import rwkv_mix_plain
     from repro_torch.kernels.rwkv6.ops import wkv6_plain
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_plain
     from repro_torch.models import rwkv, ssm
-    saved = ssm.ssd_scan, rwkv.wkv6
-    ssm.ssd_scan, rwkv.wkv6 = ssd_scan_plain, wkv6_plain
+    saved = ssm.ssd_scan, rwkv.wkv6, rwkv.rwkv_mix
+    ssm.ssd_scan, rwkv.wkv6, rwkv.rwkv_mix = (ssd_scan_plain, wkv6_plain,
+                                              rwkv_mix_plain)
     try:
         yield
     finally:
-        ssm.ssd_scan, rwkv.wkv6 = saved
+        ssm.ssd_scan, rwkv.wkv6, rwkv.rwkv_mix = saved
 
 
 def _lora_adapters(torch, device, base, seed: int):
@@ -2594,6 +2733,8 @@ def recurrent_grad_check(torch, device, arch: str) -> float:
     scan = "wkv6" if cfg.family == "rwkv" else "ssd_scan"
     if device.type == "cuda":
         assert got[f"{scan}_bwd"] == cfg.n_layers, got
+        if cfg.family == "rwkv":        # as recurrent_train_launches says
+            assert got["rwkv_mix_bwd"] == 2 * cfg.n_layers - 1, got
     with plain_layers(), plain_scans():
         p_loss, p_grads = value_and_grad(make_lora_loss(tmodel, base),
                                          adapters, batch)
@@ -4876,9 +5017,10 @@ def main(argv: list[str]) -> int:
     gmm = gmm_phase(torch, device)
     flash_112_phase(torch, device)
     scans = scan_phase(torch, device)
+    mix_phase(torch, device)
     bwd = bwd_phase(torch, device)
-    print("kernels: rmsnorm flash_attention moe_gmm ssd_scan wkv6 "
-          "moe_gmm_bwd ssd_scan_bwd wkv6_bwd", flush=True)
+    print("kernels: rmsnorm flash_attention moe_gmm ssd_scan wkv6 rwkv_mix "
+          "moe_gmm_bwd ssd_scan_bwd wkv6_bwd rwkv_mix_bwd", flush=True)
     _phase("kernels", t)
 
     t = time.perf_counter()

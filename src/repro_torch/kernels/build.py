@@ -35,6 +35,7 @@ SOURCES: dict[str, str] = {
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
     "wkv6": "rwkv6/csrc/wkv6.cu",
+    "rwkv_mix": "rwkv6/csrc/rwkv_mix.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

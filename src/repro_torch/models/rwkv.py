@@ -11,7 +11,13 @@ Channel-mix: a squared-ReLU gated MLP with token shift. The sequence
 forward's WKV goes to the Hopper kernel on CUDA
 (:func:`repro_torch.kernels.rwkv6.ops.wkv6`); the decode step, which
 carries a state, runs :func:`wkv6_chunked`, the model's own recurrence in
-plain torch (no TPU kernel takes or returns a state).
+plain torch (no TPU kernel takes or returns a state). Both halves' token
+shift and mixes are one op (:func:`repro_torch.kernels.rwkv6.mix.rwkv_mix`,
+a kernel on the card), but on a meshed tensor: there they stay the op's
+plain composition, which the sharding rules place as they place any torch
+op, since the shift crosses the sequence's shards wherever the rules put
+the sequence over 'model'. No meshed rwkv runs on the card: its meshed
+steps run in the CPU tests (gloo) and in the dry run's shape-only lowering.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..kernels.rwkv6.mix import rwkv_mix, rwkv_mix_plain
 from ..kernels.rwkv6.ops import wkv6
 from ..sharding.rules import constrain, meshed, split_last
 from ..spans import span, spanned
@@ -75,14 +82,6 @@ def rwkv6_init(gen: torch.Generator, d_model: int, *, headdim: int = 64,
     }
 
 
-def _token_shift(x: torch.Tensor, prev: torch.Tensor | None = None
-                 ) -> torch.Tensor:
-    """x[t-1] (zeros, or the carried ``prev`` [B, 1, D], at t = 0)."""
-    if prev is None:
-        prev = torch.zeros_like(x[:, :1])
-    return torch.cat([prev, x[:, :-1]], dim=1)
-
-
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lw: torch.Tensor, u: torch.Tensor, *, chunk: int = 32,
                  s0: torch.Tensor | None = None
@@ -134,7 +133,9 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
     """x: [B, S, D]. ``state``: (shift [B, 1, D], wkv [B, H, P, P]); with
     it (or ``return_state``) returns ``(out, (x[:, -1:], new wkv))``.
 
-    The reference's dtype order: the mixes and projections in x.dtype,
+    The reference's dtype order: the mixes and projections in x.dtype (on
+    the card the mixes are the kernel's: float32 inside, each output
+    rounded once),
     ``lw = w_base + (tanh(xw @ w_lora_A) @ w_lora_B).float()`` then
     ``-exp(lw)``, r, k, v cast to f32 for the recurrence, y cast back, then
     ``rmsnorm(y, ln_x_g) * g`` through the rmsnorm kernel. Without a state
@@ -145,13 +146,10 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, headdim: int = 64,
     Pd = headdim
     prev = state[0] if state is not None else None
     with span("turnip.rwkv.mix"):
-        xs = _token_shift(x, prev)
-        dx = xs - x
         # data-dependent mixing coefficients (5 heads of a shared LoRA)
         lr = split_last(torch.tanh(x @ p["mix_lora_A"]), B, S, 5, -1)
-        mixes = p["mix_rkvwg"][None, None] + torch.einsum(
-            "bsfr,frd->bsfd", lr, p["mix_lora_B"])    # [B, S, 5, D]
-        xr, xk, xv, xw, xg = (x + dx * mixes[:, :, i] for i in range(5))
+        mix = rwkv_mix_plain if meshed(x) else rwkv_mix
+        xr, xk, xv, xw, xg = mix(x, prev, p["mix_rkvwg"], lr, p["mix_lora_B"])
 
     r = split_last(xr @ p["wr"], B, S, H, Pd)
     k = split_last(xk @ p["wk"], B, S, H, Pd)
@@ -193,10 +191,8 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor, *,
     """x: [B, S, D]; ``state`` the shift [B, 1, D]; with it (or
     ``return_state``) returns ``(out, x[:, -1:])``."""
     with span("turnip.rwkv.mix"):
-        xs = _token_shift(x, state)
-        dx = xs - x
-        xk = x + dx * p["cmix_k"]
-        xr = x + dx * p["cmix_r"]
+        mix = rwkv_mix_plain if meshed(x) else rwkv_mix
+        xk, xr = mix(x, state, (p["cmix_k"], p["cmix_r"]))
     k = torch.square(torch.relu(xk @ p["ck"]))
     kv = k @ p["cv"]
     out = constrain(torch.sigmoid(xr @ p["cr"]) * kv, ("pod", "data"), None,
